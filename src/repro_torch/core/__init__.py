@@ -7,7 +7,7 @@ from .design import (
 )
 from .graph import DenseGraph, build_graph, step_cost_matrix, traffic_matrix
 from .latency import (
-    path_cost_doubling, latency_proxy, average_latency, num_doubling_steps,
+    path_cost_doubling, path_cost_minplus, latency_proxy, average_latency, num_doubling_steps,
     routed_hops, routed_diameter, routed_diameter_batch,
 )
 from .throughput import (edge_flows, edge_flows_load, throughput_proxy,
@@ -23,7 +23,7 @@ __all__ = [
     "Packaging", "Technology", "TrafficEntry", "Design",
     "DesignValidationError", "validate_design", "validate_traffic",
     "DenseGraph", "build_graph", "step_cost_matrix", "traffic_matrix",
-    "path_cost_doubling", "latency_proxy", "average_latency",
+    "path_cost_doubling", "path_cost_minplus", "latency_proxy", "average_latency",
     "num_doubling_steps", "routed_hops", "routed_diameter",
     "routed_diameter_batch",
     "edge_flows", "edge_flows_load", "throughput_proxy", "bottleneck_edges",

@@ -17,7 +17,8 @@ paper specifies.
 
 Every function takes [n, n] tensors or a batch [B, n, n] written out (the
 reference vmapped the 2-D form) and runs on the tensors' device.
-``path_cost_minplus`` is not ported yet (it waits for the min-plus kernel).
+``path_cost_minplus`` is the shortest-path alternative by (min, +)
+squaring, through the min-plus kernel with ``use_kernel=True``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from ..kernels.ref import BIG, minplus_ref
 from ..utils.device import resolve_device
 
 
@@ -69,6 +71,41 @@ def path_cost_doubling(next_hop: torch.Tensor, step_cost: torch.Tensor,
     total = cost + node_weight[:, None, :]
     inf = torch.full((), torch.inf, dtype=total.dtype, device=dev)
     out = torch.where(reached, total, inf).to(torch.float32)
+    return out[0] if squeeze else out
+
+
+def path_cost_minplus(step_cost: torch.Tensor, node_weight: torch.Tensor,
+                      n_steps: int | None = None,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """All-pairs shortest path cost by min-plus matrix squaring.
+
+    step_cost: [n, n] or [B, n, n] (+inf = no edge); node_weight: [n] or
+    [B, n], the destination's weight added at the end. By default each
+    squaring is ``kernels.ops.minplus_matmul`` (the Hopper kernel for a
+    CUDA tensor, its plain version on the CPU); ``use_kernel=False`` asks
+    for the plain ``minplus_ref`` broadcast on any device, the reference
+    the kernel route is held against. Both give the same bits.
+    Only valid when routing is shortest-path w.r.t. the same metric.
+    Returns float32, +inf where unreachable.
+    """
+    squeeze = step_cost.dim() == 2
+    if squeeze:
+        step_cost, node_weight = step_cost[None], node_weight[None]
+    n = step_cost.shape[-1]
+    if n_steps is None:
+        n_steps = num_doubling_steps(n)
+    if use_kernel:
+        from ..kernels.ops import minplus_matmul as mm
+    else:
+        mm = minplus_ref
+    sc = step_cost.to(torch.float32)
+    eye = torch.eye(n, dtype=torch.bool, device=sc.device)
+    d = torch.minimum(torch.where(torch.isfinite(sc), sc, BIG),
+                      torch.where(eye, 0.0, BIG))
+    for _ in range(n_steps):
+        d = torch.clamp_max(mm(d, d), BIG)
+    total = d + node_weight.to(torch.float32)[:, None, :]
+    out = torch.where(d >= BIG * 0.5, torch.inf, total)
     return out[0] if squeeze else out
 
 
@@ -149,6 +186,7 @@ def average_latency(next_hop: torch.Tensor, step_cost: torch.Tensor,
     return latency_proxy(plat[..., :n_c, :n_c], traffic)
 
 
-__all__ = ["num_doubling_steps", "path_cost_doubling", "routed_hops",
+__all__ = ["num_doubling_steps", "path_cost_doubling", "path_cost_minplus",
+           "routed_hops",
            "routed_diameter", "routed_diameter_batch", "pairwise_sum",
            "latency_proxy", "average_latency"]

@@ -12,13 +12,15 @@ The engine is:
   device evaluates chunk i.
 
 It runs on one explicit ``device`` (None -> cuda, which raises without a
-GPU). The reference's mesh sharding and its genome and fault paths are not
+GPU). ``evaluate_genomes`` is the optimizer's cost function
+(``dse.genomes``). The reference's mesh sharding and its fault grid are not
 ported yet.
 """
 from __future__ import annotations
 
 import json
 import os
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
@@ -79,11 +81,53 @@ class DseEngine:
         self.checkpoint_path = checkpoint_path
         self.prefetch = prefetch
         self._done: dict[int, tuple[float, float]] = {}
+        self._genome_pipelines: dict[int, tuple] = {}
+        self._pipeline_lock = threading.Lock()
         if checkpoint_path and os.path.exists(checkpoint_path):
             with open(checkpoint_path) as f:
                 for line in f:
                     rec = json.loads(line)
                     self._done[rec["index"]] = (rec["latency"], rec["throughput"])
+
+    # -- genome path (dse.genomes) ------------------------------------------
+    def _genome_pipeline(self, space):
+        """Per-space pipeline, built once and cached for the engine's
+        lifetime (the key holds a strong reference to the space, so ids
+        stay unique). Lock-guarded: concurrent callers over one shared
+        space get ONE pipeline."""
+        from .genomes import make_pipeline
+        with self._pipeline_lock:
+            cached = self._genome_pipelines.get(id(space))
+            if cached is not None and cached[0] is space:
+                return cached[1]
+            pipeline = make_pipeline(space, self.device)
+            self._genome_pipelines[id(space)] = (space, pipeline)
+            return pipeline
+
+    def supports_genomes(self, space) -> bool:
+        """True when ``evaluate_genomes`` has a device path for this space."""
+        return self._genome_pipeline(space) is not None
+
+    def evaluate_genomes(self, space, genomes):
+        """From a genome population to metrics on the engine's device, with
+        no DesignPoint materialization: decode, geometry, routing tables
+        and proxies (see ``dse.genomes``). Genomes must be valid
+        (``space.repair`` output). Raises ValueError for spaces whose
+        structures the device path cannot reproduce (use
+        ``evaluate_points``)."""
+        return self.evaluate_genomes_async(space, genomes).result()
+
+    def evaluate_genomes_async(self, space, genomes):
+        """``evaluate_genomes`` without waiting for the device: returns a
+        ``PendingGenomeEval`` whose ``result()`` waits on the CUDA event of
+        the last launch and adds the host reports."""
+        pipeline = self._genome_pipeline(space)
+        if pipeline is None:
+            raise ValueError(
+                f"no device genome path for {type(space).__name__} "
+                f"(routing {getattr(space, 'routing', None)!r}); "
+                f"use evaluate_points")
+        return pipeline.evaluate_async(genomes)
 
     def evaluate_batch(self, batch: DesignBatch) -> DseResult:
         with _span("dse.evaluate_batch", b=batch.size, n=batch.n):

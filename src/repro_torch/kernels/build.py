@@ -22,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -94,16 +96,29 @@ def build_all(names: tuple[str, ...] = SOURCES) -> float:
     return time.perf_counter() - t0
 
 
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built at first use."""
+def library(name: str, signatures: dict | None = None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built at first use, with
+    ``signatures`` ({function: (restype, argtypes)}) applied."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
             _finish(name, _start(name))
             lib = ctypes.CDLL(str(library_path(name)))
+            for fn, (restype, argtypes) in (signatures or {}).items():
+                getattr(lib, fn).restype = restype
+                getattr(lib, fn).argtypes = argtypes
             _LIBS[name] = lib
         return lib
 
 
+def require_sm90(device, what: str) -> None:
+    """Raise unless ``device`` is an sm_90 GPU (the kernels are built for
+    sm_90a only)."""
+    cap = torch.cuda.get_device_capability(device)
+    if cap != (9, 0):
+        raise RuntimeError(f"{what} is built for sm_90a; {device} is "
+                           f"sm_{cap[0]}{cap[1]}")
+
+
 __all__ = ["CSRC", "SOURCES", "NVCC_FLAGS", "BUILD_LOGS", "build_dir",
-           "build_all", "library", "library_path", "nvcc"]
+           "build_all", "library", "library_path", "nvcc", "require_sm90"]

@@ -160,11 +160,7 @@ _SIGNATURES = {
 def _lib() -> ctypes.CDLL:
     from .build import library
 
-    lib = library("load_prop")
-    for fn, (restype, argtypes) in _SIGNATURES.items():
-        getattr(lib, fn).restype = restype
-        getattr(lib, fn).argtypes = argtypes
-    return lib
+    return library("load_prop", _SIGNATURES)
 
 
 def _check_cuda_args(next_hop: torch.Tensor, load0: torch.Tensor,
@@ -184,10 +180,9 @@ def _check_cuda_args(next_hop: torch.Tensor, load0: torch.Tensor,
         raise ValueError("load_prop_cuda takes contiguous tensors")
     if max_hops < 0:
         raise ValueError(f"max_hops={max_hops} must be >= 0")
-    cap = torch.cuda.get_device_capability(next_hop.device)
-    if cap != (9, 0):
-        raise RuntimeError(f"the load-propagation kernel is built for "
-                           f"sm_90a; {next_hop.device} is sm_{cap[0]}{cap[1]}")
+    from .build import require_sm90
+
+    require_sm90(next_hop.device, "the load-propagation kernel")
 
 
 def load_prop_cuda(next_hop: torch.Tensor, load0: torch.Tensor,

@@ -8,6 +8,14 @@ from .tables import (
     channel_dependency_cycle,
     ROUTING_ALGORITHMS,
 )
+from .hierarchical import (
+    band_clusters,
+    grid_clusters,
+    hierarchical_hops_dist,
+    hops_next_hop_auto,
+    hops_next_hop_hierarchical,
+    use_clusters,
+)
 
 __all__ = [
     "build_routing_table",
@@ -18,4 +26,10 @@ __all__ = [
     "route_walk",
     "channel_dependency_cycle",
     "ROUTING_ALGORITHMS",
+    "band_clusters",
+    "grid_clusters",
+    "hierarchical_hops_dist",
+    "hops_next_hop_auto",
+    "hops_next_hop_hierarchical",
+    "use_clusters",
 ]

@@ -56,6 +56,25 @@ _register(
     "Pin the destination-slab tile of the plain slab form (auto via "
     "load_prop.pick_tile when unset). The CUDA kernel's slab depends on n "
     "only (load_prop.cuda_tile).")
+_register(
+    "REPRO_APSP_FUSED_N", "int", 160,
+    "Node count above which APSP leaves the fused whole-matrix form for "
+    "one blocked min-plus squaring per step (the tiled CUDA kernel on the "
+    "card, the row-slab plain form on the CPU).")
+_register(
+    "REPRO_APSP_TILE", "int", None,
+    "Pin the row-slab tile of the plain blocked APSP (auto via "
+    "load_prop.pick_tile when unset). The CUDA kernels tile by n only.")
+
+# --- routing ---------------------------------------------------------------
+_register(
+    "REPRO_ROUTING_BLOCK_N", "int", 160,
+    "Node count above which routing-table construction switches to the "
+    "destination-blocked scans.")
+_register(
+    "REPRO_ROUTING_TILE", "int", None,
+    "Pin the destination-slab tile of the blocked routing scans (auto via "
+    "load_prop.pick_tile when unset).")
 
 # --- observability ---------------------------------------------------------
 _register(

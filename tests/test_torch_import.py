@@ -34,7 +34,11 @@ def test_port_imports_neither_jax_nor_repro():
     assert rec["leaked"] == []
     for name in ("repro_torch.kernels.load_prop", "repro_torch.kernels.ops",
                  "repro_torch.core.proxies", "repro_torch.dse.engine",
-                 "repro_torch.routing.tables"):
+                 "repro_torch.routing.tables", "repro_torch.kernels.ref",
+                 "repro_torch.kernels.minplus", "repro_torch.kernels.apsp",
+                 "repro_torch.routing.device",
+                 "repro_torch.routing.hierarchical",
+                 "repro_torch.opt.space", "repro_torch.dse.genomes"):
         assert name in rec["modules"]
 
 
@@ -54,10 +58,13 @@ def test_evaluate_design_defaults_to_cuda_and_raises_without_it(no_gpu):
 
 
 @pytest.mark.parametrize("entry", ["engine", "encode", "batch_from_numpy",
-                                   "diameter"])
+                                   "diameter", "lowest_id_tables",
+                                   "hierarchical"])
 def test_batched_entry_points_raise_without_gpu(no_gpu, entry):
     import numpy as np
     from repro_torch.core.latency import routed_diameter_batch
+    from repro_torch.routing.device import next_hop_lowest_id_batch
+    from repro_torch.routing.hierarchical import hops_next_hop_auto
     from repro_torch.dse import (DseEngine, ExperimentSpec, batch_from_numpy,
                                  encode_designs, expand_experiments)
 
@@ -70,6 +77,10 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry):
         "batch_from_numpy": lambda: batch_from_numpy(
             nh, z, z[:, 0], z, z, max_hops=1),
         "diameter": lambda: routed_diameter_batch(nh),
+        "lowest_id_tables": lambda: next_hop_lowest_id_batch(
+            np.where(np.eye(4) > 0, np.inf, 1.0)[None]),
+        "hierarchical": lambda: hops_next_hop_auto(
+            np.ones((4, 4), bool) & ~np.eye(4, dtype=bool), None),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
