@@ -42,10 +42,34 @@ Phases, each fatal on error (exit code 1, no result line):
     version on the operands it is timed on, at the shapes those paths give
     it, and its time beside its bound and the plain version's;
     routing-table time per population; the genome path's layers; the host
-    syncs of the BFS and up*/down* loops.
+    syncs of the BFS and up*/down* loops;
+12. the selective-scan kernels (forward B7, backward B8) against their plain
+    versions at ragged shapes (Di 12, S 24, chunk 8, N 4 and 8) and at the
+    training path's [2, 2048, 8192], N 16, chunk 256: forward within rtol
+    1e-4 / atol 1e-5, backward within rtol 2e-3 / atol 5e-4 (the
+    reference's own test bounds: exps and sums over N and over channels in
+    another order); two runs bit-equal; a sequence alone bit-equal to it in
+    the batch; their times at the path's shape beside their bounds;
+13. training: ``repro_torch.launch.train.train`` on falcon-mamba-7b at its
+    published widths (d_model 4096, d_inner 8192, N 16, vocab 65024, bf16
+    compute, f32 parameters, remat "full") cut to 2 layers, batch 2 x 2048
+    tokens, 4 AdamW steps at lr 1e-4 on ``SyntheticTokens``: every loss
+    finite and the last below the first, both scan kernels launched, and
+    the same run on the chunked-scan route within rtol 1e-3; one float32
+    step of the kernel route against the chunked-scan route from the same
+    parameters (loss within rtol 1e-4, gradient norm within rtol 1e-3);
+    step time, tokens/s, peak memory, the device's idle share and the layers
+    of a step (CUDA events);
+14. the pair-walk throughput oracle: the flow-accumulation kernel (B6)
+    bit-equal to the CPU's ascending-p scatter and within rtol 1e-5 of
+    ``index_add_`` on the card, alone == in a batch;
+    ``throughput_proxy(use_kernel=True)`` on every registry topology at 64
+    chiplets and the 256-chiplet mesh within rtol 1e-5 of the
+    load-propagation route; one hop's kernel time beside its bound, the
+    plain version's and ``index_put_(accumulate=True)``'s.
 
-Every path (phases 3, 4, 5, 8, 9, 10) is driven with every kernel's launch
-count set to 0 just before it and read just after; a path whose kernels
+Every path (phases 3, 4, 5, 8, 9, 10, 13, 14) is driven with every kernel's
+launch count set to 0 just before it and read just after; a path whose kernels
 were not launched fails the run. Launches made to compare a kernel with its
 plain version are not counted. The second-to-last line carries the card's
 name and power limit from nvidia-smi, the line before it the
@@ -83,6 +107,17 @@ GENOME_SPACES = (   # (name, n_chiplets or None for parametric, population,
     ("adjacency_32", 32, 24, 3),            # fresh populations checked)
     ("adjacency_256", 256, 8, 1),
     ("parametric", None, 64, 2))
+SCAN_SHAPES = ((2, 24, 12, 4, 8), (2, 24, 12, 8, 8))   # B, S, Di, N, chunk
+TRAIN_ARCH = "falcon-mamba-7b"
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2, 2048, 4
+TRAIN_LR = 1e-4     # at 3e-4 the first AdamW step diverges at this width
+# bf16 losses of the two scan routes: f32 scans summed in another order and
+# cast to bf16, then AdamW steps that are close to lr * sign(g)
+TRAIN_ROUTE_RTOL = 1e-3
+FLOW_CHIPLETS, FLOW_LARGE = 64, 256     # pair-walk oracle: registry, mesh
+SCAN_FWD_TOL = dict(rtol=1e-4, atol=1e-5)   # the reference's test bounds
+SCAN_BWD_TOL = dict(rtol=2e-3, atol=5e-4)
+SFU_PER_SM = 16                 # MUFU.EX2 results per clock per SM (sm_90)
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
@@ -165,6 +200,10 @@ def profile_device(torch, fn, n_top: int = 6):
         wall_s = time.perf_counter() - t0
     kernel_us = {}
     for ev in prof.key_averages():
+        # only the device's own events (kernels, copies): a CPU op's entry
+        # repeats the time of the kernels it launched
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
         us = getattr(ev, "self_device_time_total",
                      getattr(ev, "self_cuda_time_total", 0.0))
         if us > 0:
@@ -363,9 +402,12 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
                     else ParametricSpace(), pop_size, rounds)
               for key, n, pop_size, rounds in GENOME_SPACES}
     gen_syncs = {}
-    zero_counts()
+    gen_minplus = 0
+    # one path per space, so the n = 256 space's load propagation can be
+    # told apart (the reference's tiled tier, B2)
     for si, (key, (space, pop_size, rounds)) in enumerate(spaces.items()):
         rng_g = np.random.default_rng(90 + si)
+        zero_counts()
         for r in range(rounds):
             pop = space.sample(rng_g, pop_size)
             syncs0 = rdev.host_syncs()
@@ -373,7 +415,10 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
             gen_syncs[key] = {k: v - syncs0[k]
                               for k, v in rdev.host_syncs().items()}
             check_genomes(key, res, eng_cpu.evaluate_genomes(space, pop))
-    read_counts("genomes", ("load_propagate", "minplus"))
+        gen_minplus += read_counts(f"genomes_{key}",
+                                   ("load_propagate",))["minplus"]
+    if gen_minplus == 0:
+        fail("the genome paths launched no minplus kernel")
     for key, (space, pop_size, _) in spaces.items():
         pop = space.sample(np.random.default_rng(99), pop_size)
         alone_equal(key, eng, space, pop, eng.evaluate_genomes(space, pop))
@@ -568,6 +613,377 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
     return [fused, square, minplus]
 
 
+def scan_inputs(torch, rng, B, S, Di, N, dev):
+    """Selective-scan operands as the training path makes them: dt a
+    softplus output, a = -exp(a_log) with the S4D-real init (1..N), B, C and
+    x of unit scale; plus a cotangent dy."""
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    a = -np.tile(np.arange(1, N + 1, dtype=np.float32), (Di, 1))
+    a *= rng.uniform(0.5, 1.5, (Di, N)).astype(np.float32)
+    return (f(rng.normal(0, 1, (B, S, Di))),
+            f(np.log1p(np.exp(rng.normal(-4.6, 1.0, (B, S, Di))))),
+            f(rng.normal(0, 1, (B, S, N))), f(rng.normal(0, 1, (B, S, N))),
+            f(a), f(np.zeros((B, Di, N))), f(rng.normal(0, 1, (B, S, Di))))
+
+
+def scan_and_training_paths(torch, dev, zero_counts, read_counts,
+                            clock_hz) -> tuple[list[dict], dict]:
+    """Phases 12-13. Returns the records of selective_scan_fwd and
+    selective_scan_bwd (launches filled in by the caller) and the training
+    report."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.train import build_state, to_device, train
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.optimizer import adamw_update, global_norm
+
+    def close(got, want, tol):
+        return all(torch.allclose(g, w, **tol) for g, w in zip(got, want))
+
+    def max_err(got, want):
+        return max((g - w).abs().max().item() for g, w in zip(got, want))
+
+    # -- 12. selective scan kernels vs plain ---------------------------------
+    cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS,
+                                         ssm_kernel=True)
+    Di, N, chunk = cfg.d_inner, cfg.ssm_state, cfg.ssm_chunk
+    path_shape = (TRAIN_BATCH, TRAIN_SEQ, Di, N, chunk)
+    rng = np.random.default_rng(12)
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for shape in SCAN_SHAPES + (path_shape,):
+        B, S, di, n, ch = shape
+        xc, dt, bm, cm, a, h0, dy = scan_inputs(torch, rng, B, S, di, n, dev)
+        fk = ss.selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0, chunk=ch)
+        fp = ss.selective_scan_fwd_plain(xc, dt, bm, cm, a, h0, chunk=ch)
+        torch.cuda.synchronize()
+        if not close(fk, fp, SCAN_FWD_TOL):
+            fail(f"phase 12: scan forward kernel differs from plain at "
+                 f"{shape}: max abs err {max_err(fk, fp)}")
+        ckpt = fk[1]
+        bk = ss.selective_scan_bwd_cuda(xc, dt, bm, cm, a, ckpt, dy, chunk=ch)
+        bp = ss.selective_scan_bwd_plain(xc, dt, bm, cm, a, ckpt, dy,
+                                         chunk=ch)
+        torch.cuda.synchronize()
+        if not close(bk, bp, SCAN_BWD_TOL):
+            fail(f"phase 12: scan backward kernel differs from plain at "
+                 f"{shape}: max abs err {max_err(bk, bp)}")
+        errs["fwd"] = max(errs["fwd"], max_err(fk, fp))
+        errs["bwd"] = max(errs["bwd"], max_err(bk, bp))
+        fk2 = ss.selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0, chunk=ch)
+        bk2 = ss.selective_scan_bwd_cuda(xc, dt, bm, cm, a, ckpt, dy,
+                                         chunk=ch)
+        if not all(torch.equal(p, q) for p, q in zip(fk + bk, fk2 + bk2)):
+            fail(f"phase 12: two runs of the scan kernels differ at {shape}")
+        b = B - 1
+        one = [t[b:b + 1].contiguous() for t in (xc, dt, bm, cm)]
+        f1 = ss.selective_scan_fwd_cuda(*one, a, h0[b:b + 1].contiguous(),
+                                        chunk=ch)
+        g1 = ss.selective_scan_bwd_cuda(*one, a, f1[1],
+                                        dy[b:b + 1].contiguous(), chunk=ch)
+        same = all(torch.equal(f1[i][0], fk[i][b]) for i in range(3)) and \
+            all(torch.equal(g1[i][0], bk[i][b]) for i in (0, 1, 2, 3, 5))
+        if not same:
+            fail(f"phase 12: sequence {b} alone differs from it in the batch "
+                 f"at {shape}")
+    log(f"phase 12: scan kernels within {SCAN_FWD_TOL} (forward) and "
+        f"{SCAN_BWD_TOL} (backward) of plain at {list(SCAN_SHAPES)} and the "
+        f"path's {path_shape}, max abs err {errs}; two runs bit-equal; a "
+        f"sequence alone bit-equal to it in the batch")
+
+    # timing at the path's shape; bounds from its bytes and its exps/flops
+    B, S, _, _, _ = path_shape
+    elems = B * S * Di * N
+    f32 = 4.0
+    exp_per_s = SMS * SFU_PER_SM * clock_hz
+
+    def bound(nbytes, exps, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = max(exps / exp_per_s, flops / FP32_OPS_PER_S) * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "exps": exps, "flops": flops}
+
+    seq_io = B * S * Di * f32
+    small = (2 * B * S * N + Di * N + B * Di * N) * f32
+    ckpt_bytes = B * (S // chunk) * Di * N * f32
+    fwd_ms = time_cuda(torch, lambda: ss.selective_scan_fwd_cuda(
+        xc, dt, bm, cm, a, h0, chunk=chunk), reps=10)
+    bwd_ms = time_cuda(torch, lambda: ss.selective_scan_bwd_cuda(
+        xc, dt, bm, cm, a, ckpt, dy, chunk=chunk), reps=5)
+    fwd_rec = {
+        "name": "selective_scan_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/kernels/selective_scan.py:38",
+        "shape": list(path_shape), "max_abs_err": errs["fwd"], "ms": fwd_ms,
+        "plain_ms": time_cuda(torch, lambda: ss.selective_scan_fwd_plain(
+            xc, dt, bm, cm, a, h0, chunk=chunk), reps=2, warmup=1),
+        "library_ms": None,
+        # x, dt in; y out; B, C, a, h0, hT; the checkpoints. One exp per
+        # state update; dt*a, dx*B, the update FMA and the y FMA: 6 flops
+        **bound(3 * seq_io + small + B * Di * N * f32 + ckpt_bytes,
+                elems, 6 * elems)}
+    bwd_rec = {
+        "name": "selective_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/kernels/selective_scan.py:116",
+        "shape": list(path_shape), "max_abs_err": errs["bwd"], "ms": bwd_ms,
+        "plain_ms": time_cuda(torch, lambda: ss.selective_scan_bwd_plain(
+            xc, dt, bm, cm, a, ckpt, dy, chunk=chunk), reps=1, warmup=1),
+        "library_ms": None,
+        # x, dt, dy in; dx, ddt out; B, C, a, dB, dC, dA, dh0; the
+        # checkpoints. The states must be recomputed once (one exp each,
+        # reused by the reverse walk); about 18 flops per state in the
+        # recomputation and the adjoint step
+        **bound(5 * seq_io + 2 * small + B * Di * N * f32 + ckpt_bytes,
+                elems, 18 * elems)}
+    del xc, dt, bm, cm, a, h0, dy, ckpt, fk, fp, bk, bp, fk2, bk2
+    log(f"phase 12: at {path_shape}: forward {fwd_ms:.4f} ms (bound "
+        f"{fwd_rec['bound_ms']:.4f}, {fwd_rec['bound_by']}), backward "
+        f"{bwd_ms:.4f} ms (bound {bwd_rec['bound_ms']:.4f}, "
+        f"{bwd_rec['bound_by']})")
+
+    # -- 13. training: falcon-mamba-7b at full width, 2 layers ---------------
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    _, losses = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                      seq_len=TRAIN_SEQ, lr=TRAIN_LR, log_every=1, seed=0,
+                      device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak_train = torch.cuda.max_memory_allocated()
+    counts = read_counts("training", ("selective_scan_fwd",
+                                      "selective_scan_bwd"))
+    counts = {k: counts[k] for k in ("selective_scan_fwd",
+                                     "selective_scan_bwd")}
+    # remat re-runs each layer's forward inside its backward
+    expected = {"selective_scan_fwd": 2 * TRAIN_LAYERS * TRAIN_STEPS,
+                "selective_scan_bwd": TRAIN_LAYERS * TRAIN_STEPS}
+    if counts != expected:
+        fail(f"phase 13: scan launches {counts}, remat predicts {expected}")
+    if not (len(losses) == TRAIN_STEPS and np.all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        fail(f"phase 13: training losses {losses} are not finite and "
+             f"falling")
+    # the same run on the chunked-scan route (the model-level plain version)
+    _, losses_chunked = train(cfg.replace(ssm_kernel=False),
+                              steps=TRAIN_STEPS, batch=TRAIN_BATCH,
+                              seq_len=TRAIN_SEQ, lr=TRAIN_LR,
+                              log_every=TRAIN_STEPS, seed=0, device=dev)
+    if not np.allclose(losses, losses_chunked, rtol=TRAIN_ROUTE_RTOL,
+                       atol=0.0):
+        fail(f"phase 13: kernel-route losses {losses} differ from the "
+             f"chunked-scan route's {losses_chunked}")
+    log(f"phase 13: {TRAIN_ARCH} (d_model {cfg.d_model}, d_inner {Di}, "
+        f"N {N}, vocab {cfg.vocab_size}, {TRAIN_LAYERS} layers) trained "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} in "
+        f"{train_s:.3f} s: losses {losses} (chunked-scan route "
+        f"{losses_chunked}, within rtol {TRAIN_ROUTE_RTOL}); scan launches "
+        f"{counts}, as remat predicts; peak "
+        f"{peak_train / 2**30:.3f} GiB")
+
+    # one f32 step, kernel route vs chunked-scan route, same parameters
+    batch = to_device(SyntheticTokens(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ,
+                                      seed=1).batch_at(0), dev)
+    f32_out = {}
+    for kern in (True, False):
+        model = Model(cfg.replace(dtype="float32", ssm_kernel=kern), seed=0,
+                      device=dev)
+        loss, _ = model.loss(batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        f32_out[kern] = (loss.item(), global_norm(dict(enumerate(grads))
+                                                  ).item())
+        del model, loss, grads
+        torch.cuda.empty_cache()
+    (lk, gk), (lc, gc) = f32_out[True], f32_out[False]
+    if not (abs(lk / lc - 1) <= 1e-4 and abs(gk / gc - 1) <= 1e-3):
+        fail(f"phase 13: f32 kernel route loss {lk} / grad norm {gk} vs "
+             f"chunked scan {lc} / {gc}")
+    log(f"phase 13: f32 step, kernel route loss {lk} grad norm {gk}; "
+        f"chunked-scan route {lc} / {gc} (loss within rtol 1e-4, grad norm "
+        f"within 1e-3)")
+
+    # step time, device idle share and the layers of one step (bf16)
+    model = Model(cfg, seed=0, device=dev)
+    ocfg = OptConfig(learning_rate=TRAIN_LR, warmup_steps=0,
+                     decay_steps=TRAIN_STEPS)
+    state = build_state(model, "adamw")
+    step = make_train_step(model, ocfg)
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    step_s = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        m["loss"].item()
+        step_s.append(time.perf_counter() - t0)
+    wall_s, busy_s, top = profile_device(torch, lambda: step(state, batch),
+                                         n_top=6)
+    params = model.params()
+    tokens = batch["tokens"]
+    bf = cfg.compute_dtype
+    M = TRAIN_BATCH * TRAIN_SEQ
+
+    def fwd_bwd(fn, *leaves):
+        def run():
+            out = fn()
+            torch.autograd.grad(out, leaves, torch.ones_like(out))
+        return run
+
+    table = params["embed"]["table"]
+    emb = time_cuda(torch, fwd_bwd(lambda: L.embed(params["embed"], tokens,
+                                                   bf), table), reps=5)
+    mats = 0.0
+    r2n = cfg.ssm_dt_rank + 2 * N
+    for k_, n_ in ((cfg.d_model, 2 * Di), (Di, r2n), (cfg.ssm_dt_rank, Di),
+                   (Di, cfg.d_model)):
+        xa = torch.randn((M, k_), device=dev, dtype=bf, requires_grad=True)
+        w = torch.randn((k_, n_), device=dev, requires_grad=True)
+        fwd = time_cuda(torch, lambda: xa @ w.to(bf), reps=10)
+        both = time_cuda(torch, fwd_bwd(lambda: xa @ w.to(bf), xa, w),
+                         reps=10)
+        mats += fwd + both              # remat: the forward runs twice
+    x_fin = torch.randn((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model), device=dev,
+                        dtype=bf, requires_grad=True)
+    ce_ms = time_cuda(torch, fwd_bwd(lambda: model.ce_loss(
+        x_fin, batch["labels"], params)[0], x_fin, params["unembed"]["w"]),
+        reps=3)
+    grads = {k: torch.zeros_like(p) for k, p in state["params"].items()}
+    plain = {k: p.detach() for k, p in state["params"].items()}
+    opt_ms = time_cuda(torch, lambda: adamw_update(
+        ocfg, plain, grads, state["opt"], state["step"]), reps=3)
+    del grads, x_fin
+    step_ms = statistics.median(step_s) * 1e3
+    layers = {
+        "embed_ms": emb, "mixer_matmuls_ms": TRAIN_LAYERS * mats,
+        "scan_kernels_ms": TRAIN_LAYERS * (2 * fwd_ms + bwd_ms),
+        "ce_chunks_ms": ce_ms, "optimizer_ms": opt_ms,
+    }
+    layers["rest_ms"] = step_ms - sum(layers.values())
+    report = {
+        "arch": TRAIN_ARCH, "layers_kept": TRAIN_LAYERS,
+        "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "losses": losses, "losses_chunked_route": losses_chunked,
+        "train_wall_s": train_s,
+        "peak_alloc_bytes_train": peak_train,
+        "n_params": sum(p.numel() for p in model.parameters()),
+        "step_ms": step_ms, "tokens_per_s": M / (step_ms / 1e3),
+        "profiled_wall_ms": wall_s * 1e3, "device_busy_ms": busy_s * 1e3,
+        "device_idle_share": 1.0 - busy_s / wall_s,
+        "top_device_us": dict(top), "layers_per_step": layers,
+        "f32_kernel_vs_chunked": {"kernel": f32_out[True],
+                                  "chunked": f32_out[False]},
+    }
+    del model, state, step, params, plain
+    torch.cuda.empty_cache()
+    log(f"phase 13: step {step_ms:.1f} ms ({M / (step_ms / 1e3):.0f} "
+        f"tokens/s), device idle {report['device_idle_share']:.4f}; layers "
+        f"{layers}")
+    return [fwd_rec, bwd_rec], report
+
+
+def flow_paths(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 14. Returns the flow_accumulate record (launches filled in by
+    the caller)."""
+    from repro_torch.core.latency import routed_diameter_batch
+    from repro_torch.core.proxies import prepare_arrays
+    from repro_torch.core.throughput import throughput_proxy
+    from repro_torch.kernels import flow_accum as fa
+    from repro_torch.topologies import TOPOLOGIES, make_design
+    from repro_torch.traffic import make_traffic
+
+    rng = np.random.default_rng(14)
+    for B, n in ((1, 8), (4, 20), (13, 64), (1, 256), (3, 130)):
+        P = n * n
+        flow = rng.uniform(0, 5, (B, n, n)).astype(np.float32)
+        ops_ = [torch.from_numpy(x) for x in (
+            flow, rng.integers(0, n, (B, P)).astype(np.int32),
+            rng.integers(0, n, (B, P)).astype(np.int32),
+            rng.uniform(0, 2, (B, P)).astype(np.float32))]
+        on_card = [t.to(dev) for t in ops_]
+        got = fa.flow_accum_cuda(*on_card)
+        if not torch.equal(got.cpu(), fa.flow_accum_plain(*ops_)):
+            fail(f"phase 14: flow kernel differs from the CPU scatter "
+                 f"(ascending p) at B={B} n={n}")
+        if not torch.allclose(got, fa.flow_accum_plain(*on_card), rtol=1e-5,
+                              atol=1e-5):
+            fail(f"phase 14: flow kernel differs from index_add_ on the card "
+                 f"at B={B} n={n}")
+        one = fa.flow_accum_cuda(*(t[B - 1:B].contiguous() for t in on_card))
+        if not torch.equal(one[0], got[B - 1]):
+            fail(f"phase 14: design alone differs from it in a batch at n={n}")
+    log("phase 14: flow kernel bit-equal to the CPU scatter, within rtol "
+        "1e-5 of index_add_ on the card (atomics add in any order), alone == "
+        "in a batch")
+
+    groups: dict[tuple, list] = {}       # (n, chiplets) -> designs
+    for topo, count in [(t, FLOW_CHIPLETS) for t in TOPOLOGIES
+                        if t != "custom"] + [("mesh", FLOW_LARGE)]:
+        arrays, _ = prepare_arrays(make_design(topo, count))
+        groups.setdefault((arrays.next_hop.shape[0], count), []).append(
+            (topo, arrays))
+    results = {}
+    zero_counts()
+    for n, members in groups.items():
+        nh = torch.from_numpy(np.stack([a.next_hop for _, a in members])
+                              ).to(dev)
+        bw = torch.from_numpy(np.stack([a.adj_bw for _, a in members])
+                              ).to(dev)
+        t = torch.from_numpy(make_traffic("random_uniform", n[1]).astype(
+            np.float32)).to(dev)
+        mh = int(routed_diameter_batch(nh).max())
+        results[n] = (nh, bw, t, mh,
+                      throughput_proxy(nh, bw, t, mh, True))
+    read_counts("pair_walk", ("flow_accumulate",))
+    for n, (nh, bw, t, mh, walk) in results.items():
+        load = throughput_proxy(nh, bw, t.expand(nh.shape[0], *t.shape), mh)
+        if not (torch.all(torch.isfinite(walk)) and torch.all(walk > 0)
+                and torch.allclose(walk, load, rtol=RTOL, atol=0.0)):
+            fail(f"phase 14: pair-walk throughput differs from the "
+                 f"load-propagation route at n={n}: {walk} vs {load}")
+    names = {n: [t for t, _ in m] for n, m in groups.items()}
+    log(f"phase 14: pair-walk throughput within rtol {RTOL} of load "
+        f"propagation for {names}")
+
+    # the record: one hop of the 256-chiplet mesh walk (its first hop: every
+    # pair at its source)
+    nh, bw, t, mh, _ = results[(FLOW_LARGE, FLOW_LARGE)]
+    n = nh.shape[-1]
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    cur = ids.repeat_interleave(n)[None].contiguous()
+    dest = ids.repeat(n)[None]
+    nxt = torch.gather(nh.reshape(1, n * n), 1, (cur * n + dest).long())
+    amount = torch.where(cur != dest, t.reshape(1, -1), 0.0).contiguous()
+    flow = torch.zeros((1, n, n), device=dev)
+    got = fa.flow_accum_cuda(flow, cur, nxt.contiguous(), amount)
+    want = fa.flow_accum_plain(flow.cpu(), cur.cpu(), nxt.cpu(),
+                               amount.cpu())
+    flat = (cur.long() * n + nxt.long()).reshape(-1)
+    live = int((amount != 0).sum())
+    nbytes = 2 * n * n * 4 + 3 * n * n * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = live / FP32_OPS_PER_S * 1e3
+    return {
+        "name": "flow_accumulate", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flow_accum.cu",
+        "replaces": "src/repro/kernels/flow_accum.py:28",
+        "shape": [1, n, n * n],
+        "max_abs_err": (got.cpu() - want).abs().max().item(),
+        "ms": time_cuda(torch, lambda: fa.flow_accum_cuda(
+            flow, cur, nxt.contiguous(), amount)),
+        "plain_ms": time_cuda(torch, lambda: fa.flow_accum_plain(
+            flow, cur, nxt, amount)),
+        "library_ms": time_cuda(torch, lambda: flow.reshape(-1).clone(
+        ).index_put_((flat,), amount.reshape(-1), accumulate=True)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "adds": live, "walk_hops": mh}
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import torch
@@ -583,8 +999,10 @@ def main() -> None:
                                  expand_experiments)
     from repro_torch.kernels import apsp as ap
     from repro_torch.kernels import build
+    from repro_torch.kernels import flow_accum as fa
     from repro_torch.kernels import load_prop as lp
     from repro_torch.kernels import minplus as mp
+    from repro_torch.kernels import selective_scan as ss
     from repro_torch.topologies import make_design
     from repro_torch.traffic import make_traffic
 
@@ -594,18 +1012,23 @@ def main() -> None:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
-    kernels = {"load_propagate": lp.load_prop_cuda,
-               "apsp_fused": ap.apsp_fused_cuda,
-               "apsp_square": ap.apsp_square_cuda,
-               "minplus": mp.minplus_cuda}
+    # name -> (wrapper, its counter)
+    kernels = {"load_propagate": (lp.load_prop_cuda, "launches"),
+               "apsp_fused": (ap.apsp_fused_cuda, "launches"),
+               "apsp_square": (ap.apsp_square_cuda, "launches"),
+               "minplus": (mp.minplus_cuda, "launches"),
+               "flow_accumulate": (fa.flow_accum_cuda, "launches"),
+               "selective_scan_fwd": (ss.selective_scan_fwd_cuda, "launches"),
+               "selective_scan_bwd": (ss.selective_scan_bwd_cuda, "launches")}
     path_launches: dict[str, dict] = {}
 
     def zero_counts() -> None:
-        for fn in kernels.values():
-            fn.launches = 0
+        for fn, counter in kernels.values():
+            setattr(fn, counter, 0)
 
     def read_counts(path: str, needs: tuple) -> dict:
-        counts = {name: fn.launches for name, fn in kernels.items()}
+        counts = {name: getattr(fn, counter)
+                  for name, (fn, counter) in kernels.items()}
         path_launches[path] = counts
         missing = [name for name in needs if counts[name] == 0]
         if missing:
@@ -842,24 +1265,43 @@ def main() -> None:
     # -- 7-11. min-plus kernels, device routing, genome cost function --------
     minplus_records = minplus_paths(torch, dev, zero_counts, read_counts)
 
+    # -- 12-14. selective scan, training, pair-walk oracle --------------------
+    scan_records, training = scan_and_training_paths(
+        torch, dev, zero_counts, read_counts, max_sm_clock_hz())
+    flow_record = flow_paths(torch, dev, zero_counts, read_counts)
+    print(json.dumps({"training": training}), flush=True)
+
     totals = {name: sum(c[name] for c in path_launches.values())
               for name in kernels}
     print(json.dumps({"path_launches": path_launches}), flush=True)
     log(f"kernel launches over all paths: {totals}")
     log(f"wall {time.perf_counter() - t_start:.1f} s")
-    records = [{
-        "name": "load_propagate",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/load_prop.cu",
-        "replaces": "src/repro/kernels/load_prop.py:144",
-        "also_replaces": "src/repro/kernels/load_prop.py:279",
-        "launches": totals["load_propagate"],
-        "max_abs_err": max([max_err] + [r["max_abs_err"]
-                                        for r in chunk_recs + [large_rec]]),
-        "ms": head["ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": None, "shape": head["shape"]}]
-    for rec in minplus_records:
+
+    # B1 and B2: one slab kernel, its launches split at the reference's
+    # tier boundary, each timed at a shape of its own tier
+    def load_prop_record(name, replaces, rec, launches):
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/load_prop.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"], "library_ms": None,
+                "shape": rec["shape"], "max_hops": rec["max_hops"]}
+
+    # the paths whose load propagation runs above 160 nodes, where the
+    # reference ran its tiled kernel: the 256-chiplet points and genomes
+    tiled = sum(path_launches[p]["load_propagate"]
+                for p in ("large_n", "genomes_adjacency_256"))
+    fused_rec = dict(head, max_abs_err=max(
+        [max_err] + [r["max_abs_err"] for r in chunk_recs]))
+    records = [
+        load_prop_record("load_propagate",
+                         "src/repro/kernels/load_prop.py:144", fused_rec,
+                         totals["load_propagate"] - tiled),
+        load_prop_record("load_propagate_tiled",
+                         "src/repro/kernels/load_prop.py:279", large_rec,
+                         tiled)]
+    for rec in minplus_records + [flow_record] + scan_records:
         records.append(dict(rec, launches=totals[rec["name"]]))
     print(json.dumps({"kernels": records}), flush=True)
     print(card_line(), flush=True)

@@ -1,6 +1,7 @@
 """Public entry of the port's kernels (port of ``src/repro/kernels/ops.py``:
-``minplus_matmul``, ``apsp`` and ``load_propagate``; ``flow_accumulate``
-waits for its kernel).
+``minplus_matmul``, ``apsp``, ``load_propagate`` and ``flow_accumulate``;
+``selective_scan`` is the route the reference's ``models/ssm.py`` took to
+its kernel).
 
 The route follows the tensor's device and nothing else: a CUDA tensor
 launches the hand-written kernel or raises, and only a CPU tensor takes the
@@ -16,8 +17,10 @@ import torch
 
 from ..utils import env as _env
 from . import apsp as _apsp
+from . import flow_accum as _fa
 from . import load_prop as _lp
 from . import minplus as _mp
+from . import selective_scan as _ss
 from .ref import BIG
 
 
@@ -149,4 +152,75 @@ def load_propagate(next_hop: torch.Tensor, load0: torch.Tensor,
     return w, flow
 
 
-__all__ = ["minplus_matmul", "apsp", "apsp_iters", "load_propagate"]
+def flow_accumulate(flow: torch.Tensor, cur: torch.Tensor, nxt: torch.Tensor,
+                    amount: torch.Tensor) -> torch.Tensor:
+    """Scatter of per-pair traffic onto directed edges, for [n, n] or
+    batched [B, n, n] flow with cur, nxt, amount [P] or [B, P]:
+
+        out[u, v] = flow[u, v] + Σ_p amount[p] · [cur[p] = u] · [nxt[p] = v]
+
+    On CUDA: ``flow_accum.flow_accum_cuda`` (adds in ascending p, no
+    atomics). On the CPU: ``flow_accum.flow_accum_plain`` (``index_add_``,
+    also ascending p), so the two give the same bits.
+    """
+    squeeze = flow.dim() == 2
+    if squeeze:
+        flow, cur, nxt, amount = flow[None], cur[None], nxt[None], amount[None]
+    flow = flow.to(torch.float32).contiguous()
+    cur = cur.to(torch.int32).contiguous()
+    nxt = nxt.to(torch.int32).contiguous()
+    amount = amount.to(torch.float32).contiguous()
+    if _device_type(flow, cur, nxt, amount) == "cuda":
+        out = _fa.flow_accum_cuda(flow, cur, nxt, amount)
+    else:
+        out = _fa.flow_accum_plain(flow, cur, nxt, amount)
+    return out[0] if squeeze else out
+
+
+def selective_scan_fwd(xc, dt, bm, cm, a, h0, *, chunk: int = 256):
+    """Forward pass, routed by device. xc, dt: [B, S, Di]; bm, cm:
+    [B, S, N]; a: [Di, N]; h0: [B, Di, N], all float32. Returns (y
+    [B, S, Di], h_ckpt [B, S/chunk, Di, N], hT [B, Di, N])."""
+    args = [t.contiguous() for t in (xc, dt, bm, cm, a, h0)]
+    if _device_type(*args) == "cuda":
+        return _ss.selective_scan_fwd_cuda(*args, chunk=chunk)
+    return _ss.selective_scan_fwd_plain(*args, chunk=chunk)
+
+
+def selective_scan_bwd(xc, dt, bm, cm, a, h_ckpt, dy, *, chunk: int = 256):
+    """Backward pass, routed by device. Returns (dxc, ddt, dbm, dcm, da,
+    dh0); da is summed over the batch."""
+    args = [t.contiguous() for t in (xc, dt, bm, cm, a, h_ckpt, dy)]
+    if _device_type(*args) == "cuda":
+        return _ss.selective_scan_bwd_cuda(*args, chunk=chunk)
+    return _ss.selective_scan_bwd_plain(*args, chunk=chunk)
+
+
+class SelectiveScan(torch.autograd.Function):
+    """y = selective_scan(xc, dt, bm, cm, a, h0, chunk): the forward kernel
+    saves its chunk checkpoints, the backward kernel re-runs from them
+    (the reference's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, xc, dt, bm, cm, a, h0, chunk):
+        y, ckpt, _ = selective_scan_fwd(xc, dt, bm, cm, a, h0, chunk=chunk)
+        ctx.save_for_backward(xc, dt, bm, cm, a, ckpt)
+        ctx.chunk = chunk
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xc, dt, bm, cm, a, ckpt = ctx.saved_tensors
+        grads = selective_scan_bwd(xc, dt, bm, cm, a, ckpt, dy,
+                                   chunk=ctx.chunk)
+        return (*grads, None)
+
+
+def selective_scan(xc, dt, bm, cm, a, h0, chunk: int = 256) -> torch.Tensor:
+    """y [B, S, Di] of the scan, differentiable in every tensor argument."""
+    return SelectiveScan.apply(xc, dt, bm, cm, a, h0, chunk)
+
+
+__all__ = ["minplus_matmul", "apsp", "apsp_iters", "load_propagate",
+           "flow_accumulate", "selective_scan", "selective_scan_fwd",
+           "selective_scan_bwd", "SelectiveScan"]

@@ -1,7 +1,8 @@
-"""The port's CUDA kernels on the card: load propagation, min-plus, and
-the fused and tiled APSP, each against its plain version, alone vs in a
-batch, and the wrappers' refusals; the routing tables and the genome cost
-function on the card against the CPU. Every test here needs an NVIDIA
+"""The port's CUDA kernels on the card: load propagation, min-plus, the
+fused and tiled APSP, flow accumulation and the selective scan, each
+against its plain version, alone vs in a batch, and the wrappers' refusals;
+the routing tables, the genome cost function, the pair-walk throughput and
+a reduced Falcon-Mamba training step on the card against the CPU. Every test here needs an NVIDIA
 Hopper GPU and skips without one; run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -11,7 +12,11 @@ JAX. Tolerances: W and flow within rtol 1e-5 / atol 1e-6 of the plain
 version (the kernel sums each entry in ascending source order, the plain
 version's einsum in its own order); min-plus and APSP bit-equal (one add
 per candidate, min exact in any order); tables exactly equal; genome
-metrics within rtol 1e-5 of the CPU run.
+metrics within rtol 1e-5 of the CPU run; flow accumulation bit-equal to the
+CPU's ascending-p scatter; the selective scan within rtol 1e-4 / atol 1e-5
+(forward) and rtol 2e-3 / atol 5e-4 (backward) of its plain version, the
+reference's own bounds (exps and sums over N and channels in another
+order), and bit-equal between two runs and alone vs in a batch.
 """
 import numpy as np
 import pytest
@@ -287,3 +292,161 @@ def test_genome_cost_function_on_cuda_matches_cpu(cuda, kind):
         alone = DseEngine(device="cuda").evaluate_genomes(space, pop[i:i + 1])
         assert alone.latency[0] == gpu.latency[i]
         assert alone.throughput[0] == gpu.throughput[i]
+
+
+def _scan_inputs(rng, B, S, Di, N, dev):
+    f = lambda x: torch.from_numpy(np.asarray(x, np.float32)).to(dev)
+    return (f(rng.normal(0, 1, (B, S, Di))),
+            f(rng.uniform(0.01, 0.2, (B, S, Di))),
+            f(rng.normal(0, 1, (B, S, N))), f(rng.normal(0, 1, (B, S, N))),
+            f(-rng.uniform(0.5, 2.0, (Di, N))),
+            f(rng.normal(0, 0.3, (B, Di, N))),
+            f(rng.normal(0, 1, (B, S, Di))))
+
+
+@pytest.mark.parametrize("B,S,Di,N,chunk", [(2, 24, 12, 4, 8),
+                                            (2, 24, 12, 8, 8),
+                                            (3, 96, 100, 16, 32),
+                                            (1, 512, 256, 16, 256)])
+def test_selective_scan_kernels_match_plain(cuda, B, S, Di, N, chunk):
+    from repro_torch.kernels import selective_scan as ss
+
+    xc, dt, bm, cm, a, h0, dy = _scan_inputs(np.random.default_rng(S + N),
+                                             B, S, Di, N, cuda)
+    got = ss.selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0, chunk=chunk)
+    want = ss.selective_scan_fwd_plain(xc, dt, bm, cm, a, h0, chunk=chunk)
+    for g, w in zip(got, want):
+        assert torch.allclose(g, w, rtol=1e-4, atol=1e-5)
+    ckpt = got[1]
+    grads = ss.selective_scan_bwd_cuda(xc, dt, bm, cm, a, ckpt, dy,
+                                       chunk=chunk)
+    want = ss.selective_scan_bwd_plain(xc, dt, bm, cm, a, ckpt, dy,
+                                       chunk=chunk)
+    for g, w in zip(grads, want):
+        assert torch.allclose(g, w, rtol=2e-3, atol=5e-4)
+    again = ss.selective_scan_bwd_cuda(xc, dt, bm, cm, a, ckpt, dy,
+                                       chunk=chunk)
+    assert all(torch.equal(g, h) for g, h in zip(grads, again))
+    b = B - 1
+    one = [t[b:b + 1].contiguous() for t in (xc, dt, bm, cm)]
+    y1, c1, h1 = ss.selective_scan_fwd_cuda(*one, a, h0[b:b + 1].contiguous(),
+                                            chunk=chunk)
+    assert torch.equal(y1[0], got[0][b]) and torch.equal(c1[0], ckpt[b])
+    g1 = ss.selective_scan_bwd_cuda(*one, a, c1, dy[b:b + 1].contiguous(),
+                                    chunk=chunk)
+    for i in (0, 1, 2, 3, 5):          # da sums over the batch
+        assert torch.equal(g1[i][0], grads[i][b])
+
+
+def test_selective_scan_autograd_on_cuda_launches_both_kernels(cuda):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ss
+
+    xc, dt, bm, cm, a, h0, dy = _scan_inputs(np.random.default_rng(0),
+                                             2, 64, 40, 16, cuda)
+    args = [t.clone().requires_grad_() for t in (xc, dt, bm, cm, a, h0)]
+    f0 = ss.selective_scan_fwd_cuda.launches
+    b0 = ss.selective_scan_bwd_cuda.launches
+    y = ops.selective_scan(*args, 16)
+    got = torch.autograd.grad(y, args, dy)
+    assert ss.selective_scan_fwd_cuda.launches == f0 + 1
+    assert ss.selective_scan_bwd_cuda.launches == b0 + 1
+    plain = [t.clone().requires_grad_() for t in (xc, dt, bm, cm, a, h0)]
+    y_p, _, _ = ss.selective_scan_fwd_plain(*plain, chunk=16)
+    want = torch.autograd.grad(y_p, plain, dy)
+    for g, w in zip(got, want):
+        assert torch.allclose(g, w, rtol=2e-3, atol=5e-4)
+    with pytest.raises(ValueError, match="N <= 16"):
+        ss.selective_scan_fwd_cuda(xc[..., :4].contiguous(),
+                                   dt[..., :4].contiguous(),
+                                   torch.zeros((2, 64, 17), device=cuda),
+                                   torch.zeros((2, 64, 17), device=cuda),
+                                   torch.zeros((4, 17), device=cuda),
+                                   torch.zeros((2, 4, 17), device=cuda),
+                                   chunk=16)
+
+
+@pytest.mark.parametrize("B,n", [(1, 8), (4, 20), (13, 64), (1, 256),
+                                 (3, 130)])
+def test_flow_accum_kernel_bit_equal_to_cpu_scatter(cuda, B, n):
+    from repro_torch.kernels import flow_accum as fa
+
+    rng = np.random.default_rng(n)
+    P = n * n
+    flow = torch.from_numpy(rng.uniform(0, 5, (B, n, n)).astype(np.float32))
+    cur = torch.from_numpy(rng.integers(0, n, (B, P)).astype(np.int32))
+    nxt = torch.from_numpy(rng.integers(0, n, (B, P)).astype(np.int32))
+    amt = torch.from_numpy(rng.uniform(0, 2, (B, P)).astype(np.float32))
+    want = fa.flow_accum_plain(flow, cur, nxt, amt)
+    args = [t.to(cuda) for t in (flow, cur, nxt, amt)]
+    got = fa.flow_accum_cuda(*args)
+    assert torch.equal(got.cpu(), want)
+    assert torch.allclose(got, fa.flow_accum_plain(*args), rtol=1e-5,
+                          atol=1e-5)
+    one = fa.flow_accum_cuda(*(t[B - 1:B].contiguous() for t in args))
+    assert torch.equal(one[0], got[B - 1])
+
+
+def test_pair_walk_throughput_on_cuda_matches_load_route(cuda):
+    from repro_torch.core import prepare_arrays, throughput
+    from repro_torch.core.latency import routed_diameter
+    from repro_torch.kernels import flow_accum as fa
+    from repro_torch.topologies import make_design
+    from repro_torch.traffic import make_traffic
+
+    arrays, _ = prepare_arrays(make_design("hexamesh", 36))
+    nh = torch.from_numpy(arrays.next_hop).to(cuda)
+    bw = torch.from_numpy(arrays.adj_bw).to(cuda)
+    t = torch.from_numpy(make_traffic("hotspot", 36).astype(np.float32)
+                         ).to(cuda)
+    mh = routed_diameter(torch.from_numpy(arrays.next_hop))
+    launches = fa.flow_accum_cuda.launches
+    walk = throughput.throughput_proxy(nh, bw, t, mh, True)
+    assert fa.flow_accum_cuda.launches == launches + mh
+    load = throughput.throughput_proxy(nh, bw, t, mh, False)
+    assert torch.allclose(walk, load, rtol=RTOL, atol=0.0)
+    cpu = throughput.throughput_proxy(nh.cpu(), bw.cpu(), t.cpu(), mh, True)
+    assert torch.allclose(walk.cpu(), cpu, rtol=1e-6, atol=0.0)
+
+
+def test_reduced_falcon_mamba_step_on_cuda_matches_cpu(cuda):
+    """One AdamW step of the reduced model in float32 on the kernel route:
+    loss and grad norm within rtol 1e-4 of the CPU (plain route), both scan
+    kernels launched (the forward twice: remat recomputes it)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokens
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.train import build_state, to_device
+    from repro_torch.models import Model, reduced
+    from repro_torch.train import OptConfig, make_train_step
+
+    cfg = reduced(get_config("falcon-mamba-7b"), ssm_chunk=8,
+                  dtype="float32", ssm_kernel=True)
+    batch = SyntheticTokens(cfg.vocab_size, 2, 32, seed=1).batch_at(0)
+    ocfg = OptConfig(learning_rate=1e-3, warmup_steps=0, decay_steps=10)
+    out = {}
+    f0 = ss.selective_scan_fwd_cuda.launches
+    b0 = ss.selective_scan_bwd_cuda.launches
+    for dev in ("cpu", cuda):
+        model = Model(cfg, seed=0, device=dev)
+        step = make_train_step(model, ocfg)
+        _, m = step(build_state(model, "adamw"), to_device(batch, dev))
+        out[str(dev)] = (float(m["loss"]), float(m["grad_norm"]))
+    assert ss.selective_scan_fwd_cuda.launches - f0 == 2 * cfg.n_layers
+    assert ss.selective_scan_bwd_cuda.launches - b0 == cfg.n_layers
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert lg == pytest.approx(lc, rel=1e-4)
+    assert gg == pytest.approx(gc, rel=1e-4)
+
+
+def test_model_seed_gives_the_same_weights_on_every_device(cuda):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, reduced
+
+    cfg = reduced(get_config("falcon-mamba-7b"))
+    on_cpu = Model(cfg, seed=5, device="cpu").state_dict()
+    on_card = Model(cfg, seed=5, device=cuda).state_dict()
+    assert on_cpu.keys() == on_card.keys()
+    for k, v in on_card.items():
+        assert v.device.type == "cuda"
+        assert torch.equal(v.cpu(), on_cpu[k]), k

@@ -38,8 +38,21 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.kernels.minplus", "repro_torch.kernels.apsp",
                  "repro_torch.routing.device",
                  "repro_torch.routing.hierarchical",
-                 "repro_torch.opt.space", "repro_torch.dse.genomes"):
+                 "repro_torch.opt.space", "repro_torch.dse.genomes",
+                 "repro_torch.kernels.flow_accum",
+                 "repro_torch.kernels.selective_scan",
+                 "repro_torch.configs", "repro_torch.configs.falcon_mamba_7b",
+                 "repro_torch.models.config", "repro_torch.models.layers",
+                 "repro_torch.models.ssm", "repro_torch.models.model",
+                 "repro_torch.models.convert", "repro_torch.train.optimizer",
+                 "repro_torch.train.step", "repro_torch.data.pipeline",
+                 "repro_torch.launch.train", "repro_torch.models",
+                 "repro_torch.train", "repro_torch.data",
+                 "repro_torch.launch"):
         assert name in rec["modules"]
+    configs = [m for m in rec["modules"]
+               if m.startswith("repro_torch.configs.")]
+    assert len(configs) == 10
 
 
 @pytest.fixture
@@ -59,7 +72,7 @@ def test_evaluate_design_defaults_to_cuda_and_raises_without_it(no_gpu):
 
 @pytest.mark.parametrize("entry", ["engine", "encode", "batch_from_numpy",
                                    "diameter", "lowest_id_tables",
-                                   "hierarchical"])
+                                   "hierarchical", "model"])
 def test_batched_entry_points_raise_without_gpu(no_gpu, entry):
     import numpy as np
     from repro_torch.core.latency import routed_diameter_batch
@@ -67,6 +80,8 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry):
     from repro_torch.routing.hierarchical import hops_next_hop_auto
     from repro_torch.dse import (DseEngine, ExperimentSpec, batch_from_numpy,
                                  encode_designs, expand_experiments)
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, reduced
 
     nh = np.tile(np.arange(4, dtype=np.int32)[None, :, None], (1, 1, 4))
     z = np.zeros((1, 4, 4), np.float32)
@@ -81,9 +96,20 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry):
             np.where(np.eye(4) > 0, np.inf, 1.0)[None]),
         "hierarchical": lambda: hops_next_hop_auto(
             np.ones((4, 4), bool) & ~np.eye(4, dtype=bool), None),
+        "model": lambda: Model(reduced(get_config("falcon-mamba-7b"))),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
+
+
+def test_train_defaults_to_cuda_and_raises_without_it(no_gpu):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train
+    from repro_torch.models import reduced
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(reduced(get_config("falcon-mamba-7b")), steps=1, batch=1,
+              seq_len=16)
 
 
 def test_explicit_cpu_device_runs_on_the_host(no_gpu):
