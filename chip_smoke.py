@@ -6,7 +6,9 @@ and check it.
 
 Phases, each fatal on error (exit code 1, no result line):
 
-1. build every CUDA source of the port with nvcc for sm_90a, all at once;
+1. build every CUDA source of the port with nvcc for sm_90a, all at once,
+   and report what ptxas says of each kernel (registers, stack frame,
+   spills);
 2. the load-propagation kernel against its plain PyTorch version on the
    card (random routing tables with unreachable pairs and padded vertices,
    n in {16, 100, 128, 160, 256}, B in {1, 7, 256}; W and flow within
@@ -44,7 +46,8 @@ Phases, each fatal on error (exit code 1, no result line):
     routing-table time per population; the genome path's layers; the host
     syncs of the BFS and up*/down* loops;
 12. the selective-scan kernels (forward B7, backward B8) against their plain
-    versions at ragged shapes (Di 12, S 24, chunk 8, N 4 and 8) and at the
+    versions at ragged shapes (Di 12, 40, 72 and 100, chunks 8, 24, 40 and
+    48, N 4, 8 and 16) and at the
     training path's [2, 2048, 8192], N 16, chunk 256: forward within rtol
     1e-4 / atol 1e-5, backward within rtol 2e-3 / atol 5e-4 (the
     reference's own test bounds: exps and sums over N and over channels in
@@ -61,8 +64,10 @@ Phases, each fatal on error (exit code 1, no result line):
     step time, tokens/s, peak memory, the device's idle share and the layers
     of a step (CUDA events);
 14. the pair-walk throughput oracle: the flow-accumulation kernel (B6)
-    bit-equal to the CPU's ascending-p scatter and within rtol 1e-5 of
-    ``index_add_`` on the card, alone == in a batch;
+    bit-equal to the CPU's ascending-p scatter of the in-range pairs
+    (uniform pairs, duplicate cells, one row holding every pair, pair counts
+    off the chunk, out-of-range pairs, n up to 1720) and within rtol 1e-5 of
+    ``index_add_`` on the card, alone == in a batch (the record's hop too);
     ``throughput_proxy(use_kernel=True)`` on every registry topology at 64
     chiplets and the 256-chiplet mesh within rtol 1e-5 of the
     load-propagation route; one hop's kernel time beside its bound, the
@@ -82,6 +87,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -107,7 +113,8 @@ GENOME_SPACES = (   # (name, n_chiplets or None for parametric, population,
     ("adjacency_32", 32, 24, 3),            # fresh populations checked)
     ("adjacency_256", 256, 8, 1),
     ("parametric", None, 64, 2))
-SCAN_SHAPES = ((2, 24, 12, 4, 8), (2, 24, 12, 8, 8))   # B, S, Di, N, chunk
+SCAN_SHAPES = ((2, 24, 12, 4, 8), (2, 24, 12, 8, 8),  # B, S, Di, N, chunk
+               (2, 96, 40, 4, 24), (2, 96, 72, 8, 48), (1, 120, 100, 16, 40))
 TRAIN_ARCH = "falcon-mamba-7b"
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2, 2048, 4
 TRAIN_LR = 1e-4     # at 3e-4 the first AdamW step diverges at this width
@@ -115,6 +122,12 @@ TRAIN_LR = 1e-4     # at 3e-4 the first AdamW step diverges at this width
 # cast to bf16, then AdamW steps that are close to lr * sign(g)
 TRAIN_ROUTE_RTOL = 1e-3
 FLOW_CHIPLETS, FLOW_LARGE = 64, 256     # pair-walk oracle: registry, mesh
+FLOW_CASES = (      # flow kernel vs the CPU scatter: B, n, P, kind of pairs
+    (1, 8, 64, "uniform"), (4, 20, 400, "uniform"), (13, 64, 4096, "uniform"),
+    (1, 256, 65536, "uniform"), (3, 130, 16900, "uniform"),
+    (1, 6, 300, "two_rows"), (2, 33, 1000, "one_row"), (2, 20, 777, "uniform"),
+    (3, 12, 500, "out_of_range"), (2, 256, 140000, "one_row"),
+    (1, 1720, 50000, "uniform"))
 SCAN_FWD_TOL = dict(rtol=1e-4, atol=1e-5)   # the reference's test bounds
 SCAN_BWD_TOL = dict(rtol=2e-3, atol=5e-4)
 SFU_PER_SM = 16                 # MUFU.EX2 results per clock per SM (sm_90)
@@ -138,6 +151,42 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def ptxas_report(logs: dict) -> dict:
+    """{kernel: {registers, stack_frame, spill_stores, spill_loads}} from the
+    ``-Xptxas -v`` output of each source's build (kernel names demangled by
+    c++filt where the toolkit's host has it)."""
+    report, mangled = {}, []
+    for source, text in logs.items():
+        key = None
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                key = m.group(1)
+                mangled.append(key)
+                report[key] = {"source": source}
+                continue
+            if key is None:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m:
+                report[key].update(stack_frame=int(m.group(1)),
+                                   spill_stores=int(m.group(2)),
+                                   spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                report[key]["registers"] = int(m.group(1))
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(mangled),
+                             capture_output=True, text=True, check=True,
+                             timeout=60).stdout.splitlines()
+        names = {k: v.replace("(anonymous namespace)::", "").removeprefix(
+            "void ").split("(")[0] for k, v in zip(mangled, out)}
+    except (OSError, subprocess.SubprocessError):
+        names = {k: k for k in mangled}
+    return {names[k]: v for k, v in report.items()}
 
 
 def max_sm_clock_hz() -> float:
@@ -570,15 +619,18 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
         s0 = rdev.host_syncs()
         rdev.hops_next_hop_batch(adj)
         bfs_syncs = rdev.host_syncs()["bfs"] - s0["bfs"]
-        bits_pad = torch.cat([bits.bool(), torch.zeros(
-            (P, 1), dtype=torch.bool, device=dev)], dim=1)
-        deg = bits_pad[:, t["pair_id"]].sum(dim=2)
-        radix = torch.clamp(deg.amax(dim=1), 1, pipe.k_phys)
-        pitch = t["side"][radix] + t["consts"][0]
-        structure_ms = time_cuda(
-            torch, lambda: gn._adjacency_structure(bits, t, **kw), reps=10)
+        # the three stages of _adjacency_structure, each timed on its own
+        bitsb, bits_pad, adj_d, deg, radix, pitch = gn._decode(
+            bits, t, k_phys=pipe.k_phys)
+        picks = gn._phy_scan(bits_pad, deg, radix, pitch, t, n=pipe.n,
+                             k_phys=pipe.k_phys)
+        decode_ms = time_cuda(torch, lambda: gn._decode(
+            bits, t, k_phys=pipe.k_phys), reps=10)
         phy_ms = time_cuda(torch, lambda: gn._phy_scan(
             bits_pad, deg, radix, pitch, t, n=pipe.n, k_phys=pipe.k_phys),
+            reps=10)
+        geometry_ms = time_cuda(torch, lambda: gn._link_geometry(
+            bitsb, adj_d, deg, radix, pitch, *picks, t, euclid=pipe._euclid),
             reps=10)
         host_t0 = time.perf_counter()
         pipe._report_arrays(pop, space.degrees(pop), np.zeros(len(pop)))
@@ -587,7 +639,8 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
             torch, lambda: eng.evaluate_genomes(space, pop), n_top=4)
         genome_layers[key] = {
             "population": P, "n": pipe.n, "k_phys": pipe.k_phys,
-            "decode_geometry_ms": structure_ms - phy_ms,
+            "decode_ms": decode_ms, "link_geometry_ms": geometry_ms,
+            "decode_geometry_ms": decode_ms + geometry_ms,
             "phy_scan_ms": phy_ms,
             "routing_tables_ms": time_cuda(
                 torch, lambda: rdev.hops_next_hop_batch(adj), reps=10),
@@ -897,22 +950,30 @@ def flow_paths(torch, dev, zero_counts, read_counts) -> dict:
     from repro_torch.traffic import make_traffic
 
     rng = np.random.default_rng(14)
-    for B, n in ((1, 8), (4, 20), (13, 64), (1, 256), (3, 130)):
-        P = n * n
+    for B, n, P, kind in FLOW_CASES:
+        cur, nxt = rng.integers(0, n, (2, B, P))
+        if kind == "one_row":                   # one row holds every pair
+            cur[:] = n // 2
+        elif kind == "two_rows":                # duplicate cells
+            cur, nxt = cur % 2, nxt % 2
+        elif kind == "out_of_range":            # the kernel drops these
+            cur, nxt = rng.integers(-3, n + 3, (2, B, P))
+        live = (cur >= 0) & (cur < n) & (nxt >= 0) & (nxt < n)
         flow = rng.uniform(0, 5, (B, n, n)).astype(np.float32)
+        amt = rng.uniform(0, 2, (B, P)).astype(np.float32)
         ops_ = [torch.from_numpy(x) for x in (
-            flow, rng.integers(0, n, (B, P)).astype(np.int32),
-            rng.integers(0, n, (B, P)).astype(np.int32),
-            rng.uniform(0, 2, (B, P)).astype(np.float32))]
+            flow, cur.astype(np.int32), nxt.astype(np.int32), amt)]
+        kept = [torch.from_numpy(np.where(live, x, 0).astype(x.dtype))
+                for x in (cur.astype(np.int32), nxt.astype(np.int32), amt)]
         on_card = [t.to(dev) for t in ops_]
         got = fa.flow_accum_cuda(*on_card)
-        if not torch.equal(got.cpu(), fa.flow_accum_plain(*ops_)):
+        if not torch.equal(got.cpu(), fa.flow_accum_plain(ops_[0], *kept)):
             fail(f"phase 14: flow kernel differs from the CPU scatter "
-                 f"(ascending p) at B={B} n={n}")
-        if not torch.allclose(got, fa.flow_accum_plain(*on_card), rtol=1e-5,
-                              atol=1e-5):
+                 f"(ascending p) at B={B} n={n} P={P} ({kind})")
+        if kind != "out_of_range" and not torch.allclose(
+                got, fa.flow_accum_plain(*on_card), rtol=1e-5, atol=1e-5):
             fail(f"phase 14: flow kernel differs from index_add_ on the card "
-                 f"at B={B} n={n}")
+                 f"at B={B} n={n} P={P} ({kind})")
         one = fa.flow_accum_cuda(*(t[B - 1:B].contiguous() for t in on_card))
         if not torch.equal(one[0], got[B - 1]):
             fail(f"phase 14: design alone differs from it in a batch at n={n}")
@@ -948,6 +1009,17 @@ def flow_paths(torch, dev, zero_counts, read_counts) -> dict:
     names = {n: [t for t, _ in m] for n, m in groups.items()}
     log(f"phase 14: pair-walk throughput within rtol {RTOL} of load "
         f"propagation for {names}")
+    # the walks once more under the profiler: the flow kernels' device time
+    # over every hop, and the walks' wall time
+    wall_s, busy_s, top = profile_device(torch, lambda: [
+        throughput_proxy(nh, bw, t, mh, True)
+        for nh, bw, t, mh, _ in results.values()], n_top=1000)
+    walk = {"hops": sum(r[3] for r in results.values()),
+            "flow_kernels_ms": sum(us for k, us in top if "fa_" in k) / 1e3,
+            "profiled_wall_ms": wall_s * 1e3, "device_busy_ms": busy_s * 1e3}
+    log(f"phase 14: the walks' {walk['hops']} hops spend "
+        f"{walk['flow_kernels_ms']:.4f} ms of device time in the flow "
+        f"kernels ({walk['profiled_wall_ms']:.1f} ms wall)")
 
     # the record: one hop of the 256-chiplet mesh walk (its first hop: every
     # pair at its source)
@@ -959,9 +1031,17 @@ def flow_paths(torch, dev, zero_counts, read_counts) -> dict:
     nxt = torch.gather(nh.reshape(1, n * n), 1, (cur * n + dest).long())
     amount = torch.where(cur != dest, t.reshape(1, -1), 0.0).contiguous()
     flow = torch.zeros((1, n, n), device=dev)
-    got = fa.flow_accum_cuda(flow, cur, nxt.contiguous(), amount)
+    nxt = nxt.contiguous()
+    got = fa.flow_accum_cuda(flow, cur, nxt, amount)
     want = fa.flow_accum_plain(flow.cpu(), cur.cpu(), nxt.cpu(),
                                amount.cpu())
+    if not torch.equal(got.cpu(), want):
+        fail("phase 14: the record's hop differs from the CPU scatter")
+    # the record's hop beside two other hops of the walk, in one batch
+    batch = [torch.cat([x, torch.roll(x, k, -1), torch.roll(x, 2 * k, -1)])
+             for x, k in ((flow, 0), (cur, 1), (nxt, 7), (amount, 3))]
+    if not torch.equal(fa.flow_accum_cuda(*batch)[0], got[0]):
+        fail("phase 14: the record's hop alone differs from it in a batch")
     flat = (cur.long() * n + nxt.long()).reshape(-1)
     live = int((amount != 0).sum())
     nbytes = 2 * n * n * 4 + 3 * n * n * 4
@@ -974,14 +1054,14 @@ def flow_paths(torch, dev, zero_counts, read_counts) -> dict:
         "shape": [1, n, n * n],
         "max_abs_err": (got.cpu() - want).abs().max().item(),
         "ms": time_cuda(torch, lambda: fa.flow_accum_cuda(
-            flow, cur, nxt.contiguous(), amount)),
+            flow, cur, nxt, amount)),
         "plain_ms": time_cuda(torch, lambda: fa.flow_accum_plain(
             flow, cur, nxt, amount)),
         "library_ms": time_cuda(torch, lambda: flow.reshape(-1).clone(
         ).index_put_((flat,), amount.reshape(-1), accumulate=True)),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "adds": live, "walk_hops": mh}
+        "bytes": nbytes, "adds": live, "walk_hops": mh, "pair_walk": walk}
 
 
 def main() -> None:
@@ -1038,10 +1118,10 @@ def main() -> None:
     # -- 1. build ------------------------------------------------------------
     secs = build.build_all()
     log(f"phase 1: built {list(build.SOURCES)} in {secs:.3f} s")
-    for name, text in build.BUILD_LOGS.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                log(f"  {name}: {line.strip()}")
+    ptxas = ptxas_report(build.BUILD_LOGS)
+    for kernel, rec in ptxas.items():
+        log(f"  ptxas {kernel}: {rec}")
+    print(json.dumps({"ptxas": ptxas}), flush=True)
 
     # -- 2. kernel vs plain --------------------------------------------------
     def plain(nh, l0, hops):

@@ -204,29 +204,32 @@ def _phy_scan(bits_pad, deg, radix, pitch, t, *, n: int, k_phys: int):
     return picks_ge[:, :G], picks_ge[:, G:]
 
 
-def _adjacency_structure(bits, t, *, n: int, k_phys: int, euclid: bool):
-    """Genome decode + geometry: repaired bit genomes [P, G] -> structure
-    tensors ``(adj, step_cost, adj_bw, length)``. ``t`` holds the
-    pipeline's device tables (see ``AdjacencyPipeline``)."""
-    Pn, G = bits.shape
-    dev = bits.device
-    spacing, link_const, link_per_mm, phy_lat2, internal = t["consts"]
-    pair_u, pair_v, pair_id = t["pair_u"], t["pair_v"], t["pair_id"]
-    col, row = t["col"], t["row"]
+def _decode(bits, t, *, k_phys: int):
+    """Genome decode: repaired bit genomes [P, G] -> (bits as bool, bits
+    padded with one False column, adjacency [P, n, n], degrees [P, n],
+    radix [P], pitch [P])."""
+    Pn = bits.shape[0]
     bitsb = bits.to(torch.bool)
     bits_pad = torch.cat([bitsb, torch.zeros((Pn, 1), dtype=torch.bool,
-                                             device=dev)], dim=1)
-
-    # --- decode: bits -> adjacency, degrees, radix-indexed geometry ---
-    adj = bits_pad[:, pair_id]                                  # [P, n, n]
+                                             device=bits.device)], dim=1)
+    adj = bits_pad[:, t["pair_id"]]                             # [P, n, n]
     deg = adj.sum(dim=2, dtype=torch.int64)                     # [P, n]
     radix = torch.clamp(deg.amax(dim=1), 1, k_phys)             # [P]
-    pitch = t["side"][radix] + spacing
-    offx, offy = t["phyx"][radix], t["phyy"][radix]             # [P, K]
-    pick_u, pick_v = _phy_scan(bits_pad, deg, radix, pitch, t, n=n,
-                               k_phys=k_phys)
+    pitch = t["side"][radix] + t["consts"][0]
+    return bitsb, bits_pad, adj, deg, radix, pitch
 
-    # --- link geometry -> latencies, bandwidths (pair order) ---
+
+def _link_geometry(bitsb, adj, deg, radix, pitch, pick_u, pick_v, t, *,
+                   euclid: bool):
+    """Link geometry from the decode and the PHY picks -> structure tensors
+    ``(adj, step_cost, adj_bw, length)``, link latencies and bandwidths in
+    pair order."""
+    Pn = bitsb.shape[0]
+    dev = bitsb.device
+    _, link_const, link_per_mm, phy_lat2, internal = t["consts"]
+    pair_u, pair_v, pair_id = t["pair_u"], t["pair_v"], t["pair_id"]
+    col, row = t["col"], t["row"]
+    offx, offy = t["phyx"][radix], t["phyy"][radix]             # [P, K]
     ax = col[pair_u][None, :] * pitch[:, None] + torch.gather(offx, 1, pick_u)
     ay = row[pair_u][None, :] * pitch[:, None] + torch.gather(offy, 1, pick_u)
     bx = col[pair_v][None, :] * pitch[:, None] + torch.gather(offx, 1, pick_v)
@@ -247,6 +250,19 @@ def _adjacency_structure(bits, t, *, n: int, k_phys: int, euclid: bool):
     adj_bw = bw_pad[:, pair_id]
     step_cost = torch.where(adj, internal + lat_pad[:, pair_id], 0.0)
     return adj, step_cost, adj_bw, length
+
+
+def _adjacency_structure(bits, t, *, n: int, k_phys: int, euclid: bool):
+    """Genome decode + geometry: repaired bit genomes [P, G] -> structure
+    tensors ``(adj, step_cost, adj_bw, length)``. ``t`` holds the
+    pipeline's device tables (see ``AdjacencyPipeline``). Three stages,
+    each timed on its own by ``chip_smoke.py``: ``_decode``, ``_phy_scan``
+    and ``_link_geometry``."""
+    bitsb, bits_pad, adj, deg, radix, pitch = _decode(bits, t, k_phys=k_phys)
+    pick_u, pick_v = _phy_scan(bits_pad, deg, radix, pitch, t, n=n,
+                               k_phys=k_phys)
+    return _link_geometry(bitsb, adj, deg, radix, pitch, pick_u, pick_v, t,
+                          euclid=euclid)
 
 
 def _adjacency_eval(bits, t, *, n: int, k_phys: int, euclid: bool,

@@ -17,10 +17,14 @@ walks each chunk in reverse with the adjoint state.
   thread per (sequence, channel) holds its states in registers for the whole
   sequence. ``launches`` counts its calls.
 * ``selective_scan_bwd_cuda`` — the kernel ``ssm_bwd`` and a fixed-order
-  partial sum; it replaces ``:116`` (``_bwd_kernel``, B8). One warp per
-  (sequence, 32 channels) walks all chunks in reverse; each chunk is
-  recomputed in sub-chunks of ``bwd_sub_chunk(chunk)`` steps held in shared
-  memory. ``launches`` counts its calls.
+  partial sum; it replaces ``:116`` (``_bwd_kernel``, B8). One block per
+  (sequence, 32 channels), each channel's states split over N/2 lanes (two
+  a lane), walks all chunks in reverse; each chunk is recomputed in
+  sub-chunks of ``bwd_sub_chunk(chunk)`` (16) steps, whose pre-step states
+  sit in shared memory and whose a_bar the reverse walk reuses (two exps
+  per state and step). The sub-chunk start states go to a global scratch
+  the wrapper allocates; the block's shared memory (``bwd_smem_bytes``) does
+  not depend on the chunk. ``launches`` counts its calls.
   At the training shape the forward is bound by its exps (just above its
   bytes) and the backward by its bytes; the source note in the ``.cu`` file
   gives the numbers and what the design does about them.
@@ -41,7 +45,6 @@ their own channel tiling, so the port's functions take no ``bd``.
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
@@ -129,7 +132,7 @@ _F = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "ssm_fwd_launch": (_I, [_F] * 9 + [_I] * 5 + [_F]),
-    "ssm_bwd_launch": (_I, [_F] * 16 + [_I] * 6 + [_F]),
+    "ssm_bwd_launch": (_I, [_F] * 17 + [_I] * 5 + [_F]),
     "ssm_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -146,27 +149,34 @@ def _raise(rc: int, what: str, shape) -> None:
                        f"B, S, Di, N = {shape}")
 
 
+BWD_SUB = 16                  # steps per backward sub-chunk (kSub)
+
+
+def _padded_state(N: int) -> int:
+    return 4 if N <= 4 else (8 if N <= 8 else 16)
+
+
 def bwd_sub_chunk(chunk: int) -> int:
-    """Steps per sub-chunk of the backward kernel: 16, or about √chunk for
-    long chunks, so the states it keeps in shared memory stay ~2√chunk."""
-    return min(chunk, max(16, math.isqrt(chunk - 1) + 1))
+    """Steps per sub-chunk of the backward kernel: 16, or the chunk if it is
+    shorter."""
+    return min(chunk, BWD_SUB)
 
 
-def bwd_smem_bytes(N: int, chunk: int) -> int:
-    """Shared memory of one backward block (mirrors the .cu file)."""
-    np_ = 4 if N <= 4 else (8 if N <= 8 else 16)
-    sub = bwd_sub_chunk(chunk)
-    return (-(-chunk // sub) + sub) * np_ * 32 * 4
+def bwd_smem_bytes(N: int) -> int:
+    """Shared memory of one backward block at N states, whatever the chunk
+    (mirrors the .cu file): per sub-chunk step the pre-step states (2 per
+    thread, 16 NP threads), dt/x/dy in and ddt/dxc out for 32 channels, B_t
+    and C_t, and each warp's dB/dC sums (2 NP)."""
+    np_ = _padded_state(N)
+    threads = 16 * np_
+    return BWD_SUB * (2 * threads + 5 * 32 + 2 * np_
+                      + threads // 32 * 2 * np_) * 4
 
 
-def _check_state(N: int, chunk: int) -> None:
+def _check_state(N: int) -> None:
     if not 1 <= N <= MAX_STATE:
         raise ValueError(f"the selective-scan kernels hold N <= {MAX_STATE} "
                          f"states in registers, got N={N}")
-    if bwd_smem_bytes(N, chunk) > SMEM_MAX:
-        raise ValueError(f"chunk {chunk} needs {bwd_smem_bytes(N, chunk)} "
-                         f"bytes of shared memory in the backward kernel "
-                         f"(limit {SMEM_MAX})")
 
 
 def selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0, *, chunk: int = 256):
@@ -177,7 +187,7 @@ def selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0, *, chunk: int = 256):
     B, S, Di, N, chunk = _check_shapes(xc, dt, bm, cm, a, chunk)
     if h0.shape != (B, Di, N):
         raise ValueError(f"h0 must be [B, Di, N], got {tuple(h0.shape)}")
-    _check_state(N, chunk)
+    _check_state(N)
     y = torch.empty_like(xc)
     ckpt = torch.empty((B, S // chunk, Di, N), dtype=torch.float32,
                        device=xc.device)
@@ -210,7 +220,7 @@ def selective_scan_bwd_cuda(xc, dt, bm, cm, a, h_ckpt, dy, *,
         raise ValueError(f"h_ckpt must be [B, S/chunk, Di, N] and dy "
                          f"[B, S, Di], got {tuple(h_ckpt.shape)} and "
                          f"{tuple(dy.shape)}")
-    _check_state(N, chunk)
+    _check_state(N)
     dev = xc.device
     dxc, ddt = torch.empty_like(xc), torch.empty_like(xc)
     dbm, dcm = torch.empty_like(bm), torch.empty_like(cm)
@@ -222,6 +232,9 @@ def selective_scan_bwd_cuda(xc, dt, bm, cm, a, h_ckpt, dy, *,
     part_bm = torch.empty((B, n_blk, S, N), dtype=torch.float32, device=dev)
     part_cm = torch.empty_like(part_bm)
     part_da = torch.empty((B, Di, N), dtype=torch.float32, device=dev)
+    starts = torch.empty((B, n_blk, -(-chunk // BWD_SUB),
+                          32 * _padded_state(N)), dtype=torch.float32,
+                         device=dev)
     stream = torch.cuda.current_stream(dev)
     with torch.cuda.device(dev):
         rc = _lib().ssm_bwd_launch(
@@ -229,7 +242,7 @@ def selective_scan_bwd_cuda(xc, dt, bm, cm, a, h_ckpt, dy, *,
             a.data_ptr(), h_ckpt.data_ptr(), dy.data_ptr(), dxc.data_ptr(),
             ddt.data_ptr(), dbm.data_ptr(), dcm.data_ptr(), da.data_ptr(),
             dh0.data_ptr(), part_bm.data_ptr(), part_cm.data_ptr(),
-            part_da.data_ptr(), B, S, Di, N, chunk, bwd_sub_chunk(chunk),
+            part_da.data_ptr(), starts.data_ptr(), B, S, Di, N, chunk,
             stream.cuda_stream)
     if rc != 0:
         _raise(rc, "selective-scan backward kernel", (B, S, Di, N))

@@ -307,7 +307,12 @@ def _scan_inputs(rng, B, S, Di, N, dev):
 @pytest.mark.parametrize("B,S,Di,N,chunk", [(2, 24, 12, 4, 8),
                                             (2, 24, 12, 8, 8),
                                             (3, 96, 100, 16, 32),
-                                            (1, 512, 256, 16, 256)])
+                                            (1, 512, 256, 16, 256),
+                                            (2, 96, 40, 4, 24),
+                                            (2, 96, 72, 8, 48),
+                                            (3, 120, 100, 16, 40),
+                                            (2, 200, 37, 5, 200),
+                                            (1, 1024, 70, 16, 512)])
 def test_selective_scan_kernels_match_plain(cuda, B, S, Di, N, chunk):
     from repro_torch.kernels import selective_scan as ss
 
@@ -366,23 +371,45 @@ def test_selective_scan_autograd_on_cuda_launches_both_kernels(cuda):
                                    chunk=16)
 
 
-@pytest.mark.parametrize("B,n", [(1, 8), (4, 20), (13, 64), (1, 256),
-                                 (3, 130)])
-def test_flow_accum_kernel_bit_equal_to_cpu_scatter(cuda, B, n):
+def _flow_pairs(rng, B, n, P, kind):
+    if kind == "two_rows":              # duplicate cells, two rows
+        return (rng.integers(0, 2, (B, P)), rng.integers(0, 2, (B, P)))
+    if kind == "one_row":               # one row holds every pair
+        return np.full((B, P), n // 2), rng.integers(0, n, (B, P))
+    if kind == "out_of_range":          # dropped by the kernel
+        return (rng.integers(-3, n + 3, (B, P)),
+                rng.integers(-3, n + 3, (B, P)))
+    return rng.integers(0, n, (B, P)), rng.integers(0, n, (B, P))
+
+
+@pytest.mark.parametrize("B,n,P,kind", [
+    (1, 8, 64, "uniform"), (4, 20, 400, "uniform"), (13, 64, 4096, "uniform"),
+    (1, 256, 65536, "uniform"), (3, 130, 16900, "uniform"),
+    (1, 6, 300, "two_rows"), (2, 33, 1000, "one_row"),
+    (2, 20, 777, "uniform"), (3, 12, 500, "out_of_range"),
+    (5, 64, 4096, "uniform"), (2, 256, 140000, "one_row"),
+    (1, 1720, 50000, "uniform")])
+def test_flow_accum_kernel_bit_equal_to_cpu_scatter(cuda, B, n, P, kind):
+    """Bit-equal to the CPU's ascending-p scatter of the in-range pairs
+    (the kernel drops the others), alone == in a batch, two runs equal."""
     from repro_torch.kernels import flow_accum as fa
 
-    rng = np.random.default_rng(n)
-    P = n * n
+    rng = np.random.default_rng(n + P)
+    cur, nxt = (x.astype(np.int32) for x in _flow_pairs(rng, B, n, P, kind))
+    live = (cur >= 0) & (cur < n) & (nxt >= 0) & (nxt < n)
     flow = torch.from_numpy(rng.uniform(0, 5, (B, n, n)).astype(np.float32))
-    cur = torch.from_numpy(rng.integers(0, n, (B, P)).astype(np.int32))
-    nxt = torch.from_numpy(rng.integers(0, n, (B, P)).astype(np.int32))
-    amt = torch.from_numpy(rng.uniform(0, 2, (B, P)).astype(np.float32))
-    want = fa.flow_accum_plain(flow, cur, nxt, amt)
-    args = [t.to(cuda) for t in (flow, cur, nxt, amt)]
+    amt = rng.uniform(0, 2, (B, P)).astype(np.float32)
+    kept = [torch.from_numpy(np.where(live, x, 0).astype(x.dtype))
+            for x in (cur, nxt, amt)]
+    want = fa.flow_accum_plain(flow, *kept)
+    args = [t.to(cuda) for t in (flow, torch.from_numpy(cur),
+                                 torch.from_numpy(nxt), torch.from_numpy(amt))]
     got = fa.flow_accum_cuda(*args)
     assert torch.equal(got.cpu(), want)
-    assert torch.allclose(got, fa.flow_accum_plain(*args), rtol=1e-5,
-                          atol=1e-5)
+    assert torch.equal(fa.flow_accum_cuda(*args), got)
+    if kind != "out_of_range":
+        assert torch.allclose(got, fa.flow_accum_plain(*args), rtol=1e-5,
+                              atol=1e-5)
     one = fa.flow_accum_cuda(*(t[B - 1:B].contiguous() for t in args))
     assert torch.equal(one[0], got[B - 1])
 

@@ -90,6 +90,79 @@ def test_flow_accumulate_duplicates_and_zero_amount():
     assert torch.equal(flow_accumulate_ref(flow, cur, nxt, amt), got)
 
 
+def _emulation_cases():
+    """(name, flow, cur, nxt, amount, chunk) for the kernel's decomposition:
+    duplicate cells, one row holding every pair, P not a multiple of the
+    chunk, out-of-range pairs, B > 1."""
+    rng = np.random.default_rng(41)
+    cases = []
+    n, P = 6, 300
+    cur = rng.integers(0, 2, (1, P)).astype(np.int32)      # two rows
+    nxt = rng.integers(0, 2, (1, P)).astype(np.int32)      # many duplicates
+    cases.append(("duplicate_cells", 1, n, cur, nxt, 64))
+    n, P = 33, 1000
+    cur = np.full((1, P), 17, np.int32)                    # one row only
+    nxt = rng.integers(0, n, (1, P)).astype(np.int32)
+    cases.append(("one_row", 1, n, cur, nxt, 96))
+    n, P = 20, 777                                         # 777 % 64 != 0
+    cases.append(("ragged_chunks", 2, n,
+                  rng.integers(0, n, (2, P)).astype(np.int32),
+                  rng.integers(0, n, (2, P)).astype(np.int32), 64))
+    n, P = 12, 500
+    cur = rng.integers(-3, n + 3, (3, P)).astype(np.int32)  # out of range
+    nxt = rng.integers(-3, n + 3, (3, P)).astype(np.int32)
+    cases.append(("out_of_range", 3, n, cur, nxt, 32))
+    n, P = 64, 64 * 64
+    cases.append(("batch_default_chunk", 5, n,
+                  rng.integers(0, n, (5, P)).astype(np.int32),
+                  rng.integers(0, n, (5, P)).astype(np.int32), None))
+    out = []
+    for name, B, n, cur, nxt, chunk in cases:
+        flow = rng.uniform(0, 5, (B, n, n)).astype(np.float32)
+        amt = rng.uniform(0, 2, cur.shape).astype(np.float32)
+        out.append(pytest.param(flow, cur, nxt, amt, chunk, id=name))
+    return out
+
+
+@pytest.mark.parametrize("flow,cur,nxt,amt,chunk", _emulation_cases())
+def test_kernel_decomposition_bit_equal_to_index_add(flow, cur, nxt, amt,
+                                                     chunk):
+    """The CUDA kernels' decomposition (histogram, scan, stable ranks, the
+    per-row walk), emulated in plain torch, is bit-equal to the CPU's
+    ascending-p ``index_add_`` over the in-range pairs (the kernel drops a
+    pair outside [0, n)), and within rtol 1e-6 / atol 1e-6 of the reference
+    kernel in interpret mode; each design alone equals it in the batch."""
+    n = flow.shape[-1]
+    live = (cur >= 0) & (cur < n) & (nxt >= 0) & (nxt < n)
+    t = [torch.from_numpy(x) for x in (flow, cur, nxt, amt)]
+    got = fa.flow_accum_emulated(*t, chunk=chunk)
+    kept = [torch.from_numpy(x) for x in (np.where(live, cur, 0),
+                                          np.where(live, nxt, 0),
+                                          np.where(live, amt, 0.0))]
+    want = fa.flow_accum_plain(t[0], *kept)
+    # a zero amount leaves a cell's bits alone, so the dropped pairs may
+    # stand at (0, 0) with amount 0 in the plain scatter
+    assert torch.equal(got, want)
+    ref = np.asarray(ref_flow_accumulate(*map(jnp.asarray, (
+        flow, *[k.numpy() for k in kept]))))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-6, atol=1e-6)
+    for b in range(flow.shape[0]):
+        one = fa.flow_accum_emulated(*(x[b:b + 1] for x in t), chunk=chunk)
+        assert torch.equal(one[0], got[b])
+
+
+def test_pair_chunks_and_scratch_follow_the_pair_count():
+    """At most 256 chunks a design, each a multiple of 32 pairs; the scratch
+    holds the offsets and the sorted pairs; the walk's shared memory stays
+    inside one block's limit well past the largest n the paths run."""
+    for P in (0, 1, 511, 512, 65536, 131073, 3_000_000):
+        c = fa.pair_chunk(P)
+        assert c % 32 == 0 and c >= 512 and -(-P // c) <= fa.MAX_CHUNKS
+    assert fa.scratch_ints(1, 256, 65536) == 256 * 128 + 1 + 2 * 65536
+    assert fa.smem_bytes(256) == 4 * 288 * 4
+    assert fa.smem_bytes(1720) <= fa.SMEM_MAX
+
+
 def test_cuda_wrapper_refuses_cpu_tensors():
     flow = torch.zeros((1, 4, 4))
     idx = torch.zeros((1, 3), dtype=torch.int32)

@@ -132,13 +132,16 @@ def test_shape_checks():
 
 
 def test_backward_sub_chunks_fit_shared_memory():
-    """The backward kernel's sub-chunk rule keeps its shared memory inside
-    one block's limit up to chunk 2048 at N = 16, and refuses beyond."""
+    """The backward kernel keeps 16-step sub-chunks in shared memory and the
+    sub-chunk start states in a global scratch, so one block's shared memory
+    depends on N only and fits the limit for every chunk; N > 16 is
+    refused."""
     assert ss.bwd_sub_chunk(256) == 16 and ss.bwd_sub_chunk(8) == 8
-    assert ss.bwd_smem_bytes(16, 256) == 65536
-    for chunk in (1, 7, 16, 100, 256, 1000, 2048):
-        assert ss.bwd_smem_bytes(16, chunk) <= ss.SMEM_MAX
-    with pytest.raises(ValueError, match="shared memory"):
-        ss._check_state(16, 8192)
+    # 16 steps x (2 x 256 states + 5 x 32 channels + 2 x 16 + 8 warps x 32)
+    assert ss.bwd_smem_bytes(16) == 16 * (512 + 160 + 32 + 256) * 4 == 61440
+    assert ss.bwd_smem_bytes(4) < ss.bwd_smem_bytes(8) < ss.bwd_smem_bytes(16)
+    for N in range(1, 17):
+        assert ss.bwd_smem_bytes(N) <= ss.SMEM_MAX
+        ss._check_state(N)
     with pytest.raises(ValueError, match="N <= 16"):
-        ss._check_state(17, 256)
+        ss._check_state(17)
