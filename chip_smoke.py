@@ -6,9 +6,10 @@ and check it.
 
 Phases, each fatal on error (exit code 1, no result line):
 
-1. build every CUDA source of the port with nvcc for sm_90a, all at once,
-   and report what ptxas says of each kernel (registers, stack frame,
-   spills);
+1. build every CUDA source of the port with nvcc for sm_90a, all at once
+   with the scan forward's first design (``tools/scan_fwd_steps.py``), and
+   report what ptxas says of each kernel (registers, stack frame, spills);
+   a stack frame in the scan forward or the min-plus kernel fails the run;
 2. the load-propagation kernel against its plain PyTorch version on the
    card (random routing tables with unreachable pairs and padded vertices,
    n in {16, 100, 128, 160, 256}, B in {1, 7, 256}; W and flow within
@@ -25,7 +26,10 @@ Phases, each fatal on error (exit code 1, no result line):
    kernel's time beside its bound and the plain version's;
 7. the min-plus kernels against their plain versions, bit-equal: min-plus
    at M, K, N in {1, 37, 128, 200} x B in {1, 7, 64} with BIG and inf
-   entries, the fused APSP at n in {16, 32, 64, 128, 160}, the tiled APSP
+   entries, at K below, at and above each point where the k split over a
+   cluster doubles, at M, N below the 32 x 32 tile, K = 0, on operands
+   4 bytes off 16-byte alignment, and twice (bit-equal runs); the fused
+   APSP at n in {16, 32, 64, 128, 160}, the tiled APSP
    at n in {161, 200, 256, 576} through ``ops.apsp``, and a design alone
    bit-equal to it in a batch of 64;
 8. device routing tables: ``next_hop_lowest_id_batch`` (fused or tiled
@@ -42,17 +46,22 @@ Phases, each fatal on error (exit code 1, no result line):
     to ``use_kernel=False`` and within 1e-5 of path doubling;
 11. the report of phases 8-10: each kernel held bit-equal to its plain
     version on the operands it is timed on, at the shapes those paths give
-    it, and its time beside its bound and the plain version's;
+    it, and its time beside its bound and the plain version's, with the
+    profiler's device time per launch (``device_ms``) and the host's time
+    to enqueue a call (``enqueue_ms``); the tiled APSP squaring's record is
+    per squaring (its call divided by ``n_iters``);
     routing-table time per population; the genome path's layers; the host
     syncs of the BFS and up*/down* loops;
 12. the selective-scan kernels (forward B7, backward B8) against their plain
-    versions at ragged shapes (Di 12, 40, 72 and 100, chunks 8, 24, 40 and
-    48, N 4, 8 and 16) and at the
+    versions at ragged shapes (Di 12, 37, 40, 50, 70, 72 and 100, chunks
+    8 to 48, N 1, 3, 4, 8, 12 and 16) and at the
     training path's [2, 2048, 8192], N 16, chunk 256: forward within rtol
     1e-4 / atol 1e-5, backward within rtol 2e-3 / atol 5e-4 (the
     reference's own test bounds: exps and sums over N and over channels in
-    another order); two runs bit-equal; a sequence alone bit-equal to it in
-    the batch; their times at the path's shape beside their bounds;
+    another order); the forward's checkpoints and final states bit-equal
+    to its first design's (one thread per channel); two runs bit-equal; a
+    sequence alone bit-equal to it in the batch; their times at the path's
+    shape beside their bounds, the forward's device time per launch too;
 13. training: ``repro_torch.launch.train.train`` on falcon-mamba-7b at its
     published widths (d_model 4096, d_inner 8192, N 16, vocab 65024, bf16
     compute, f32 parameters, remat "full") cut to 2 layers, batch 2 x 2048
@@ -105,6 +114,15 @@ KERNEL_NS = (16, 100, 128, 160, 256)
 KERNEL_BATCHES = (1, 7, 256)
 MINPLUS_SIZES = (1, 37, 128, 200)          # M, K, N of the min-plus check
 MINPLUS_BATCHES = (1, 7, 64)
+# min-plus at the k-split and tile edges (B, M, K, N): one 64 x 64 tile,
+# whose split doubles at K = 32, 64 and 128 (K below, at and above each);
+# M or N below 64 (32 x 32 tiles) and below 32; K = 0; the paths' shapes
+MINPLUS_EDGES = ((1, 64, 31, 64), (1, 64, 32, 64), (1, 64, 33, 64),
+                 (1, 64, 63, 64), (1, 64, 64, 64), (1, 64, 65, 64),
+                 (1, 64, 127, 64), (1, 64, 128, 64), (1, 64, 129, 64),
+                 (2, 70, 255, 65), (3, 63, 100, 64), (5, 7, 100, 20),
+                 (1, 31, 64, 33), (4, 1, 300, 1), (32, 32, 32, 32),
+                 (2, 5, 0, 7), (8, 256, 256, 64), (3, 256, 256, 256))
 FUSED_NS = (16, 32, 64, 128, 160)          # fused APSP check
 TILED_NS = ((161, 4), (200, 4), (256, 4), (576, 2))   # tiled APSP: (n, B)
 ROUTING_CHIPLETS = 64       # registry topologies for the device tables
@@ -114,7 +132,10 @@ GENOME_SPACES = (   # (name, n_chiplets or None for parametric, population,
     ("adjacency_256", 256, 8, 1),
     ("parametric", None, 64, 2))
 SCAN_SHAPES = ((2, 24, 12, 4, 8), (2, 24, 12, 8, 8),  # B, S, Di, N, chunk
-               (2, 96, 40, 4, 24), (2, 96, 72, 8, 48), (1, 120, 100, 16, 40))
+               (2, 96, 40, 4, 24), (2, 96, 72, 8, 48), (1, 120, 100, 16, 40),
+               # N off the padded 4 / 8 / 16, Di off the block's 32 channels
+               # and off a multiple of 4, S off the 32-step tile
+               (2, 64, 37, 1, 16), (2, 80, 50, 3, 40), (3, 72, 70, 12, 24))
 TRAIN_ARCH = "falcon-mamba-7b"
 TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2, 2048, 4
 TRAIN_LR = 1e-4     # at 3e-4 the first AdamW step diverges at this width
@@ -262,6 +283,47 @@ def profile_device(torch, fn, n_top: int = 6):
     return wall_s, busy_s, top
 
 
+def kernel_device_ms(torch, fn, kernel: str, launches: int,
+                     reps: int = 10) -> float:
+    """The profiler's device time per launch of the kernels whose name holds
+    ``kernel``, over ``reps`` calls of ``fn`` that launch ``launches`` such
+    kernels each: their summed device time over the events it recorded
+    (CUPTI may drop one at the edge of a session; fails if it saw none or
+    more than were launched)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us, count = 0.0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == torch.autograd.DeviceType.CUDA \
+                and kernel in ev.key:
+            us += getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0.0))
+            count += ev.count
+    if not 0 < count <= reps * launches:
+        fail(f"the profiler saw {count} {kernel} kernels of "
+             f"{reps * launches} launched")
+    return us / 1e3 / count
+
+
+def enqueue_ms(torch, fn, reps: int = 50) -> float:
+    """Host milliseconds per call of ``fn`` with no synchronisation between
+    calls: the wrapper's checks, allocation and launch."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host_s / reps * 1e3
+
+
 def random_costs(rng, batch: int, n: int, big: float):
     """Symmetric hop-cost stacks with about 4 edges per vertex (BIG = no
     edge, zero diagonal), so some vertices are cut off."""
@@ -333,6 +395,42 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
                     n_checked += 1
     log(f"phase 7: min-plus kernel bit-equal to plain at {n_checked} shapes; "
         f"alone == in a batch of {big_b}")
+
+    def misaligned(x):
+        """A contiguous copy of x whose data starts 4 bytes off 16."""
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = buf[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    plans = []
+    for B, M, K, N in MINPLUS_EDGES:
+        a = rng.uniform(0, 50, (B, M, K)).astype(np.float32)
+        b = rng.uniform(0, 50, (B, K, N)).astype(np.float32)
+        a[rng.random(a.shape) < 0.2] = BIG
+        b[rng.random(b.shape) < 0.2] = np.inf
+        a_t, b_t = gpu(a), gpu(b)
+        want = mp.minplus_plain(a_t, b_t)
+        got = mp.minplus_cuda(a_t, b_t)
+        if not (torch.equal(got, want) and torch.equal(
+                mp.minplus_cuda(a_t, b_t), got)):
+            fail(f"phase 7: min-plus kernel differs from plain (or from its "
+                 f"own second run) at the edge B={B} M={M} K={K} N={N}")
+        if not torch.equal(mp.minplus_cuda(misaligned(a_t), misaligned(b_t)),
+                           want):
+            fail(f"phase 7: min-plus kernel on operands 4 bytes off "
+                 f"alignment differs from plain at B={B} M={M} K={K} N={N}")
+        one = mp.minplus_cuda(a_t[B - 1:].contiguous(),
+                              b_t[B - 1:].contiguous())
+        if not torch.equal(one[0], got[B - 1]):
+            fail(f"phase 7: min-plus design alone differs from it in the "
+                 f"batch at B={B} M={M} K={K} N={N}")
+        p = mp.minplus_plan(B, M, K, N)
+        plans.append((B, M, K, N, p["tile"], p["split"], p["ctas"]))
+    log(f"phase 7: min-plus kernel bit-equal to plain at the split and tile "
+        f"edges (B, M, K, N, tile, split, CTAs) {plans}, on misaligned "
+        f"operands too; two runs equal; the last design alone == in the "
+        f"batch")
     for n in FUSED_NS:
         d = gpu(random_costs(rng, 8, n, BIG))
         it = apsp_iters(n)
@@ -552,24 +650,34 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
     d256 = torch.where(torch.isinf(d256), BIG, d256).contiguous()
     it256 = apsp_iters(n256)
     B4 = d256.shape[0]
+    # B4's record is per squaring (one launch each), so that launches x
+    # (ms - bound) is its gap: the call of it256 squarings is divided by it256
+    square_call = lambda: ap.apsp_square_cuda(d256, it256)
+    sq = held("apsp_square", square_call,
+              lambda: ap.apsp_plain_blocked(d256, it256, pick_tile(n256, B4)),
+              plain_reps=5)
     square = {"name": "apsp_square", "route": "cuda",
               "source": "src/repro_torch/kernels/csrc/minplus.cu",
               "replaces": "src/repro/kernels/apsp.py:167",
-              "shape": [B4, n256, n256], "n_iters": it256, "library_ms": None,
-              **held("apsp_square",
-                     lambda: ap.apsp_square_cuda(d256, it256),
-                     lambda: ap.apsp_plain_blocked(d256, it256,
-                                                   pick_tile(n256, B4)),
-                     plain_reps=5),
-              **bound(8.0 * B4 * n256 * n256, B4 * it256 * n256 ** 3)}
+              "shape": [B4, n256, n256], "n_iters": it256,
+              "per": "squaring: call_ms / n_iters", "library_ms": None,
+              "max_abs_err": sq["max_abs_err"], "call_ms": sq["ms"],
+              "ms": sq["ms"] / it256, "plain_ms": sq["plain_ms"] / it256,
+              "device_ms": kernel_device_ms(torch, square_call,
+                                            "minplus_tiled", it256),
+              "enqueue_ms": enqueue_ms(torch, square_call) / it256,
+              **bound(8.0 * B4 * n256 * n256, B4 * n256 ** 3)}
 
     def minplus_rec(a, b):
         B, M, K = a.shape
         N = b.shape[-1]
+        call = lambda: mp.minplus_cuda(a, b)
         return {"shape": [B, M, K, N],
-                **held(f"minplus {[B, M, K, N]}",
-                       lambda: mp.minplus_cuda(a, b),
+                **held(f"minplus {[B, M, K, N]}", call,
                        lambda: mp.minplus_plain(a, b)),
+                "device_ms": kernel_device_ms(torch, call, "minplus_tiled",
+                                              1),
+                "enqueue_ms": enqueue_ms(torch, call),
                 **bound(4.0 * B * (M * K + K * N + M * N), B * M * K * N)}
 
     # the genome path's selection shapes: dense at n = 32 (P bucket 32), one
@@ -680,10 +788,12 @@ def scan_inputs(torch, rng, B, S, Di, N, dev):
 
 
 def scan_and_training_paths(torch, dev, zero_counts, read_counts,
-                            clock_hz) -> tuple[list[dict], dict]:
-    """Phases 12-13. Returns the records of selective_scan_fwd and
-    selective_scan_bwd (launches filled in by the caller) and the training
-    report."""
+                            clock_hz, one_thread_fwd) -> tuple[list[dict],
+                                                              dict]:
+    """Phases 12-13. ``one_thread_fwd`` runs the scan forward's first design
+    (``tools/scan_fwd_steps.py``). Returns the records of selective_scan_fwd
+    and selective_scan_bwd (launches filled in by the caller) and the
+    training report."""
     from repro_torch.configs import get_config
     from repro_torch.data import SyntheticTokens
     from repro_torch.kernels import selective_scan as ss
@@ -715,6 +825,10 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
         if not close(fk, fp, SCAN_FWD_TOL):
             fail(f"phase 12: scan forward kernel differs from plain at "
                  f"{shape}: max abs err {max_err(fk, fp)}")
+        f0 = one_thread_fwd(xc, dt, bm, cm, a, h0, chunk=ch)
+        if not (torch.equal(fk[1], f0[1]) and torch.equal(fk[2], f0[2])):
+            fail(f"phase 12: scan forward checkpoints or final states differ "
+                 f"from the one-thread design's at {shape}")
         ckpt = fk[1]
         bk = ss.selective_scan_bwd_cuda(xc, dt, bm, cm, a, ckpt, dy, chunk=ch)
         bp = ss.selective_scan_bwd_plain(xc, dt, bm, cm, a, ckpt, dy,
@@ -743,8 +857,9 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
                  f"at {shape}")
     log(f"phase 12: scan kernels within {SCAN_FWD_TOL} (forward) and "
         f"{SCAN_BWD_TOL} (backward) of plain at {list(SCAN_SHAPES)} and the "
-        f"path's {path_shape}, max abs err {errs}; two runs bit-equal; a "
-        f"sequence alone bit-equal to it in the batch")
+        f"path's {path_shape}, max abs err {errs}; forward checkpoints and "
+        f"final states bit-equal to the one-thread design's; two runs "
+        f"bit-equal; a sequence alone bit-equal to it in the batch")
 
     # timing at the path's shape; bounds from its bytes and its exps/flops
     B, S, _, _, _ = path_shape
@@ -762,8 +877,10 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
     seq_io = B * S * Di * f32
     small = (2 * B * S * N + Di * N + B * Di * N) * f32
     ckpt_bytes = B * (S // chunk) * Di * N * f32
-    fwd_ms = time_cuda(torch, lambda: ss.selective_scan_fwd_cuda(
-        xc, dt, bm, cm, a, h0, chunk=chunk), reps=10)
+    fwd_call = lambda: ss.selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0,
+                                                  chunk=chunk)
+    fwd_ms = time_cuda(torch, fwd_call, reps=10)
+    fwd_device_ms = kernel_device_ms(torch, fwd_call, "ssm_fwd", 1)
     bwd_ms = time_cuda(torch, lambda: ss.selective_scan_bwd_cuda(
         xc, dt, bm, cm, a, ckpt, dy, chunk=chunk), reps=5)
     fwd_rec = {
@@ -771,6 +888,7 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
         "replaces": "src/repro/kernels/selective_scan.py:38",
         "shape": list(path_shape), "max_abs_err": errs["fwd"], "ms": fwd_ms,
+        "device_ms": fwd_device_ms,
         "plain_ms": time_cuda(torch, lambda: ss.selective_scan_fwd_plain(
             xc, dt, bm, cm, a, h0, chunk=chunk), reps=2, warmup=1),
         "library_ms": None,
@@ -792,7 +910,7 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
         # recomputation and the adjoint step
         **bound(5 * seq_io + 2 * small + B * Di * N * f32 + ckpt_bytes,
                 elems, 18 * elems)}
-    del xc, dt, bm, cm, a, h0, dy, ckpt, fk, fp, bk, bp, fk2, bk2
+    del xc, dt, bm, cm, a, h0, dy, ckpt, fk, fp, f0, bk, bp, fk2, bk2
     log(f"phase 12: at {path_shape}: forward {fwd_ms:.4f} ms (bound "
         f"{fwd_rec['bound_ms']:.4f}, {fwd_rec['bound_by']}), backward "
         f"{bwd_ms:.4f} ms (bound {bwd_rec['bound_ms']:.4f}, "
@@ -1085,6 +1203,8 @@ def main() -> None:
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.topologies import make_design
     from repro_torch.traffic import make_traffic
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import scan_fwd_steps as sfs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1116,12 +1236,24 @@ def main() -> None:
         return counts
 
     # -- 1. build ------------------------------------------------------------
+    # the port's sources and, beside them, the scan forward's first design
+    # (one thread per channel), which phase 12 holds the kernel's states
+    # bit-equal to; every nvcc starts at once
+    t0 = time.perf_counter()
+    one_thread = sfs.start_build("one_thread")
     secs = build.build_all()
-    log(f"phase 1: built {list(build.SOURCES)} in {secs:.3f} s")
+    one_thread, _ = sfs.finish_build(one_thread)
+    secs = time.perf_counter() - t0
+    log(f"phase 1: built {list(build.SOURCES)} and the one-thread scan "
+        f"forward in {secs:.3f} s")
     ptxas = ptxas_report(build.BUILD_LOGS)
     for kernel, rec in ptxas.items():
         log(f"  ptxas {kernel}: {rec}")
     print(json.dumps({"ptxas": ptxas}), flush=True)
+    stacked = [k for k, rec in ptxas.items()
+               if k.startswith(("ssm_fwd", "minplus")) and rec["stack_frame"]]
+    if stacked:
+        fail(f"phase 1: {stacked} keep a stack frame")
 
     # -- 2. kernel vs plain --------------------------------------------------
     def plain(nh, l0, hops):
@@ -1347,7 +1479,8 @@ def main() -> None:
 
     # -- 12-14. selective scan, training, pair-walk oracle --------------------
     scan_records, training = scan_and_training_paths(
-        torch, dev, zero_counts, read_counts, max_sm_clock_hz())
+        torch, dev, zero_counts, read_counts, max_sm_clock_hz(),
+        lambda *args, chunk: sfs.forward(one_thread, *args, chunk))
     flow_record = flow_paths(torch, dev, zero_counts, read_counts)
     print(json.dumps({"training": training}), flush=True)
 

@@ -14,6 +14,7 @@ minutes ``torch.utils.cpp_extension`` needs.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -111,10 +112,19 @@ def library(name: str, signatures: dict | None = None) -> ctypes.CDLL:
         return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _capability(index: int) -> tuple[int, int]:
+    return torch.cuda.get_device_capability(index)
+
+
 def require_sm90(device, what: str) -> None:
     """Raise unless ``device`` is an sm_90 GPU (the kernels are built for
-    sm_90a only)."""
-    cap = torch.cuda.get_device_capability(device)
+    sm_90a only). The capability is read once per device and cached:
+    every wrapper calls this on every launch."""
+    device = torch.device(device)
+    index = torch.cuda.current_device() if device.index is None \
+        else device.index
+    cap = _capability(index)
     if cap != (9, 0):
         raise RuntimeError(f"{what} is built for sm_90a; {device} is "
                            f"sm_{cap[0]}{cap[1]}")

@@ -24,13 +24,28 @@
 // the recomputation, whose a_bar the reverse walk reuses).
 //
 // What the design does about it:
-// * forward: one thread per (sequence, channel) holds its N states in
-//   registers and walks the whole sequence, so nothing but the kernel's
-//   inputs and outputs touches HBM (the TPU kernel's VMEM-resident state).
-//   Each block stages B_t and C_t for 16 steps in shared memory and loads its
-//   channels' x and dt for those steps into registers first, so the loads
-//   are in flight together; y_t = sum_n h*C needs no reduction across
-//   threads.
+// * forward: each (sequence, channel) walks the whole sequence with its N
+//   states in registers, so nothing but the kernel's inputs and outputs
+//   touches HBM (the TPU kernel's VMEM-resident state). The first design
+//   gave each channel one thread (16384 threads, 64-thread blocks: about
+//   one warp per scheduler at the training shape), so the 16 exps and the
+//   serial 16-term y sum of a step had nothing to hide their latency, and
+//   every 16 steps a __syncthreads waited on cold global loads: 2.4 ms,
+//   about 12 clocks per instruction. Now a channel's states are split
+//   over kFwdLanes lanes (FwdShape: NP / lanes states a lane, 4 at N = 16),
+//   so a block of 32 channels has 32 x lanes threads and the training shape
+//   about 15 warps an SM (four lanes measured faster than two or eight,
+//   tools/scan_fwd_steps.py); y_t is a per-lane partial sum closed by a fixed
+//   butterfly of log2(lanes) shuffles, in the same order for every channel
+//   and sequence. x_t and dt_t (one value a channel) and the B_t, C_t rows
+//   (shared by every channel of the block) are staged in shared memory for
+//   kFwdTile steps by cp.async, 16 bytes a copy where the rows allow it,
+//   one tile ahead of the steps (two stages); y goes to shared memory and
+//   out as whole rows of the block's channels. Every state update is
+//   step_state, as before, so the checkpoints and hT are bit-equal to the
+//   first design's (only y's summation order changed), and the backward's
+//   recomputation still matches them bit for bit. No fast-math exp: it
+//   would change the states' bits, and the backward's with them.
 // * backward: one block per (sequence, 32 channels) walks every chunk of its
 //   sequence in reverse. Each channel's N states are split over N/2 lanes,
 //   two states a lane (8 lanes a channel at N = 16), so a block has 16 NP
@@ -64,10 +79,13 @@
 
 #include <cuda_runtime.h>
 
+#include <cstdint>
+
 namespace {
 
-constexpr int kFwdThreads = 64;   // channels per forward block
-constexpr int kTile = 16;         // steps staged per forward tile
+constexpr int kFwdLanes = 4;      // lanes a channel in the forward kernel
+constexpr int kFwdChannels = 32;  // channels per forward block
+constexpr int kFwdTile = 32;      // steps per staged forward tile
 constexpr int kSub = 16;          // steps per backward sub-chunk
 constexpr int kSpl = 2;           // states per lane in the backward kernel
 constexpr int kBwdChannels = 32;  // channels per backward block
@@ -84,37 +102,143 @@ __device__ __forceinline__ float step_state(float& h, float a, float dtv,
   return ab;
 }
 
-// One recurrence step of a channel's states (the forward's form).
+// cp.async copies into shared memory (sm_80 and later), their groups and
+// the wait for all but the newest `pending` groups.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(pending) : "memory");
+}
+
+// Forward block shape for NP padded states: lanes a channel (kFwdLanes, or
+// NP if fewer), NP / lanes states a lane, kFwdChannels channels a block.
 template <int NP>
-__device__ __forceinline__ void advance(float (&h)[NP], const float (&av)[NP],
-                                        float dtv, float xv, const float* bt,
-                                        int N) {
-  const float dx = dtv * xv;
-#pragma unroll
-  for (int n = 0; n < NP; ++n)
-    if (n < N) step_state(h[n], av[n], dtv, dx, bt[n]);
+struct FwdShape {
+  static constexpr int kLanes = NP < kFwdLanes ? NP : kFwdLanes;
+  static constexpr int kSpl = NP / kLanes;            // states a lane
+  static constexpr int kThreads = kFwdChannels * kLanes;
+  // floats of one stage: x, dt [tile][channels], B_t, C_t [tile][NP]
+  static constexpr int kStageFloats = kFwdTile * (2 * kFwdChannels + 2 * NP);
+  // two stages and y [tile][channels]
+  static constexpr int kSmemFloats =
+      2 * kStageFloats + kFwdTile * kFwdChannels;
+};
+
+// Stage steps [t0, t0 + tn) of a block's x and dt columns ([tile][CH]) and of
+// B and C ([tile][NP]) into `st`; rows past the sequence, channels past Di
+// and states past N are zero. vec_x: x and dt rows allow 16-byte copies
+// (Di % 4 == 0, aligned); vec_bc: N == NP and B, C aligned.
+template <int NP>
+__device__ __forceinline__ void fwd_stage(
+    float* st, const float* X, const float* T, const float* Bm,
+    const float* Cm, int t0, int tn, int d0, int Di, int N, bool vec_x,
+    bool vec_bc) {
+  constexpr int CH = kFwdChannels, TL = kFwdTile;
+  constexpr int THR = FwdShape<NP>::kThreads;
+  float* s_x = st;
+  float* s_dt = s_x + TL * CH;
+  float* s_b = s_dt + TL * CH;
+  float* s_c = s_b + TL * NP;
+  const int tid = threadIdx.x;
+  if (vec_x) {
+    for (int e = tid; e < TL * CH / 4; e += THR) {
+      const int tt = e / (CH / 4), c = (e % (CH / 4)) * 4;
+      float* dx = s_x + tt * CH + c;
+      float* dd = s_dt + tt * CH + c;
+      if (tt < tn && d0 + c < Di) {
+        const size_t g = (size_t)(t0 + tt) * Di + d0 + c;
+        cp_async16(dx, X + g);
+        cp_async16(dd, T + g);
+      } else {
+        *reinterpret_cast<float4*>(dx) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dd) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int e = tid; e < TL * CH; e += THR) {
+      const int tt = e / CH, c = e % CH;
+      if (tt < tn && d0 + c < Di) {
+        const size_t g = (size_t)(t0 + tt) * Di + d0 + c;
+        cp_async4(s_x + e, X + g);
+        cp_async4(s_dt + e, T + g);
+      } else {
+        s_x[e] = 0.f;
+        s_dt[e] = 0.f;
+      }
+    }
+  }
+  if (vec_bc) {                      // N == NP: the rows are contiguous
+    for (int e = tid; e < TL * NP / 4; e += THR) {
+      const int tt = (e * 4) / NP;
+      float* db = s_b + e * 4;
+      float* dc = s_c + e * 4;
+      if (tt < tn) {
+        const size_t g = (size_t)t0 * N + e * 4;
+        cp_async16(db, Bm + g);
+        cp_async16(dc, Cm + g);
+      } else {
+        *reinterpret_cast<float4*>(db) = make_float4(0.f, 0.f, 0.f, 0.f);
+        *reinterpret_cast<float4*>(dc) = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  } else {
+    for (int e = tid; e < TL * NP; e += THR) {
+      const int tt = e / NP, n = e % NP;
+      if (tt < tn && n < N) {
+        const size_t g = (size_t)(t0 + tt) * N + n;
+        cp_async4(s_b + e, Bm + g);
+        cp_async4(s_c + e, Cm + g);
+      } else {
+        s_b[e] = 0.f;
+        s_c[e] = 0.f;
+      }
+    }
+  }
 }
 
 template <int NP>
-__global__ void __launch_bounds__(kFwdThreads)
+__global__ void __launch_bounds__(FwdShape<NP>::kThreads)
 ssm_fwd(const float* __restrict__ xc, const float* __restrict__ dt,
         const float* __restrict__ bm, const float* __restrict__ cm,
         const float* __restrict__ a, const float* __restrict__ h0,
         float* __restrict__ y, float* __restrict__ ckpt,
-        float* __restrict__ ht, int S, int Di, int N, int chunk) {
-  const int b = blockIdx.y;
-  const int d = blockIdx.x * kFwdThreads + threadIdx.x;
+        float* __restrict__ ht, int S, int Di, int N, int chunk, int vec_x,
+        int vec_bc) {
+  using Shape = FwdShape<NP>;
+  constexpr int L = Shape::kLanes, SPL = Shape::kSpl, THR = Shape::kThreads;
+  constexpr int CH = kFwdChannels, TL = kFwdTile;
+  const int tid = threadIdx.x;
+  const int cl = tid / L, j = tid % L;
+  const int b = blockIdx.y, d0 = blockIdx.x * CH, d = d0 + cl;
   const bool live = d < Di;
   const int n_chunks = S / chunk;
-  __shared__ float sb[kTile][NP];
-  __shared__ float sc[kTile][NP];
+  const int n_tiles = (S + TL - 1) / TL;
+  __shared__ __align__(16) float smem[Shape::kSmemFloats];
+  float* ys = smem + 2 * Shape::kStageFloats;         // [tile][channels]
 
-  float h[NP], av[NP];
+  float h[SPL], av[SPL];
+  bool ok[SPL];
 #pragma unroll
-  for (int n = 0; n < NP; ++n) {
-    const bool ok = live && n < N;
-    h[n] = ok ? h0[((size_t)b * Di + d) * N + n] : 0.f;
-    av[n] = ok ? a[(size_t)d * N + n] : 0.f;
+  for (int s = 0; s < SPL; ++s) {
+    const int n = j * SPL + s;
+    ok[s] = live && n < N;
+    h[s] = ok[s] ? h0[((size_t)b * Di + d) * N + n] : 0.f;
+    av[s] = ok[s] ? a[(size_t)d * N + n] : 0.f;
   }
   const float* X = xc + (size_t)b * S * Di;
   const float* T = dt + (size_t)b * S * Di;
@@ -122,47 +246,67 @@ ssm_fwd(const float* __restrict__ xc, const float* __restrict__ dt,
   const float* Cm = cm + (size_t)b * S * N;
   float* Y = y + (size_t)b * S * Di;
 
-  for (int t0 = 0; t0 < S; t0 += kTile) {
-    const int tn = min(kTile, S - t0);
-    __syncthreads();
-    for (int e = threadIdx.x; e < kTile * NP; e += kFwdThreads) {
-      const int tt = e / NP, n = e % NP;
-      const bool ok = tt < tn && n < N;
-      sb[tt][n] = ok ? Bm[(size_t)(t0 + tt) * N + n] : 0.f;
-      sc[tt][n] = ok ? Cm[(size_t)(t0 + tt) * N + n] : 0.f;
-    }
-    float xr[kTile], dr[kTile];
+  fwd_stage<NP>(smem, X, T, Bm, Cm, 0, min(TL, S), d0, Di, N, vec_x,
+                vec_bc);
+  cp_async_commit();
+  int next_ck = 0;                   // the next step that starts a chunk
+  for (int k = 0; k < n_tiles; ++k) {
+    const int t0 = k * TL, tn = min(TL, S - t0);
+    const float* st = smem + (k & 1) * Shape::kStageFloats;
+    // the stage of tile k + 1 was last read in tile k - 1, before the
+    // barrier that ended it
+    if (k + 1 < n_tiles)
+      fwd_stage<NP>(smem + ((k + 1) & 1) * Shape::kStageFloats, X, T, Bm, Cm,
+                    t0 + TL, min(TL, S - t0 - TL), d0, Di, N, vec_x, vec_bc);
+    cp_async_commit();
+    cp_async_wait<1>();              // tile k has landed, k + 1 in flight
+    __syncthreads();                 // tile k visible; y of tile k - 1 out
+    const float* s_x = st;
+    const float* s_dt = s_x + TL * CH;
+    const float* s_b = s_dt + TL * CH;
+    const float* s_c = s_b + TL * NP;
+    for (int tt = 0; tt < tn; ++tt) {
+      const int t = t0 + tt;
+      if (t == next_ck) {
+        float* ck = ckpt + (((size_t)b * n_chunks + t / chunk) * Di + d) * N;
 #pragma unroll
-    for (int tt = 0; tt < kTile; ++tt) {
-      const bool ok = live && tt < tn;
-      xr[tt] = ok ? X[(size_t)(t0 + tt) * Di + d] : 0.f;
-      dr[tt] = ok ? T[(size_t)(t0 + tt) * Di + d] : 0.f;
-    }
-    __syncthreads();
+        for (int s = 0; s < SPL; ++s)
+          if (ok[s]) ck[j * SPL + s] = h[s];
+        next_ck += chunk;
+      }
+      const float dtv = s_dt[tt * CH + cl];
+      const float dx = dtv * s_x[tt * CH + cl];
+      float part = 0.f;
 #pragma unroll
-    for (int tt = 0; tt < kTile; ++tt) {
-      if (tt < tn && live) {
-        const int t = t0 + tt;
-        if (t % chunk == 0) {
-          float* ck = ckpt + (((size_t)b * n_chunks + t / chunk) * Di + d) * N;
-#pragma unroll
-          for (int n = 0; n < NP; ++n)
-            if (n < N) ck[n] = h[n];
+      for (int s = 0; s < SPL; ++s) {
+        if (ok[s]) {
+          step_state(h[s], av[s], dtv, dx, s_b[tt * NP + j * SPL + s]);
+          part = fmaf(h[s], s_c[tt * NP + j * SPL + s], part);
         }
-        advance<NP>(h, av, dr[tt], xr[tt], sb[tt], N);
-        float acc = 0.f;
+      }
 #pragma unroll
-        for (int n = 0; n < NP; ++n)
-          if (n < N) acc += h[n] * sc[tt][n];
-        Y[(size_t)t * Di + d] = acc;
+      for (int o = 1; o < L; o <<= 1)
+        part += __shfl_xor_sync(kFull, part, o);
+      if (j == 0) ys[tt * CH + cl] = part;
+    }
+    __syncthreads();                 // y of tile k complete; stage k read
+    if (vec_x) {
+      for (int e = tid; e < tn * CH / 4; e += THR) {
+        const int tt = e / (CH / 4), c = (e % (CH / 4)) * 4;
+        if (d0 + c < Di)
+          *reinterpret_cast<float4*>(Y + (size_t)(t0 + tt) * Di + d0 + c) =
+              *reinterpret_cast<const float4*>(ys + tt * CH + c);
+      }
+    } else {
+      for (int e = tid; e < tn * CH; e += THR) {
+        const int tt = e / CH, c = e % CH;
+        if (d0 + c < Di) Y[(size_t)(t0 + tt) * Di + d0 + c] = ys[e];
       }
     }
   }
-  if (live) {
 #pragma unroll
-    for (int n = 0; n < NP; ++n)
-      if (n < N) ht[((size_t)b * Di + d) * N + n] = h[n];
-  }
+  for (int s = 0; s < SPL; ++s)
+    if (ok[s]) ht[((size_t)b * Di + d) * N + j * SPL + s] = h[s];
 }
 
 // Backward block shape for NP padded states: kSpl states a lane, NP / kSpl
@@ -437,17 +581,26 @@ extern "C" int ssm_fwd_launch(const float* xc, const float* dt,
                               int N, int chunk, void* stream) {
   if (N < 1 || N > 16 || chunk < 1 || S % chunk != 0)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((Di + kFwdThreads - 1) / kFwdThreads, B);
+  const auto misaligned = [](const void* p) {
+    return (reinterpret_cast<std::uintptr_t>(p) & 15) != 0;
+  };
+  const int vec_x = Di % 4 == 0 && !misaligned(xc) && !misaligned(dt) &&
+                    !misaligned(y);
+  const int np = N <= 4 ? 4 : (N <= 8 ? 8 : 16);
+  const int vec_bc = N == np && !misaligned(bm) && !misaligned(cm);
+  const dim3 grid((Di + kFwdChannels - 1) / kFwdChannels, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 4)
-    ssm_fwd<4><<<grid, kFwdThreads, 0, st>>>(xc, dt, bm, cm, a, h0, y, ckpt,
-                                             ht, S, Di, N, chunk);
-  else if (N <= 8)
-    ssm_fwd<8><<<grid, kFwdThreads, 0, st>>>(xc, dt, bm, cm, a, h0, y, ckpt,
-                                             ht, S, Di, N, chunk);
-  else
-    ssm_fwd<16><<<grid, kFwdThreads, 0, st>>>(xc, dt, bm, cm, a, h0, y, ckpt,
-                                              ht, S, Di, N, chunk);
+#define SSM_FWD(NP)                                                          \
+  ssm_fwd<NP><<<grid, FwdShape<NP>::kThreads, 0, st>>>(                      \
+      xc, dt, bm, cm, a, h0, y, ckpt, ht, S, Di, N, chunk, vec_x, vec_bc);
+  if (np == 4) {
+    SSM_FWD(4)
+  } else if (np == 8) {
+    SSM_FWD(8)
+  } else {
+    SSM_FWD(16)
+  }
+#undef SSM_FWD
   return (int)cudaGetLastError();
 }
 

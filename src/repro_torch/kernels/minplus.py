@@ -6,9 +6,12 @@ kernel's scratch starts at BIG, so no entry ever comes out above BIG.
 
 * ``minplus_cuda`` — the hand-written Hopper kernel in ``csrc/minplus.cu``.
   It replaces the TPU kernel ``src/repro/kernels/minplus.py:31``
-  (``_minplus_kernel``): one CTA per (design, 64 x 64 output tile), k
-  slices staged through shared memory, a 4 x 4 register block of the
-  accumulator per thread, ragged edges masked in the kernel (no padding).
+  (``_minplus_kernel``): one thread block cluster per (design, output tile:
+  64 x 64, or 32 x 32 where M or N is below 64) whose CTAs split k and
+  merge their partial minima through distributed shared memory in rank
+  order (``minplus_plan`` mirrors the launch's choice); k slices stream
+  through a 3-stage ``cp.async`` ring; a 4 x 4 register block of the
+  accumulator per thread; ragged edges masked in the kernel (no padding).
   It is bound by its operations, one add and one min per (i, k, j)
   candidate; the source note says what the design does about it.
   ``launches`` counts its calls.
@@ -20,6 +23,7 @@ kernel's scratch starts at BIG, so no entry ever comes out above BIG.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -27,6 +31,8 @@ import torch
 from .ref import BIG
 
 _CHUNK_ELEMS = 1 << 25   # bound on the plain version's broadcast transient
+# the kernel's launch plan (csrc/minplus.cu: kDepth, kMaxSplit, kFillCtas)
+DEPTH, MAX_SPLIT, FILL_CTAS = 16, 8, 132
 
 
 def minplus_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -42,6 +48,24 @@ def minplus_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         cand = (a[:, r0:r0 + rows, :, None] + b[:, None, :, :]).amin(dim=2)
         out[:, r0:r0 + rows] = torch.minimum(out[:, r0:r0 + rows], cand)
     return out
+
+
+def minplus_plan(B: int, M: int, K: int, N: int) -> dict:
+    """The kernel's launch plan for [B, M, K] x [B, K, N] (mirrors ``plan``
+    in ``csrc/minplus.cu``): a 64 x 64 output tile where M and N are both at
+    least 64, else 32 x 32, with (tile / 4)^2 threads; k split over
+    ``split`` CTAs of a cluster, doubled (up to 8) while the grid has fewer
+    than 132 CTAs and each CTA would keep at least 16 k; CTA rank r takes
+    k in [r k_per_cta, (r + 1) k_per_cta)."""
+    tile = 64 if M >= 64 and N >= 64 else 32
+    tiles = B * -(-M // tile) * -(-N // tile)
+    split = 1
+    while split < MAX_SPLIT and tiles * split < FILL_CTAS \
+            and K >= 2 * split * DEPTH:
+        split *= 2
+    per = -(-K // split)
+    return {"tile": tile, "threads": (tile // 4) ** 2, "split": split,
+            "k_per_cta": -(-per // DEPTH) * DEPTH, "ctas": tiles * split}
 
 
 _SIGNATURES = {
@@ -85,10 +109,14 @@ def launch_minplus(a: torch.Tensor, b: torch.Tensor, out: torch.Tensor
     if B == 0 or M == 0 or N == 0:
         return False
     lib = _lib()
-    stream = torch.cuda.current_stream(a.device)
-    with torch.cuda.device(a.device):
+    # the host's launch costs more than the kernel at the paths' shapes: the
+    # raw stream handle saves building a torch.cuda.Stream per call, and the
+    # device is switched only when the operands are not on the current one
+    stream = torch._C._cuda_getCurrentRawStream(a.device.index)
+    current = a.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(a.device):
         rc = lib.minplus_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                B, M, K, N, stream.cuda_stream)
+                                B, M, K, N, stream)
     if rc != 0:
         msg = lib.minplus_error_string(rc).decode()
         raise RuntimeError(f"min-plus kernel launch failed (cuda error "
@@ -115,5 +143,5 @@ def minplus_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 minplus_cuda.launches = 0
 
 
-__all__ = ["minplus_plain", "minplus_cuda", "check_f32_cuda",
+__all__ = ["minplus_plain", "minplus_cuda", "minplus_plan", "check_f32_cuda",
            "launch_minplus"]

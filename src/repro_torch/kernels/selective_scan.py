@@ -13,9 +13,16 @@ walks each chunk in reverse with the adjoint state.
 
 * ``selective_scan_fwd_cuda`` — the Hopper kernel ``ssm_fwd`` in
   ``csrc/selective_scan.cu``; it replaces the TPU kernel
-  ``src/repro/kernels/selective_scan.py:38`` (``_fwd_kernel``, B7). One
-  thread per (sequence, channel) holds its states in registers for the whole
-  sequence. ``launches`` counts its calls.
+  ``src/repro/kernels/selective_scan.py:38`` (``_fwd_kernel``, B7). Each
+  (sequence, channel) keeps its states in registers for the whole sequence,
+  split over ``fwd_plan(N)["lanes"]`` lanes (4 at N = 16, four states a
+  lane); a block of 32 channels stages x, dt, B_t and C_t for 32 steps in
+  shared memory with ``cp.async``, one tile ahead of the steps, and y_t is
+  each lane's partial sum closed by a fixed butterfly over the channel's
+  lanes. Each state is updated by the step the backward's recomputation
+  uses, so the checkpoints and hT do not depend on the layout (only y's
+  summation order does); ``fwd_plan`` mirrors the block's layout and
+  shared memory. ``launches`` counts its calls.
 * ``selective_scan_bwd_cuda`` — the kernel ``ssm_bwd`` and a fixed-order
   partial sum; it replaces ``:116`` (``_bwd_kernel``, B8). One block per
   (sequence, 32 channels), each channel's states split over N/2 lanes (two
@@ -150,10 +157,28 @@ def _raise(rc: int, what: str, shape) -> None:
 
 
 BWD_SUB = 16                  # steps per backward sub-chunk (kSub)
+FWD_LANES = 4                 # lanes a channel in the forward (kFwdLanes)
+FWD_CHANNELS = 32             # channels per forward block (kFwdChannels)
+FWD_TILE = 32                 # steps per staged forward tile (kFwdTile)
 
 
 def _padded_state(N: int) -> int:
     return 4 if N <= 4 else (8 if N <= 8 else 16)
+
+
+def fwd_plan(N: int) -> dict:
+    """The forward block's layout at N states (mirrors ``FwdShape`` in the
+    .cu file): N padded to NP (4, 8 or 16), ``lanes`` a channel, state
+    n = lane * states_per_lane + slot (states n >= N are padding), 32
+    channels a block, and the static shared memory: two stages of x and dt
+    [32 steps, 32 channels] and B_t and C_t [32 steps, NP], and y
+    [32 steps, 32 channels]."""
+    np_ = _padded_state(N)
+    lanes = min(np_, FWD_LANES)
+    stage = FWD_TILE * (2 * FWD_CHANNELS + 2 * np_)
+    return {"padded": np_, "lanes": lanes, "states_per_lane": np_ // lanes,
+            "channels": FWD_CHANNELS, "threads": FWD_CHANNELS * lanes,
+            "smem_bytes": (2 * stage + FWD_TILE * FWD_CHANNELS) * 4}
 
 
 def bwd_sub_chunk(chunk: int) -> int:
@@ -255,4 +280,4 @@ selective_scan_bwd_cuda.launches = 0
 
 __all__ = ["selective_scan_fwd_plain", "selective_scan_bwd_plain",
            "selective_scan_fwd_cuda", "selective_scan_bwd_cuda",
-           "bwd_sub_chunk", "bwd_smem_bytes", "MAX_STATE"]
+           "bwd_sub_chunk", "bwd_smem_bytes", "fwd_plan", "MAX_STATE"]

@@ -16,7 +16,9 @@ metrics within rtol 1e-5 of the CPU run; flow accumulation bit-equal to the
 CPU's ascending-p scatter; the selective scan within rtol 1e-4 / atol 1e-5
 (forward) and rtol 2e-3 / atol 5e-4 (backward) of its plain version, the
 reference's own bounds (exps and sums over N and channels in another
-order), and bit-equal between two runs and alone vs in a batch.
+order), and bit-equal between two runs and alone vs in a batch; the scan
+forward's checkpoints and final states bit-equal to its first design's
+(``tools/scan_fwd_steps.py``, built with nvcc by the test).
 """
 import numpy as np
 import pytest
@@ -167,6 +169,34 @@ def test_minplus_kernel_bit_equal_to_plain(cuda, B, M, K, N):
     assert torch.equal(got, minplus_plain(a_t, b_t))
 
 
+@pytest.mark.parametrize("B,M,K,N", [
+    (1, 64, 31, 64), (1, 64, 32, 64), (1, 64, 33, 64), (1, 64, 64, 64),
+    (1, 64, 127, 64), (1, 64, 128, 64), (1, 64, 129, 64), (2, 70, 255, 65),
+    (3, 63, 100, 64), (5, 7, 100, 20), (1, 31, 64, 33), (4, 1, 300, 1),
+    (32, 32, 32, 32), (2, 5, 0, 7), (8, 256, 256, 64), (3, 256, 256, 256)])
+def test_minplus_kernel_at_split_and_tile_edges(cuda, B, M, K, N):
+    """K below, at and above each point where the k split over a cluster
+    doubles, M and N below the 32 x 32 tile, K = 0, the paths' shapes:
+    bit-equal to plain, two runs equal, the last design alone equal to it
+    in the batch, and operands 4 bytes off 16-byte alignment equal too."""
+    from repro_torch.kernels.minplus import minplus_cuda, minplus_plain
+
+    a, b = _minplus_operands(np.random.default_rng(M * K + N), B, M, K, N)
+    a_t, b_t = torch.from_numpy(a).to(cuda), torch.from_numpy(b).to(cuda)
+    got = minplus_cuda(a_t, b_t)
+    torch.cuda.synchronize()
+    assert torch.equal(got, minplus_plain(a_t, b_t))
+    assert torch.equal(minplus_cuda(a_t, b_t), got)
+    one = minplus_cuda(a_t[B - 1:].contiguous(), b_t[B - 1:].contiguous())
+    assert torch.equal(one[0], got[B - 1])
+    off = []
+    for x in (a_t, b_t):
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        off.append(buf[1:].view(x.shape))
+        off[-1].copy_(x)
+    assert torch.equal(minplus_cuda(*off), got)
+
+
 def _apsp_input(rng, batch, n):
     from repro_torch.kernels.ref import BIG
 
@@ -312,7 +342,10 @@ def _scan_inputs(rng, B, S, Di, N, dev):
                                             (2, 96, 72, 8, 48),
                                             (3, 120, 100, 16, 40),
                                             (2, 200, 37, 5, 200),
-                                            (1, 1024, 70, 16, 512)])
+                                            (1, 1024, 70, 16, 512),
+                                            (2, 64, 37, 1, 16),
+                                            (2, 80, 50, 3, 40),
+                                            (3, 72, 70, 12, 24)])
 def test_selective_scan_kernels_match_plain(cuda, B, S, Di, N, chunk):
     from repro_torch.kernels import selective_scan as ss
 
@@ -323,6 +356,8 @@ def test_selective_scan_kernels_match_plain(cuda, B, S, Di, N, chunk):
     for g, w in zip(got, want):
         assert torch.allclose(g, w, rtol=1e-4, atol=1e-5)
     ckpt = got[1]
+    again = ss.selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0, chunk=chunk)
+    assert all(torch.equal(g, h) for g, h in zip(got, again))
     grads = ss.selective_scan_bwd_cuda(xc, dt, bm, cm, a, ckpt, dy,
                                        chunk=chunk)
     want = ss.selective_scan_bwd_plain(xc, dt, bm, cm, a, ckpt, dy,
@@ -341,6 +376,42 @@ def test_selective_scan_kernels_match_plain(cuda, B, S, Di, N, chunk):
                                     chunk=chunk)
     for i in (0, 1, 2, 3, 5):          # da sums over the batch
         assert torch.equal(g1[i][0], grads[i][b])
+
+
+@pytest.mark.parametrize("B,S,Di,N,chunk", [(2, 96, 40, 4, 24),
+                                            (2, 64, 37, 1, 16),
+                                            (3, 72, 70, 12, 24),
+                                            (1, 512, 256, 16, 256)])
+def test_selective_scan_forward_states_equal_the_first_design(cuda, B, S, Di,
+                                                              N, chunk):
+    """The forward's checkpoints and final states are bit-equal to its first
+    design's (one thread per channel, ``tools/scan_fwd_steps.py``), which
+    the backward's recomputation from those checkpoints was held against:
+    the backward still matches its plain version on them."""
+    import os
+    import sys
+
+    from repro_torch.kernels import selective_scan as ss
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    import scan_fwd_steps as sfs
+
+    lib, _ = sfs.finish_build(sfs.start_build("one_thread"))
+    xc, dt, bm, cm, a, h0, dy = _scan_inputs(np.random.default_rng(S * N),
+                                             B, S, Di, N, cuda)
+    y, ckpt, ht = ss.selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0,
+                                             chunk=chunk)
+    y0, ckpt0, ht0 = sfs.forward(lib, xc, dt, bm, cm, a, h0, chunk)
+    torch.cuda.synchronize()
+    assert torch.equal(ckpt, ckpt0) and torch.equal(ht, ht0)
+    assert torch.allclose(y, y0, rtol=1e-4, atol=1e-5)
+    grads = ss.selective_scan_bwd_cuda(xc, dt, bm, cm, a, ckpt, dy,
+                                       chunk=chunk)
+    want = ss.selective_scan_bwd_plain(xc, dt, bm, cm, a, ckpt0, dy,
+                                       chunk=chunk)
+    for g, w in zip(grads, want):
+        assert torch.allclose(g, w, rtol=2e-3, atol=5e-4)
 
 
 def test_selective_scan_autograd_on_cuda_launches_both_kernels(cuda):

@@ -116,3 +116,27 @@ def test_explicit_cpu_device_runs_on_the_host(no_gpu):
     from repro_torch.dse import DseEngine
 
     assert DseEngine(device="cpu").device == torch.device("cpu")
+
+
+ROOT = os.path.join(os.path.dirname(__file__), "..")
+
+
+@pytest.mark.parametrize("script", ["chip_smoke.py", "tools/scan_bwd_steps.py",
+                                    "tools/scan_fwd_steps.py"])
+def test_card_scripts_import_neither_jax_nor_repro(script):
+    """The scripts that drive the port on the card (whose machine has no
+    JAX) import nothing of jax or of the reference package, at any depth
+    of their code."""
+    import ast
+
+    with open(os.path.join(ROOT, script)) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    roots = {name.split(".")[0] for name in names}
+    assert "jax" not in roots and "repro" not in roots, sorted(roots)
+    assert "repro_torch" in roots

@@ -113,3 +113,64 @@ def test_path_cost_minplus_kernel_route_equals_plain_and_batches():
     batch = path_cost_minplus(torch.stack([sc_t, sc_t]),
                               torch.stack([nw_t, nw_t]), use_kernel=True)
     assert torch.equal(batch[1], kern)
+
+
+@pytest.mark.parametrize("B,M,K,N,tile,split", [
+    (8, 256, 256, 64, 64, 8),       # the genome selection's slab product
+    (3, 256, 256, 256, 64, 4),      # the tiled APSP squaring at n = 256
+    (32, 32, 32, 32, 32, 2),        # the n = 32 genome selection
+    (64, 200, 200, 200, 64, 1),     # a batch that fills the card alone
+    (1, 64, 31, 64, 64, 1), (1, 64, 32, 64, 64, 2),
+    (1, 64, 127, 64, 64, 4), (1, 64, 128, 64, 64, 8),
+    (3, 63, 100, 64, 32, 4), (2, 5, 0, 7, 32, 1),
+])
+def test_launch_plan(B, M, K, N, tile, split):
+    """``minplus_plan`` (the mirror of the launch's plan): a 64 x 64 tile
+    only where M and N are both at least 64; k split over a cluster of up to
+    8 CTAs until the grid fills the H100's 132 SMs, each CTA keeping at
+    least 16 k and every CTA some k; the paths' shapes reach 132 CTAs."""
+    p = minplus.minplus_plan(B, M, K, N)
+    assert (p["tile"], p["split"]) == (tile, split)
+    assert p["threads"] == (tile // 4) ** 2
+    assert p["ctas"] == B * -(-M // tile) * -(-N // tile) * split
+    assert p["k_per_cta"] % minplus.DEPTH == 0
+    assert p["split"] * p["k_per_cta"] >= K
+    if split > 1:
+        assert (split - 1) * p["k_per_cta"] < K
+        assert K // split >= minplus.DEPTH
+    if (B, M, K, N) in ((8, 256, 256, 64), (3, 256, 256, 256)):
+        assert p["ctas"] >= minplus.FILL_CTAS
+
+
+def _k_split_merge(a, b):
+    """A plain emulation of the kernel's k split: each CTA rank's partial
+    minimum over its share of k (BIG where the share is empty), merged in
+    rank order."""
+    B, M, K = a.shape
+    p = minplus.minplus_plan(B, M, K, b.shape[-1])
+    kc = p["k_per_cta"]
+    merged = None
+    for r in range(p["split"]):
+        kb, ke = min(K, r * kc), min(K, (r + 1) * kc)
+        part = minplus.minplus_plain(a[:, :, kb:ke].contiguous(),
+                                     b[:, kb:ke].contiguous())
+        merged = part if merged is None else torch.minimum(merged, part)
+    return merged, p["split"]
+
+
+@pytest.mark.parametrize("B,M,K,N", [
+    (8, 256, 256, 64), (3, 256, 256, 256), (32, 32, 32, 32),
+    (1, 64, 129, 64), (2, 70, 255, 65), (3, 63, 100, 64), (1, 31, 64, 33),
+])
+def test_k_split_merge_bit_equal_to_plain_and_reference(B, M, K, N):
+    """Min is exact and each candidate one f32 add, so the split the plan
+    picks, merged in rank order, equals the unsplit product and the
+    reference's Pallas kernel (interpret mode) bit for bit."""
+    rng = np.random.default_rng(B + M + K + N)
+    a, b = _operands(rng, (B, M, K), (B, K, N))
+    merged, split = _k_split_merge(torch.from_numpy(a), torch.from_numpy(b))
+    assert split > 1
+    whole = minplus.minplus_plain(torch.from_numpy(a), torch.from_numpy(b))
+    assert torch.equal(merged, whole)
+    want = np.asarray(ref_minplus_matmul(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_array_equal(merged.numpy(), want)

@@ -145,3 +145,76 @@ def test_backward_sub_chunks_fit_shared_memory():
         ss._check_state(N)
     with pytest.raises(ValueError, match="N <= 16"):
         ss._check_state(17)
+
+
+@pytest.mark.parametrize("N", range(1, 17))
+def test_forward_plan_covers_every_state(N):
+    """The forward block's layout (``fwd_plan``, the mirror of ``FwdShape``):
+    each of the N states sits on exactly one (lane, slot) of its channel, the
+    padded ones past N; a channel's lanes are a power of two within a warp,
+    so the y butterfly stays inside it; the static shared memory fits
+    48 KB, far below the 227 KB limit."""
+    plan = ss.fwd_plan(N)
+    lanes, spl, np_ = plan["lanes"], plan["states_per_lane"], plan["padded"]
+    assert np_ >= N and lanes * spl == np_
+    states = sorted(j * spl + s for j in range(lanes) for s in range(spl))
+    assert states == list(range(np_))
+    assert lanes & (lanes - 1) == 0 and 32 % lanes == 0
+    assert plan["threads"] == plan["channels"] * lanes
+    assert plan["threads"] % 32 == 0
+    assert plan["smem_bytes"] <= 48 * 1024 <= ss.SMEM_MAX
+    if N == 16:
+        # two stages of x, dt [32, 32] and B, C [32, 16], and y [32, 32]
+        assert (lanes, spl, plan["threads"]) == (4, 4, 128)
+        assert plan["smem_bytes"] == (2 * 32 * (64 + 32) + 32 * 32) * 4
+
+
+def _fwd_lane_partials(xc, dt, bm, cm, a, h0, chunk):
+    """A plain emulation of the forward kernel's arithmetic: the states as
+    ``step_state`` updates them, padded to ``fwd_plan``'s NP with zeros, and
+    y_t as each lane's partial sum over its slots, closed by the butterfly
+    ``part += part[lane ^ o]`` for o = 1, 2, ... below the lane count."""
+    B, S, Di = xc.shape
+    N = a.shape[1]
+    plan = ss.fwd_plan(N)
+    lanes, spl, np_ = plan["lanes"], plan["states_per_lane"], plan["padded"]
+    pad = lambda x: torch.nn.functional.pad(x, (0, np_ - N))
+    a_p, bm_p, cm_p, h = pad(a), pad(bm), pad(cm), pad(h0)
+    lane = torch.arange(lanes)
+    ys, ckpts = [], []
+    for t in range(S):
+        if t % chunk == 0:
+            ckpts.append(h[..., :N])
+        dt_t = dt[:, t, :, None]
+        dx = dt_t * xc[:, t, :, None]
+        h = torch.exp(dt_t * a_p) * h + dx * bm_p[:, t, None, :]
+        prod = (h * cm_p[:, t, None, :]).reshape(B, Di, lanes, spl)
+        part = prod[..., 0]
+        for s in range(1, spl):
+            part = part + prod[..., s]
+        o = 1
+        while o < lanes:
+            part = part + part[..., lane ^ o]
+            o *= 2
+        ys.append(part[..., 0])
+    return torch.stack(ys, 1), torch.stack(ckpts, 1), h[..., :N]
+
+
+@pytest.mark.parametrize("shape", [(2, 32, 16, 4, 8), (2, 40, 12, 1, 8),
+                                   (1, 48, 37, 3, 16), (2, 24, 20, 12, 24),
+                                   (2, 64, 40, 16, 32)])
+def test_lane_partial_y_sum_matches_reference(shape):
+    """The lane-partial y sum against the reference kernel in interpret mode
+    within the reference's forward bound (rtol 1e-4 / atol 1e-5); its
+    checkpoints and final states equal the plain forward's bit for bit (the
+    states are updated the same way, only y is summed in another order)."""
+    B, S, Di, N, chunk = shape
+    *args, _ = _inputs(B, S, Di, N, seed=N)
+    want = ref_ss.selective_scan_fwd(*map(jnp.asarray, args), chunk=chunk,
+                                     bd=Di)
+    got = _fwd_lane_partials(*_t(args), chunk=chunk)
+    for g, w, what in zip(got, want, ("y", "ckpt", "hT")):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5, err_msg=what)
+    plain = ss.selective_scan_fwd_plain(*_t(args), chunk=chunk)
+    assert torch.equal(got[1], plain[1]) and torch.equal(got[2], plain[2])
