@@ -7,14 +7,17 @@ and check it.
 Phases, each fatal on error (exit code 1, no result line):
 
 1. build every CUDA source of the port with nvcc for sm_90a, all at once
-   with the scan forward's first design (``tools/scan_fwd_steps.py``), and
-   report what ptxas says of each kernel (registers, stack frame, spills);
-   a stack frame in the scan forward or the min-plus kernel fails the run;
+   with the first designs of the scan forward, load propagation and the
+   fused APSP (``tools/scan_fwd_steps.py``, ``tools/load_prop_steps.py``,
+   ``tools/apsp_steps.py``), and report what ptxas says of each kernel
+   (registers, stack frame, spills); a stack frame in the scan forward,
+   the min-plus, the load-propagation or the fused APSP kernel fails the
+   run;
 2. the load-propagation kernel against its plain PyTorch version on the
    card (random routing tables with unreachable pairs and padded vertices,
    n in {16, 100, 128, 160, 256}, B in {1, 7, 256}; W and flow within
-   rtol 1e-5 / atol 1e-6), and each design of a batch of 256 bit-equal to
-   the same design run alone;
+   rtol 1e-5 / atol 1e-6) and bit-equal to its first design's, and each
+   design of a batch of 256 bit-equal to the same design run alone;
 3. the README sweep (10 topologies x {16, 36, 64} chiplets x 2 traffic
    patterns x 2 routings = 120 points) through
    ``DseEngine(device="cuda", chunk_size=60).run``, held within rtol 1e-5
@@ -23,13 +26,18 @@ Phases, each fatal on error (exit code 1, no result line):
    ``evaluate_points``, same checks;
 5. ``evaluate_design`` on one 64-chiplet mesh, on the card and on the CPU;
 6. the report of phases 3-5: per-layer times, and the load-propagation
-   kernel's time beside its bound and the plain version's;
+   kernel at the sweep paths' shapes held bit-equal to its first design
+   and timed beside its bound and the plain version's, with the
+   profiler's device time per call (``device_ms``, both kernels) and the
+   host's time to enqueue one (``enqueue_ms``); after phase 11 the same
+   at the ``AdjacencySpace(32, 8)`` genome batch's shape;
 7. the min-plus kernels against their plain versions, bit-equal: min-plus
    at M, K, N in {1, 37, 128, 200} x B in {1, 7, 64} with BIG and inf
    entries, at K below, at and above each point where the k split over a
    cluster doubles, at M, N below the 32 x 32 tile, K = 0, on operands
    4 bytes off 16-byte alignment, and twice (bit-equal runs); the fused
-   APSP at n in {16, 32, 64, 128, 160}, the tiled APSP
+   APSP at n in {16, 32, 64, 128, 160}, also bit-equal to its first
+   design's over all the squarings, the tiled APSP
    at n in {161, 200, 256, 576} through ``ops.apsp``, and a design alone
    bit-equal to it in a batch of 64;
 8. device routing tables: ``next_hop_lowest_id_batch`` (fused or tiled
@@ -48,7 +56,8 @@ Phases, each fatal on error (exit code 1, no result line):
     version on the operands it is timed on, at the shapes those paths give
     it, and its time beside its bound and the plain version's, with the
     profiler's device time per launch (``device_ms``) and the host's time
-    to enqueue a call (``enqueue_ms``); the tiled APSP squaring's record is
+    to enqueue a call (``enqueue_ms``), the fused APSP's too; the tiled
+    APSP squaring's record is
     per squaring (its call divided by ``n_iters``);
     routing-table time per population; the genome path's layers; the host
     syncs of the BFS and up*/down* loops;
@@ -80,7 +89,9 @@ Phases, each fatal on error (exit code 1, no result line):
     ``throughput_proxy(use_kernel=True)`` on every registry topology at 64
     chiplets and the 256-chiplet mesh within rtol 1e-5 of the
     load-propagation route; one hop's kernel time beside its bound, the
-    plain version's and ``index_put_(accumulate=True)``'s.
+    plain version's and ``index_put_(accumulate=True)``'s, with its four
+    kernels' device time and its enqueue time (the scan kernels' records
+    carry both too).
 
 Every path (phases 3, 4, 5, 8, 9, 10, 13, 14) is driven with every kernel's
 launch count set to 0 just before it and read just after; a path whose kernels
@@ -152,6 +163,10 @@ FLOW_CASES = (      # flow kernel vs the CPU scatter: B, n, P, kind of pairs
 SCAN_FWD_TOL = dict(rtol=1e-4, atol=1e-5)   # the reference's test bounds
 SCAN_BWD_TOL = dict(rtol=2e-3, atol=5e-4)
 SFU_PER_SM = 16                 # MUFU.EX2 results per clock per SM (sm_90)
+# the kernels of one call of each multi-kernel wrapper: launches per call
+LOAD_PROP_KERNELS = {"load_prop_hops": 1, "load_prop_flow": 1}
+FLOW_KERNELS = {"fa_hist": 1, "fa_scan": 1, "fa_scatter": 1, "fa_walk": 1}
+SCAN_BWD_KERNELS = {"ssm_bwd": 1, "sum_mid": 3}
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
@@ -283,12 +298,17 @@ def profile_device(torch, fn, n_top: int = 6):
     return wall_s, busy_s, top
 
 
-def kernel_device_ms(torch, fn, kernel: str, launches: int,
-                     reps: int = 10) -> float:
-    """The profiler's device time per launch of the kernels whose name holds
-    ``kernel``, over ``reps`` calls of ``fn`` that launch ``launches`` such
-    kernels each: their summed device time over the events it recorded
-    (CUPTI may drop one at the edge of a session; fails if it saw none or
+class ProfilerMiss(RuntimeError):
+    """The profiler recorded none of a kernel's launches, or more than were
+    made."""
+
+
+def device_ms_by_kernel(torch, fn, launches: dict, reps: int = 10) -> dict:
+    """The profiler's device time per launch of each kernel named in
+    ``launches`` ({name part: launches per call of ``fn``}), over ``reps``
+    calls of ``fn`` in one session: the summed device time of the kernels
+    whose name holds that part over the events it recorded (CUPTI may drop
+    one at the edge of a session; raises ``ProfilerMiss`` if it saw none or
     more than were launched)."""
     fn()
     torch.cuda.synchronize()
@@ -298,17 +318,37 @@ def kernel_device_ms(torch, fn, kernel: str, launches: int,
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us, count = 0.0, 0
-    for ev in prof.key_averages():
-        if ev.device_type == torch.autograd.DeviceType.CUDA \
-                and kernel in ev.key:
-            us += getattr(ev, "self_device_time_total",
-                          getattr(ev, "self_cuda_time_total", 0.0))
-            count += ev.count
-    if not 0 < count <= reps * launches:
-        fail(f"the profiler saw {count} {kernel} kernels of "
-             f"{reps * launches} launched")
-    return us / 1e3 / count
+    events = [ev for ev in prof.key_averages()
+              if ev.device_type == torch.autograd.DeviceType.CUDA]
+    out = {}
+    for kernel, per_call in launches.items():
+        us, count = 0.0, 0
+        for ev in events:
+            if kernel in ev.key:
+                us += getattr(ev, "self_device_time_total",
+                              getattr(ev, "self_cuda_time_total", 0.0))
+                count += ev.count
+        if not 0 < count <= reps * per_call:
+            raise ProfilerMiss(f"the profiler saw {count} {kernel} kernels "
+                               f"of {reps * per_call} launched")
+        out[kernel] = us / 1e3 / count
+    return out
+
+
+def kernel_device_ms(torch, fn, kernel: str, launches: int,
+                     reps: int = 10) -> float:
+    """Device time per launch of the kernels whose name holds ``kernel``
+    (``device_ms_by_kernel`` for one name)."""
+    return device_ms_by_kernel(torch, fn, {kernel: launches}, reps)[kernel]
+
+
+def call_device_ms(torch, fn, launches: dict, reps: int = 10) -> dict:
+    """Device time of one call of ``fn`` that launches several kernels
+    ({name part: launches per call}): ``device_ms`` summed over them, and
+    each kernel's time per launch under ``device_ms_per_launch``."""
+    per = device_ms_by_kernel(torch, fn, launches, reps)
+    return {"device_ms": sum(per[k] * c for k, c in launches.items()),
+            "device_ms_per_launch": per}
 
 
 def enqueue_ms(torch, fn, reps: int = 50) -> float:
@@ -333,9 +373,13 @@ def random_costs(rng, batch: int, n: int, big: float):
     return d
 
 
-def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
+def minplus_paths(torch, dev, zero_counts, read_counts, apsp_first):
     """Phases 7-11. Returns the kernel records of apsp_fused, apsp_square
-    and minplus (launch counts are filled in by the caller)."""
+    and minplus (launch counts are filled in by the caller), and the
+    load-propagation operands (next_hop, load0, max_hops) of one
+    ``AdjacencySpace(32, 8)`` population, padded to its bucket.
+    ``apsp_first(d, n_iters)`` runs the fused APSP's first design
+    (``tools/apsp_steps.py``)."""
     from repro_torch.core.graph import build_graph, step_cost_matrix
     from repro_torch.core.latency import path_cost_doubling, path_cost_minplus
     from repro_torch.core.proxies import prepare_arrays
@@ -437,6 +481,9 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
         got = ap.apsp_fused_cuda(d, it)
         if not torch.equal(got, ap.apsp_plain(d, it)):
             fail(f"phase 7: fused APSP kernel differs from plain at n={n}")
+        if not torch.equal(got, apsp_first(d, it)):
+            fail(f"phase 7: fused APSP kernel differs from its first design "
+                 f"at n={n}")
         if n in (64, max(FUSED_NS)):
             d64 = gpu(random_costs(rng, 64, n, BIG))
             all64 = ap.apsp_fused_cuda(d64, it)
@@ -445,8 +492,8 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
                         d64[i:i + 1].contiguous(), it)[0], all64[i]):
                     fail(f"phase 7: fused APSP design alone differs from it "
                          f"in a batch of 64 at n={n}")
-    log("phase 7: fused APSP bit-equal to plain at n in {16..160}; alone == "
-        "in a batch of 64")
+    log("phase 7: fused APSP bit-equal to plain and to its first design at "
+        "n in {16..160}; alone == in a batch of 64")
     for n, B in TILED_NS:
         d = random_costs(rng, B, n, np.inf)
         got = apsp(gpu(d))
@@ -638,12 +685,16 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
     d64 = torch.where(torch.isinf(d64), BIG, d64).contiguous()
     it64 = apsp_iters(n64)
     B3, _, _ = d64.shape
+    fused_call = lambda: ap.apsp_fused_cuda(d64, it64)
     fused = {"name": "apsp_fused", "route": "cuda",
              "source": "src/repro_torch/kernels/csrc/apsp.cu",
              "replaces": "src/repro/kernels/apsp.py:71",
              "shape": [B3, n64, n64], "n_iters": it64, "library_ms": None,
-             **held("apsp_fused", lambda: ap.apsp_fused_cuda(d64, it64),
+             **held("apsp_fused", fused_call,
                     lambda: ap.apsp_plain(d64, it64)),
+             "device_ms": kernel_device_ms(torch, fused_call, "apsp_fused",
+                                           1),
+             "enqueue_ms": enqueue_ms(torch, fused_call),
              **bound(8.0 * B3 * n64 * n64, B3 * it64 * n64 ** 3)}
     n256 = LARGE_CHIPLETS
     d256 = apsp(gpu(costs[n256]), 0)
@@ -761,6 +812,10 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
             "device_idle_share": 1.0 - busy_s / wall_s,
             "top_device_us": dict(top),
             "evals_per_s": rates[key]}
+        if key == "adjacency_32":
+            t32 = t["traffic"].to(torch.float32)
+            genome_lp = (nh, t32.transpose(0, 1)[None].expand(nh.shape),
+                         pipe.max_hops)
     print(json.dumps({"genome_layers": genome_layers,
                       "parametric_evals_per_s": rates["parametric"],
                       "routing_syncs": routing_syncs,
@@ -771,7 +826,7 @@ def minplus_paths(torch, dev, zero_counts, read_counts) -> list[dict]:
                           k: v["routing_table_ms"] for k, v in sel.items()},
                       "host_routing_ms_per_table": host_ms,
                       "sm_clock_hz": clock_hz}), flush=True)
-    return [fused, square, minplus]
+    return [fused, square, minplus], genome_lp
 
 
 def scan_inputs(torch, rng, B, S, Di, N, dev):
@@ -881,14 +936,16 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
                                                   chunk=chunk)
     fwd_ms = time_cuda(torch, fwd_call, reps=10)
     fwd_device_ms = kernel_device_ms(torch, fwd_call, "ssm_fwd", 1)
-    bwd_ms = time_cuda(torch, lambda: ss.selective_scan_bwd_cuda(
-        xc, dt, bm, cm, a, ckpt, dy, chunk=chunk), reps=5)
+    bwd_call = lambda: ss.selective_scan_bwd_cuda(xc, dt, bm, cm, a, ckpt,
+                                                  dy, chunk=chunk)
+    bwd_ms = time_cuda(torch, bwd_call, reps=5)
     fwd_rec = {
         "name": "selective_scan_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
         "replaces": "src/repro/kernels/selective_scan.py:38",
         "shape": list(path_shape), "max_abs_err": errs["fwd"], "ms": fwd_ms,
         "device_ms": fwd_device_ms,
+        "enqueue_ms": enqueue_ms(torch, fwd_call, reps=10),
         "plain_ms": time_cuda(torch, lambda: ss.selective_scan_fwd_plain(
             xc, dt, bm, cm, a, h0, chunk=chunk), reps=2, warmup=1),
         "library_ms": None,
@@ -901,6 +958,8 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
         "replaces": "src/repro/kernels/selective_scan.py:116",
         "shape": list(path_shape), "max_abs_err": errs["bwd"], "ms": bwd_ms,
+        **call_device_ms(torch, bwd_call, SCAN_BWD_KERNELS, reps=5),
+        "enqueue_ms": enqueue_ms(torch, bwd_call, reps=10),
         "plain_ms": time_cuda(torch, lambda: ss.selective_scan_bwd_plain(
             xc, dt, bm, cm, a, ckpt, dy, chunk=chunk), reps=1, warmup=1),
         "library_ms": None,
@@ -1161,6 +1220,7 @@ def flow_paths(torch, dev, zero_counts, read_counts) -> dict:
     if not torch.equal(fa.flow_accum_cuda(*batch)[0], got[0]):
         fail("phase 14: the record's hop alone differs from it in a batch")
     flat = (cur.long() * n + nxt.long()).reshape(-1)
+    call = lambda: fa.flow_accum_cuda(flow, cur, nxt, amount)
     live = int((amount != 0).sum())
     nbytes = 2 * n * n * 4 + 3 * n * n * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1171,8 +1231,9 @@ def flow_paths(torch, dev, zero_counts, read_counts) -> dict:
         "replaces": "src/repro/kernels/flow_accum.py:28",
         "shape": [1, n, n * n],
         "max_abs_err": (got.cpu() - want).abs().max().item(),
-        "ms": time_cuda(torch, lambda: fa.flow_accum_cuda(
-            flow, cur, nxt, amount)),
+        "ms": time_cuda(torch, call),
+        **call_device_ms(torch, call, FLOW_KERNELS),
+        "enqueue_ms": enqueue_ms(torch, call),
         "plain_ms": time_cuda(torch, lambda: fa.flow_accum_plain(
             flow, cur, nxt, amount)),
         "library_ms": time_cuda(torch, lambda: flow.reshape(-1).clone(
@@ -1183,6 +1244,13 @@ def flow_paths(torch, dev, zero_counts, read_counts) -> dict:
 
 
 def main() -> None:
+    try:
+        run_phases()
+    except ProfilerMiss as e:
+        fail(str(e))
+
+
+def run_phases() -> None:
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -1204,6 +1272,8 @@ def main() -> None:
     from repro_torch.topologies import make_design
     from repro_torch.traffic import make_traffic
     sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import apsp_steps as aps
+    import load_prop_steps as lps
     import scan_fwd_steps as sfs
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1236,24 +1306,33 @@ def main() -> None:
         return counts
 
     # -- 1. build ------------------------------------------------------------
-    # the port's sources and, beside them, the scan forward's first design
-    # (one thread per channel), which phase 12 holds the kernel's states
-    # bit-equal to; every nvcc starts at once
+    # the port's sources and, beside them, the first designs that phases 2,
+    # 6, 7 and 12 hold the kernels bit-equal to: the scan forward's (one
+    # thread per channel), load propagation's and the fused APSP's; every
+    # nvcc starts at once
     t0 = time.perf_counter()
-    one_thread = sfs.start_build("one_thread")
+    firsts = [sfs.start_build("one_thread"), lps.start_build("first"),
+              aps.start_build("first")]
     secs = build.build_all()
-    one_thread, _ = sfs.finish_build(one_thread)
+    one_thread, lp_first, ap_first = [
+        tool.finish_build(h)[0] for tool, h in zip((sfs, lps, aps), firsts)]
     secs = time.perf_counter() - t0
-    log(f"phase 1: built {list(build.SOURCES)} and the one-thread scan "
-        f"forward in {secs:.3f} s")
+    log(f"phase 1: built {list(build.SOURCES)} and the first designs of the "
+        f"scan forward, load propagation and the fused APSP in {secs:.3f} s")
     ptxas = ptxas_report(build.BUILD_LOGS)
     for kernel, rec in ptxas.items():
         log(f"  ptxas {kernel}: {rec}")
     print(json.dumps({"ptxas": ptxas}), flush=True)
     stacked = [k for k, rec in ptxas.items()
-               if k.startswith(("ssm_fwd", "minplus")) and rec["stack_frame"]]
+               if k.startswith(("ssm_fwd", "minplus", "load_prop",
+                                "apsp_fused")) and rec["stack_frame"]]
     if stacked:
         fail(f"phase 1: {stacked} keep a stack frame")
+
+    def lp_first_equal(nh, l0, hops, got) -> bool:
+        """W and flow bit-equal to the first load-propagation design's."""
+        want = lps.run(lp_first, "first", nh, l0, hops)
+        return torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
     # -- 2. kernel vs plain --------------------------------------------------
     def plain(nh, l0, hops):
@@ -1273,6 +1352,9 @@ def main() -> None:
             w_k, f_k = lp.load_prop_cuda(nh_t, l0_t, hops)
             w_p, f_p = plain(nh_t, l0_t, hops)
             torch.cuda.synchronize()
+            if not lp_first_equal(nh_t, l0_t, hops, (w_k, f_k)):
+                fail(f"phase 2: kernel W or flow differs from the first "
+                     f"design's at n={n} B={batch}")
             for got, want, what in ((w_k, w_p, "W"), (f_k, f_p, "flow")):
                 if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
                     fail(f"phase 2: kernel {what} differs from plain at "
@@ -1290,7 +1372,8 @@ def main() -> None:
                              f"same design in a batch of {batch} at n={n}")
             log(f"phase 2: n={n:3d} B={batch:3d} hops={hops:3d} ok")
     log(f"phase 2: kernel within rtol {RTOL} / atol {ATOL} of plain, max abs "
-        f"err {max_err:.3g}; batch of 256 bit-equal to solo")
+        f"err {max_err:.3g}, bit-equal to the first design; batch of 256 "
+        f"bit-equal to solo")
 
     # -- 3. main path: the README sweep ---------------------------------------
     points = expand_experiments(ExperimentSpec(
@@ -1395,19 +1478,24 @@ def main() -> None:
         graph_s += t1 - t0
         routing_s += t2 - t1
 
-    def kernel_record(batch):
-        nh = batch.next_hop
-        l0 = _dest_major_load0(nh, batch.traffic).contiguous()
-        hops = batch.max_hops
+    def kernel_record(nh, l0, hops):
+        """The load-propagation kernel at one path shape: held against
+        plain, timed (call, device, enqueue) and bounded."""
+        nh = nh.to(torch.int32).contiguous()
+        l0 = l0.to(torch.float32).contiguous()
         B, n, _ = nh.shape
-        w_k, f_k = lp.load_prop_cuda(nh, l0, hops)
+        call = lambda: lp.load_prop_cuda(nh, l0, hops)
+        w_k, f_k = call()
         w_p, f_p = plain(nh, l0, hops)
         err = max((w_k - w_p).abs().max().item(),
                   (f_k - f_p).abs().max().item())
         if not (torch.allclose(w_k, w_p, rtol=RTOL, atol=ATOL)
                 and torch.allclose(f_k, f_p, rtol=RTOL, atol=ATOL)):
             fail(f"phase 6: kernel differs from plain at B={B} n={n}")
-        ms = time_cuda(torch, lambda: lp.load_prop_cuda(nh, l0, hops))
+        if not lp_first_equal(nh, l0, hops, (w_k, f_k)):
+            fail(f"phase 6: kernel W or flow differs from the first design's "
+                 f"at B={B} n={n}")
+        ms = time_cuda(torch, call)
         plain_ms = time_cuda(torch, lambda: plain(nh, l0, hops), reps=10)
         # the work this data needs: each destination row's live hops
         # (2 n float adds each: W accumulation and the gather) plus n^2
@@ -1427,14 +1515,21 @@ def main() -> None:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / FP32_OPS_PER_S * 1e3
         return {"shape": [B, n, n], "max_hops": hops, "ms": ms,
+                **call_device_ms(torch, call, LOAD_PROP_KERNELS),
+                "enqueue_ms": enqueue_ms(torch, call),
                 "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "bytes": nbytes, "ops": ops, "max_abs_err": err}
 
+    def batch_record(batch):
+        return kernel_record(batch.next_hop,
+                             _dest_major_load0(batch.next_hop, batch.traffic),
+                             batch.max_hops)
+
     chunks = [encode_designs(points[i:i + 60], validate=False, device=dev)
               for i in range(0, len(points), 60)]
-    chunk_recs = [kernel_record(b) for b in chunks]
-    large_rec = kernel_record(encode_designs(big, validate=False, device=dev))
+    chunk_recs = [batch_record(b) for b in chunks]
+    large_rec = batch_record(encode_designs(big, validate=False, device=dev))
     head_i = max(range(len(chunks)), key=lambda i: chunks[i].n)
     head, batch = chunk_recs[head_i], chunks[head_i]
     nh, sc, nw, tr = (batch.next_hop, batch.step_cost, batch.node_weight,
@@ -1469,13 +1564,16 @@ def main() -> None:
         "device_idle_share": 1.0 - busy_s / prof_wall_s,
         "top_device_us": dict(top), "large_n_points": len(big),
         "large_n_s": large_s, "launches": launches}}), flush=True)
-    print(json.dumps({"kernel_shapes": chunk_recs + [large_rec]}),
-          flush=True)
     log(f"phase 6: load-propagation launches on the sweep paths: "
         f"{sum(launches.values())} ({launches})")
 
     # -- 7-11. min-plus kernels, device routing, genome cost function --------
-    minplus_records = minplus_paths(torch, dev, zero_counts, read_counts)
+    minplus_records, genome_lp = minplus_paths(
+        torch, dev, zero_counts, read_counts,
+        lambda d, it: aps.run(ap_first, d, it))
+    genome_rec = dict(kernel_record(*genome_lp), path="genomes_adjacency_32")
+    print(json.dumps({"kernel_shapes": chunk_recs + [large_rec, genome_rec]}),
+          flush=True)
 
     # -- 12-14. selective scan, training, pair-walk oracle --------------------
     scan_records, training = scan_and_training_paths(
@@ -1497,6 +1595,9 @@ def main() -> None:
                 "source": "src/repro_torch/kernels/csrc/load_prop.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "device_ms": rec["device_ms"],
+                "device_ms_per_launch": rec["device_ms_per_launch"],
+                "enqueue_ms": rec["enqueue_ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"], "library_ms": None,
                 "shape": rec["shape"], "max_hops": rec["max_hops"]}

@@ -9,11 +9,14 @@ so every form here gives the same bits.
 
 * ``apsp_fused_cuda`` — the hand-written Hopper kernel in ``csrc/apsp.cu``.
   It replaces the TPU kernel ``src/repro/kernels/apsp.py:71``
-  (``_apsp_kernel``): one CTA per design keeps the previous and the next
-  iterate as two [n, n] panes in shared memory for all ``n_iters``
-  squarings, so it takes n <= ``MAX_FUSED_N`` (170: two f32 panes in a
-  block's 232,448 bytes). Bound by its operations (one add and one min per
-  candidate, B n_iters n^3 candidates).
+  (``_apsp_kernel``): one thread block cluster per design
+  (``fused_plan``), whose CTAs each hold the current and the next iterate
+  in shared memory, compute the band of rows they own and store it into
+  every CTA's next iterate (distributed shared memory); a design stops
+  once a squaring leaves its bits unchanged (its fixed point, so the
+  result equals all ``n_iters`` squarings'). It takes n <= ``MAX_FUSED_N``.
+  Bound by its operations (one add and one min per candidate, B n_iters
+  n^3 candidates, counted in full whatever the early stop saves).
 * ``apsp_square_cuda`` — one blocked squaring per launch, ping-ponging two
   device buffers. It replaces the TPU kernel ``apsp.py:167``
   (``_apsp_square_kernel``) with ``csrc/minplus.cu``'s kernel applied to
@@ -30,6 +33,7 @@ so every form here gives the same bits.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -38,7 +42,29 @@ from .minplus import check_f32_cuda, launch_minplus, minplus_plain
 from .ref import BIG
 
 SMEM_MAX = 232448          # the H100's per-block opt-in shared memory
-MAX_FUSED_N = 170          # two f32 [n, n] panes fit in SMEM_MAX up to here
+# the fused route's limit: two f32 [n, n] panes fit in SMEM_MAX up to here
+MAX_FUSED_N = 170
+THREADS, MAX_CLUSTER = 256, 8      # csrc/apsp.cu kThreads, kMaxCluster
+
+
+def fused_plan(n: int) -> dict:
+    """The fused kernel's launch at n (mirrors ``apsp_fused_launch``): a
+    cluster of the smallest power of two >= n / 8 CTAs (at most 8), each
+    owning ``band`` rows; an MI x W register block a thread (1 x 2 where a
+    band has at most 512 entries, else 2 x 4, or 2 x 2 where 4-float rows
+    would not fit); rows padded to ``ld`` floats; shared memory for two
+    [n, ld] panes and 2 x 8 int flags. It depends on n only."""
+    cluster = 1
+    while cluster < MAX_CLUSTER and cluster * 8 < n:
+        cluster *= 2
+    band = -(-n // cluster)
+    smem = lambda ld: 8 * n * ld + 4 * 2 * MAX_CLUSTER
+    mi, w = (1, 2) if band * n <= 2 * THREADS else (2, 4)
+    if w == 4 and smem(-(-n // 4) * 4) > SMEM_MAX:
+        w = 2
+    ld = -(-n // w) * w
+    return {"cluster": cluster, "band": band, "ld": ld, "mi": mi, "w": w,
+            "smem": smem(ld)}
 
 
 def apsp_plain(d: torch.Tensor, n_iters: int) -> torch.Tensor:
@@ -103,22 +129,29 @@ def _check(what: str, d: torch.Tensor, n_iters: int) -> None:
 
 
 def apsp_fused_cuda(d: torch.Tensor, n_iters: int) -> torch.Tensor:
-    """Launch the fused Hopper kernel on the current stream. d: [B, n, n]
-    contiguous float32 on a CUDA device, n <= MAX_FUSED_N. Raises if the
-    launch fails."""
+    """Launch the fused Hopper kernel on the current stream: ``n_iters``
+    (min, +) squarings of each design, or fewer where a design reaches its
+    fixed point first (the same bits). d: [B, n, n] contiguous float32 on a
+    CUDA device with a zero diagonal and BIG for "no edge", n <=
+    MAX_FUSED_N. Each design runs on a cluster of ``fused_plan(n)
+    ["cluster"]`` CTAs, chosen from n only, so a design gives the same bits
+    alone or in a batch. Raises if the launch fails."""
     _check("apsp_fused_cuda", d, n_iters)
     B, n, _ = d.shape
     if n > MAX_FUSED_N:
-        raise ValueError(f"apsp_fused_cuda takes n <= {MAX_FUSED_N} (two "
-                         f"[n, n] panes in shared memory), got n={n}")
+        raise ValueError(f"apsp_fused_cuda takes n <= {MAX_FUSED_N} (the "
+                         f"fused route's limit), got n={n}")
     out = torch.empty_like(d)
     if B == 0 or n == 0:
         return out
     lib = _lib()
-    stream = torch.cuda.current_stream(d.device)
-    with torch.cuda.device(d.device):
+    # as in minplus.launch_minplus: the raw stream handle, and a device
+    # switch only when the operand is not on the current device
+    stream = torch._C._cuda_getCurrentRawStream(d.device.index)
+    current = d.device.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(d.device):
         rc = lib.apsp_fused_launch(d.data_ptr(), out.data_ptr(), B, n,
-                                   n_iters, stream.cuda_stream)
+                                   n_iters, stream)
     if rc != 0:
         msg = lib.apsp_error_string(rc).decode()
         raise RuntimeError(f"fused APSP kernel launch failed (cuda error "
@@ -150,5 +183,5 @@ def apsp_square_cuda(d: torch.Tensor, n_iters: int) -> torch.Tensor:
 apsp_square_cuda.launches = 0
 
 
-__all__ = ["MAX_FUSED_N", "apsp_plain", "apsp_plain_blocked",
+__all__ = ["MAX_FUSED_N", "fused_plan", "apsp_plain", "apsp_plain_blocked",
            "apsp_fused_cuda", "apsp_square_cuda"]

@@ -14,14 +14,19 @@ Three forms live here:
 * ``load_prop_cuda`` — the hand-written Hopper kernel pair in
   ``csrc/load_prop.cu``. It replaces the TPU kernels
   ``src/repro/kernels/load_prop.py:144`` (``_load_prop_kernel``) and
-  ``:279`` (``_load_prop_tiled_kernel``) with one slab kernel for every n:
-  one CTA per (design, ``cuda_tile(n)`` destination rows) keeps the slab's
-  L and W in shared memory across all hops, sums each L'[d, v] over v's
-  predecessors in ascending u (no float atomics), and stops a slab once its
-  load is all zero; a second kernel computes ``flow`` from the finished W in
-  a fixed order over d. Its bound on the H100 is the bytes of next_hop,
-  load0, W and flow (16 B n² per design); the source note in the ``.cu``
-  file says what the design does about it. ``launches`` counts its calls.
+  ``:279`` (``_load_prop_tiled_kernel``) with one pair for every n. The hop
+  kernel runs one CTA per (design, ``cuda_tile(n)`` destination rows) and
+  one warp per row: the warp inverts its row's table column into
+  predecessor lists (each index ranked among its peers, ascending u),
+  keeps the row's L in shared memory and, up to n = 256, its own values'
+  ranges, L and W in registers, sums each L'[d, v] over v's predecessors
+  in ascending u (no float atomics), and stops once the row's load is all
+  zero. The flow kernel runs one warp per source row u on the finished W
+  and sums each flow[u, v] in ascending d. Both orders are the first
+  design's, so W and flow are bit-equal to it. Its bound
+  on the H100 is the bytes of next_hop, load0, W and flow (16 B n² per
+  design); the source note in the ``.cu`` file says what the design does
+  about it. ``launches`` counts its calls.
 * ``load_prop_plain`` — a transcription of ``load_prop_xla``: the one-hot
   OH[d, u, v] = [next_hop[u, d] = v] built once, one batched contraction per
   hop. The CPU path for n ≤ ``REPRO_LOAD_PROP_FUSED_N``.
@@ -37,34 +42,53 @@ form.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 SMEM_DEFAULT = 48 * 1024      # bytes a block may use without opting in
 SMEM_MAX = 232448             # the H100's per-block opt-in limit (227 KB)
-MAX_SLAB_ROWS = 32
+MAX_SLAB_ROWS = 8             # csrc/load_prop.cu kWarps: one warp a row
 
 
 def _hops_smem(n: int, tile: int) -> int:
-    """Shared memory of one ``load_prop_hops`` CTA (mirrors the .cu file):
-    L, L' and W as f32 plus the uint16 predecessor lists and offsets."""
-    return tile * (16 * n + 2)
+    """Shared memory of one CTA of either kernel at ``tile`` rows (mirrors
+    ``row_smem_bytes`` in the .cu file): per row three f32 rows (L, L' and
+    W; the flow kernel's staged W column and key row), the uint32 list
+    ranges and the uint16 list."""
+    return tile * 18 * n
 
 
 def cuda_tile(n: int) -> int:
-    """Destination rows per CTA of the hop kernel: as many as fit in 48 KB
-    of shared memory, at most 32 and at most n. It depends on n only, never
-    on the batch, so a design's bits do not depend on its batch-mates."""
+    """Destination rows per CTA of the hop kernel, one warp each: 8, or
+    fewer where n is smaller or 8 rows would not fit in a block's shared
+    memory (above 48 KB the launch opts in). It depends on n only, never on
+    the batch, so a design's bits do not depend on its batch-mates."""
     if n > 65535 or _hops_smem(n, 1) > SMEM_MAX:
         raise ValueError(f"n={n} exceeds the load-propagation kernel's "
                          f"shared-memory limit")
-    return max(1, min(MAX_SLAB_ROWS, n, SMEM_DEFAULT // _hops_smem(n, 1)))
+    return max(1, min(MAX_SLAB_ROWS, n, SMEM_MAX // _hops_smem(n, 1)))
 
 
 def cuda_flow_rows(n: int) -> int:
-    """Source rows per CTA of the flow kernel (one f32 row of n each)."""
-    return max(1, min(MAX_SLAB_ROWS, n, SMEM_DEFAULT // (4 * n)))
+    """Source rows per CTA of the flow kernel, one warp each (the same
+    per-row layout as the hop kernel's, so the same count)."""
+    return cuda_tile(n)
+
+
+def cuda_plan(n: int, batch: int) -> dict:
+    """The launch of ``load_prop_cuda`` at [batch, n, n] (mirrors
+    ``load_prop_launch``): rows a CTA (one warp each), CTAs and
+    shared-memory bytes a CTA, for both kernels, and the values a lane of
+    the hop kernel keeps in registers (``hop_vpl``; 0 above n = 256, where
+    they stay in shared memory)."""
+    tile, rows = cuda_tile(n), cuda_flow_rows(n)
+    vpl = next((v for v in (1, 2, 4, 8) if 32 * v >= n), 0)
+    return {"tile": tile, "hop_vpl": vpl, "hop_ctas": batch * -(-n // tile),
+            "hop_threads": 32 * tile, "hop_smem": _hops_smem(n, tile),
+            "flow_rows": rows, "flow_ctas": batch * -(-n // rows),
+            "flow_threads": 32 * rows, "flow_smem": _hops_smem(n, rows)}
 
 
 def pick_tile(n: int, batch: int, budget_elems: int = 1 << 25) -> int:
@@ -192,17 +216,21 @@ def load_prop_cuda(next_hop: torch.Tensor, load0: torch.Tensor,
     device. Returns (W, flow); raises if the launch fails."""
     _check_cuda_args(next_hop, load0, max_hops)
     B, n, _ = next_hop.shape
-    w = torch.empty_like(load0)
-    flow = torch.empty_like(load0)
+    w, flow = torch.empty((2, B, n, n), dtype=torch.float32,
+                          device=load0.device).unbind(0)   # one allocation
     if B == 0:
         return w, flow
     tile, rows = cuda_tile(n), cuda_flow_rows(n)
     lib = _lib()
-    stream = torch.cuda.current_stream(next_hop.device)
-    with torch.cuda.device(next_hop.device):
+    # as in minplus.launch_minplus: the raw stream handle, and a device
+    # switch only when the operands are not on the current device
+    dev = next_hop.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    current = dev.index == torch.cuda.current_device()
+    with contextlib.nullcontext() if current else torch.cuda.device(dev):
         rc = lib.load_prop_launch(
             next_hop.data_ptr(), load0.data_ptr(), w.data_ptr(),
-            flow.data_ptr(), B, n, max_hops, tile, rows, stream.cuda_stream)
+            flow.data_ptr(), B, n, max_hops, tile, rows, stream)
     if rc != 0:
         msg = lib.load_prop_error_string(rc).decode()
         raise RuntimeError(f"load-propagation kernel launch failed "
@@ -214,5 +242,5 @@ def load_prop_cuda(next_hop: torch.Tensor, load0: torch.Tensor,
 load_prop_cuda.launches = 0
 
 
-__all__ = ["cuda_tile", "cuda_flow_rows", "pick_tile", "load_prop_plain",
+__all__ = ["cuda_tile", "cuda_flow_rows", "cuda_plan", "pick_tile", "load_prop_plain",
            "load_prop_plain_blocked", "load_prop_cuda"]

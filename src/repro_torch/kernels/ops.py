@@ -67,7 +67,7 @@ def apsp(d: torch.Tensor, n_iters: int | None = None) -> torch.Tensor:
 
     Up to ``REPRO_APSP_FUSED_N`` (default 160) nodes, and at most
     ``apsp.MAX_FUSED_N`` (what the fused kernel's shared memory holds), the
-    fused form runs: on CUDA ``apsp.apsp_fused_cuda`` (one CTA per design);
+    fused form runs: on CUDA ``apsp.apsp_fused_cuda`` (a CTA cluster a design);
     on the CPU ``apsp.apsp_plain``. Above it, one tiled squaring per step,
     which is iterated min-plus: on CUDA ``apsp.apsp_square_cuda`` (the
     min-plus kernel applied to (m, m)); on the CPU

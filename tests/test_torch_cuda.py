@@ -18,7 +18,9 @@ CPU's ascending-p scatter; the selective scan within rtol 1e-4 / atol 1e-5
 reference's own bounds (exps and sums over N and channels in another
 order), and bit-equal between two runs and alone vs in a batch; the scan
 forward's checkpoints and final states bit-equal to its first design's
-(``tools/scan_fwd_steps.py``, built with nvcc by the test).
+(``tools/scan_fwd_steps.py``, built with nvcc by the test); load
+propagation and the fused APSP bit-equal to their first designs'
+(``tools/load_prop_steps.py``, ``tools/apsp_steps.py``, built the same way).
 """
 import numpy as np
 import pytest
@@ -87,6 +89,36 @@ def test_alone_equals_in_batch(cuda):
                                       l0_t[b:b + 1].contiguous(), 20)
         assert torch.equal(w_one[0], w_all[b])
         assert torch.equal(f_one[0], f_all[b])
+
+
+def _first_design(tool: str):
+    """The first design's library, built with nvcc from ``tools/<tool>.py``."""
+    import importlib
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools"))
+    mod = importlib.import_module(tool)
+    return mod, mod.finish_build(mod.start_build("first"))[0]
+
+
+@pytest.mark.parametrize("n,batch", [(16, 7), (100, 3), (160, 2), (256, 1)])
+def test_load_prop_kernel_bit_equal_to_the_first_design(cuda, n, batch):
+    """W and flow are bit-equal to the first design's
+    (``tools/load_prop_steps.py``): both sum in ascending u and d."""
+    from repro_torch.kernels.load_prop import load_prop_cuda
+
+    tool, lib = _first_design("load_prop_steps")
+    nh, l0 = random_tables(np.random.default_rng(n + 1), batch, n,
+                           n_real=n - n // 8)
+    nh_t = torch.from_numpy(nh).to(cuda)
+    l0_t = torch.from_numpy(l0).to(cuda)
+    for hops in (12, n + 2):
+        got = load_prop_cuda(nh_t, l0_t, hops)
+        want = tool.run(lib, "first", nh_t, l0_t, hops)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def test_ops_routes_cuda_tensors_to_the_kernel(cuda):
@@ -216,6 +248,22 @@ def test_apsp_fused_kernel_bit_equal_to_plain(cuda, n):
     assert torch.equal(got, apsp_plain(d, 6))
     alone = apsp_fused_cuda(d[3:4].contiguous(), 6)
     assert torch.equal(alone[0], got[3])
+
+
+@pytest.mark.parametrize("n", [16, 64, 160, 170])
+def test_apsp_fused_kernel_bit_equal_to_the_first_design(cuda, n):
+    """The cluster kernel, with its stop at the fixed point, is bit-equal to
+    the first design's all n_iters squarings (``tools/apsp_steps.py``), at
+    few and at many squarings."""
+    from repro_torch.kernels.apsp import apsp_fused_cuda
+
+    tool, lib = _first_design("apsp_steps")
+    d = torch.from_numpy(_apsp_input(np.random.default_rng(n + 1), 5, n)
+                         ).to(cuda)
+    for n_iters in (2, 9):
+        got = apsp_fused_cuda(d, n_iters)
+        torch.cuda.synchronize()
+        assert torch.equal(got, tool.run(lib, d, n_iters))
 
 
 @pytest.mark.parametrize("n", [161, 200, 256])

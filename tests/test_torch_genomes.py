@@ -155,3 +155,45 @@ def test_buckets_match_reference():
             ref_genomes.bucket_population(size, 3)
     for n in (3, 8, 9, 16, 17, 100, 256, 576):
         assert genomes.node_bucket(n) == ref_genomes.node_bucket(n)
+
+
+def _oracle(design, traffic):
+    """The reference's f64 oracle (``repro.core.reference``: per-pair route
+    walks) on the reference's own graph and routing table."""
+    from repro.core.graph import build_graph
+    from repro.core.reference import latency_reference, throughput_reference
+    from repro.routing.tables import build_routing_table
+
+    g = build_graph(design)
+    nh = build_routing_table(g, design.routing, design.routing_metric,
+                             design.seed)
+    return latency_reference(g, nh, traffic), throughput_reference(g, nh,
+                                                                   traffic)
+
+
+def test_genome_path_within_1e6_of_the_f64_oracle_at_n_32():
+    """At n = 32 the reference's f32 sums drift about 1.4e-5 from the f64
+    oracle; the port's fixed-order sums stay within rtol 1e-6 of it."""
+    space = AdjacencySpace(32, 8)
+    pop = space.sample(np.random.default_rng(32), 16)
+    got = DseEngine(device="cpu").evaluate_genomes(space, pop)
+    want = np.array([_oracle(pt.build(), pt.traffic())
+                     for pt in RefAdjacencySpace(32, 8).decode(pop)])
+    np.testing.assert_allclose(got.latency, want[:, 0], rtol=1e-6)
+    np.testing.assert_allclose(got.throughput, want[:, 1], rtol=1e-6)
+
+
+def test_single_design_within_1e6_of_the_f64_oracle_at_256_chiplets():
+    from repro.topologies import make_design as ref_make_design
+    from repro.traffic import make_traffic as ref_make_traffic
+
+    from repro_torch.core import evaluate_design
+    from repro_torch.topologies import make_design
+    from repro_torch.traffic import make_traffic
+
+    rep = evaluate_design(make_design("mesh", 256),
+                          make_traffic("random_uniform", 256), device="cpu")
+    lat, thr = _oracle(ref_make_design("mesh", 256),
+                       ref_make_traffic("random_uniform", 256))
+    np.testing.assert_allclose(rep.latency, lat, rtol=1e-6)
+    np.testing.assert_allclose(rep.throughput, thr, rtol=1e-6)

@@ -122,7 +122,9 @@ ROOT = os.path.join(os.path.dirname(__file__), "..")
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "tools/scan_bwd_steps.py",
-                                    "tools/scan_fwd_steps.py"])
+                                    "tools/scan_fwd_steps.py",
+                                    "tools/load_prop_steps.py",
+                                    "tools/apsp_steps.py"])
 def test_card_scripts_import_neither_jax_nor_repro(script):
     """The scripts that drive the port on the card (whose machine has no
     JAX) import nothing of jax or of the reference package, at any depth
