@@ -91,11 +91,31 @@ Phases, each fatal on error (exit code 1, no result line):
     load-propagation route; one hop's kernel time beside its bound, the
     plain version's and ``index_put_(accumulate=True)``'s, with its four
     kernels' device time and its enqueue time (the scan kernels' records
-    carry both too).
+    carry both too);
+15. the fault grid: ``DseEngine(device="cuda").evaluate_genomes_faults_async``
+    on ``AdjacencySpace(32, 8)`` at population 16 under i.i.d. link faults
+    (p 0.05) with F in {1, 8, 32} scenarios and under every single-chiplet
+    fault: within rtol 1e-5 of the CPU grid, the pristine column bit-equal
+    to ``evaluate_genomes``, a genome alone bit-equal to it in the grid; on
+    the dead-chiplet grid's own operands the routing tables equal the
+    CPU's and load propagation is within rtol 1e-5 / atol 1e-6 of plain and
+    bit-equal to its first design; design- and scenario-evals/s per F and
+    the device idle share of one F = 32 call;
+16. the optimizer: (a) ``python -m repro_torch.opt``'s ``main`` at its CLI
+    defaults (NSGA-II, ``AdjacencySpace(32, 8)``, population 24, 20
+    generations, seed 0) on the card, sync and ``--async`` with bit-equal
+    fronts, a resume from generation 10 equal to the uninterrupted run, a
+    traced async run (its spans and overlap share) and a profiled one (the
+    device idle share); (b) ``benchmarks/opt_convergence.py``'s
+    robust-versus-pristine experiment (n 16, degree 3, population 16, 12
+    generations, interposer area 6500, the exhaustive single-link battery):
+    every design of the robust front keeps all its traffic under every
+    scenario, both fronts' battery grids within rtol 1e-5 of the CPU's,
+    printed beside the JAX package's record in ``BENCH_faults.json``.
 
-Every path (phases 3, 4, 5, 8, 9, 10, 13, 14) is driven with every kernel's
-launch count set to 0 just before it and read just after; a path whose kernels
-were not launched fails the run. Launches made to compare a kernel with its
+Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16) is driven with every
+kernel's launch count set to 0 just before it and read just after; a path
+whose kernels were not launched fails the run. Launches made to compare a kernel with its
 plain version are not counted. The second-to-last line carries the card's
 name and power limit from nvidia-smi, the line before it the
 ``{"kernels": [...]}`` record, and the last line
@@ -167,6 +187,17 @@ SFU_PER_SM = 16                 # MUFU.EX2 results per clock per SM (sm_90)
 LOAD_PROP_KERNELS = {"load_prop_hops": 1, "load_prop_flow": 1}
 FLOW_KERNELS = {"fa_hist": 1, "fa_scan": 1, "fa_scatter": 1, "fa_walk": 1}
 SCAN_BWD_KERNELS = {"ssm_bwd": 1, "sum_mid": 3}
+# the fault grid: AdjacencySpace(n, degree) at population 16, iid link
+# faults (p 0.05) with F - 1 sampled scenarios after the pristine one
+# (benchmarks/opt_convergence.py's fault_overhead shapes)
+FAULT_SPACE, FAULT_POP, FAULT_FS = (32, 8), 16, (1, 8, 32)
+# python -m repro_torch.opt at its CLI defaults
+OPT_CLI = {"space": "adjacency", "n_chiplets": 32, "max_degree": 8,
+           "pop_size": 24, "generations": 20, "seed": 0, "algo": "nsga2"}
+# benchmarks/opt_convergence.py's robust_vs_pristine (AREA_BUDGET 6500,
+# the exhaustive single-link battery)
+ROBUST = {"n": 16, "degree": 3, "pop": 16, "generations": 12,
+          "area_budget": 6500.0}
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
@@ -1243,6 +1274,316 @@ def flow_paths(torch, dev, zero_counts, read_counts) -> dict:
         "bytes": nbytes, "adds": live, "walk_hops": mh, "pair_walk": walk}
 
 
+
+def fault_grid_path(torch, dev, zero_counts, read_counts,
+                    lp_first_equal) -> dict:
+    """Phase 15: the [P, F] population x fault-scenario grid on the card
+    (``DseEngine.evaluate_genomes_faults_async``) at the reference's
+    fault-overhead shapes, held against the CPU run, the pristine
+    evaluation and itself alone; its load propagation and routing tables
+    held against their plain versions on the degraded (partly
+    disconnected) graphs. Returns the phase's record."""
+    from repro_torch.dse import DseEngine
+    from repro_torch.dse import genomes as gn
+    from repro_torch.faults.model import iid_link_faults, single_chiplet_faults
+    from repro_torch.kernels import load_prop as lp
+    from repro_torch.opt import AdjacencySpace
+    from repro_torch.routing import device as rdev
+
+    n, degree = FAULT_SPACE
+    space = AdjacencySpace(n_chiplets=n, max_degree=degree)
+    eng, eng_cpu = DseEngine(device=dev), DseEngine(device="cpu")
+    pop = space.sample(np.random.default_rng(11), FAULT_POP)
+    P = gn.bucket_population(len(pop))
+    scen = {F: iid_link_faults(space, p=0.05, n_scenarios=F - 1, seed=0)
+            for F in FAULT_FS}
+    # dead chiplets: every scenario strands traffic, so the kernels see
+    # disconnected graphs, self-looped rows and rows with no load
+    scen["chiplets"] = single_chiplet_faults(space)
+
+    def grid(engine, sc, genomes=pop):
+        return engine.evaluate_genomes_faults_async(
+            space, genomes, sc.link_fail, sc.node_fail).result()
+
+    zero_counts()
+    grids = {key: grid(eng, sc) for key, sc in scen.items()}
+    read_counts("faults_grid", ("load_propagate", "minplus"))
+    pristine = eng.evaluate_genomes(space, pop)
+    fields = ("latency", "throughput", "reachable_fraction")
+    for key, sc in scen.items():
+        got, want = grids[key], grid(eng_cpu, sc)
+        for f in fields:
+            g, w = getattr(got, f), getattr(want, f)
+            if g.shape != (len(pop), sc.n_scenarios) or not np.all(
+                    np.isfinite(g)):
+                fail(f"phase 15: F={key}: {f} has shape {g.shape} or "
+                     f"non-finite values")
+            if not np.allclose(g, w, rtol=RTOL, atol=0.0):
+                fail(f"phase 15: F={key}: {f} differs from the CPU grid by "
+                     f"{np.max(np.abs(g - w))}")
+        if not (np.array_equal(got.latency[:, 0], pristine.latency)
+                and np.array_equal(got.throughput[:, 0],
+                                   pristine.throughput)
+                and np.all(got.reachable_fraction[:, 0] == 1.0)):
+            fail(f"phase 15: F={key}: the pristine column differs from "
+                 f"evaluate_genomes on the card")
+        for i in (0, len(pop) - 1):
+            one = grid(eng, sc, pop[i:i + 1])
+            if not all(np.array_equal(getattr(one, f)[0],
+                                      getattr(got, f)[i]) for f in fields):
+                fail(f"phase 15: F={key}: genome {i} alone differs from it "
+                     f"in the grid")
+    stranded = float((grids["chiplets"].reachable_fraction < 1.0).mean())
+    if stranded == 0.0:
+        fail("phase 15: the dead-chiplet grid strands no traffic")
+
+    # the kernels on the dead-chiplet grid's own operands, captured from
+    # its calls: routing tables equal the CPU's (B5 under the BIG-masked
+    # edges of dead links), load propagation within rtol of plain and
+    # bit-equal to its first design (B1 with its per-row stop)
+    seen = {}
+    hops_fn, lp_fn = gn.hops_next_hop_batch, gn.load_propagate
+
+    def hops_spy(adj):
+        seen["adj"] = adj
+        return hops_fn(adj)
+
+    def lp_spy(nh, load0, **kw):
+        seen["lp"] = (nh, load0, kw["max_hops"])
+        return lp_fn(nh, load0, **kw)
+
+    gn.hops_next_hop_batch, gn.load_propagate = hops_spy, lp_spy
+    try:
+        grid(eng, scen["chiplets"])
+    finally:
+        gn.hops_next_hop_batch, gn.load_propagate = hops_fn, lp_fn
+    if not torch.equal(rdev.hops_next_hop_batch(seen["adj"]).cpu(),
+                       rdev.hops_next_hop_batch(seen["adj"].cpu())):
+        fail("phase 15: degraded routing tables differ from the CPU's")
+    nh, load0, hops = seen["lp"]
+    nh = nh.to(torch.int32).contiguous()
+    load0 = load0.contiguous()
+    w_k, f_k = lp.load_prop_cuda(nh, load0, hops)
+    w_p, f_p = lp.load_prop_plain(nh, load0, hops, adaptive=False)
+    if not (torch.allclose(w_k, w_p, rtol=RTOL, atol=ATOL)
+            and torch.allclose(f_k, f_p, rtol=RTOL, atol=ATOL)):
+        fail("phase 15: load propagation differs from plain on the "
+             "degraded tables")
+    if not lp_first_equal(nh, load0, hops, (w_k, f_k)):
+        fail("phase 15: load propagation differs from its first design on "
+             "the degraded tables")
+    log(f"phase 15: fault grid within rtol {RTOL} of the CPU for F in "
+        f"{list(scen)}, pristine column bit-equal to evaluate_genomes, a "
+        f"genome alone == in the grid; on the dead-chiplet grid "
+        f"({stranded:.3f} of the cells strand traffic) routing tables == "
+        f"CPU and load propagation == plain / first design")
+
+    # rates per F: one call = one population under F scenarios
+    reps = 5
+
+    def rate(fn):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times)
+
+    base_s = rate(lambda: eng.evaluate_genomes(space, pop))
+    per_f = {"pristine": {"s_per_call": base_s,
+                          "design_evals_per_s": len(pop) / base_s}}
+    for F in FAULT_FS:
+        med = rate(lambda sc=scen[F]: grid(eng, sc))
+        per_f[f"F={F}"] = {
+            "launch_shape": [P * F, n, n], "s_per_call": med,
+            "design_evals_per_s": len(pop) / med,
+            "scenario_evals_per_s": len(pop) * F / med,
+            "overhead_vs_pristine": med / base_s}
+    wall_s, busy_s, top = profile_device(
+        torch, lambda: grid(eng, scen[FAULT_FS[-1]]), n_top=6)
+    rec = {"space": [n, degree], "population": len(pop), "bucket": P,
+           "per_f": per_f, "stranded_cell_share_chiplets": stranded,
+           "profiled_F": FAULT_FS[-1], "profiled_wall_ms": wall_s * 1e3,
+           "device_busy_ms": busy_s * 1e3,
+           "device_idle_share": 1.0 - busy_s / wall_s,
+           "top_device_us": dict(top)}
+    log(f"phase 15: design-evals/s "
+        f"{ {k: round(v['design_evals_per_s'], 1) for k, v in per_f.items()} }"
+        f"; scenario-evals/s "
+        f"{ {k: round(v['scenario_evals_per_s'], 1) for k, v in per_f.items() if k != 'pristine'} }"
+        f"; launch shapes {[per_f[f'F={F}']['launch_shape'] for F in FAULT_FS]}"
+        f"; device idle {rec['device_idle_share']:.4f} of one F="
+        f"{FAULT_FS[-1]} call")
+    return rec
+
+
+def optimizer_path(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 16: the optimizer on the card through ``python -m
+    repro_torch.opt``'s ``main`` at its CLI defaults, sync and async, fronts
+    bit-equal and a resume from generation 10 equal to the uninterrupted
+    run; then the reference's robust-versus-pristine experiment. Returns
+    the phase's record."""
+    import shutil
+
+    from repro_torch.dse import DseEngine
+    from repro_torch.faults.model import single_link_faults
+    from repro_torch.faults.objectives import REACH_EPS, FaultSetup
+    from repro_torch.kernels.ref import BIG
+    from repro_torch.obs.trace import TRACER, disable_tracing
+    from repro_torch.opt import (AdjacencySpace, Budgets, EvolutionarySearch,
+                                 OptRunner, PopulationEvaluator)
+    from repro_torch.opt.runner import main as opt_main
+
+    work = os.path.join(ROOT, "build", "chip_smoke_opt")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    gens, pop = OPT_CLI["generations"], OPT_CLI["pop_size"]
+    argv = ["--device", torch.device(dev).type, "--quiet"] + [
+        f"--{k.replace('_', '-')}={v}" for k, v in OPT_CLI.items()]
+
+    def run(path, extra, name=None):
+        if name is not None:
+            zero_counts()
+        t0 = time.perf_counter()
+        if opt_main(argv + ["--out", os.path.join(work, path)] + extra):
+            fail(f"phase 16: python -m repro_torch.opt {extra} failed")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if name is not None:
+            read_counts(name, ("load_propagate", "minplus"))
+        with open(os.path.join(work, path)) as f:
+            return json.load(f), wall
+
+    sync_front, sync_s = run("sync.json", [], "opt_sync")
+    async_front, async_s = run("async.json", ["--async"], "opt_async")
+    if not sync_front or async_front != sync_front:
+        fail("phase 16: the async front differs from the sync front")
+    ckpt = os.path.join(work, "resume.ckpt")
+    opt_main(argv + ["--generations=10", "--checkpoint", ckpt])
+    resumed, _ = run("resumed.json", ["--checkpoint", ckpt])
+    if resumed != sync_front:
+        fail("phase 16: the front resumed from generation 10 differs from "
+             "the uninterrupted run")
+    # the async run traced (spans and the overlap telemetry) and profiled
+    try:
+        _, traced_s = run("traced.json", ["--async", "--checkpoint",
+                                          os.path.join(work, "t.ckpt"),
+                                          "--trace",
+                                          os.path.join(work, "trace")])
+        with open(os.path.join(work, "trace.report.json")) as f:
+            summary = json.load(f)
+    finally:
+        disable_tracing()
+        TRACER.clear()
+    wall_s, busy_s, top = profile_device(
+        torch, lambda: run("profiled.json", ["--async"]), n_top=8)
+    spans = {k: {"count": v["count"], "total_s": v["total_s"]}
+             for k, v in summary["spans"].items()
+             if k.startswith(("opt.", "genomes."))}
+    tele = summary["telemetry"]
+    cli = {"args": OPT_CLI, "front_size": len(sync_front),
+           "sync_s": sync_s, "async_s": async_s, "traced_async_s": traced_s,
+           "sync_generations_per_s": gens / sync_s,
+           "async_generations_per_s": gens / async_s,
+           "sync_evals_per_s": gens * pop / sync_s,
+           "async_evals_per_s": gens * pop / async_s,
+           "async_overlap_pct": tele["async_overlap_pct"],
+           "async_host_hidden_s": tele["async_host_hidden_s"],
+           "async_device_wait_s": tele["async_device_wait_s"],
+           "spans": spans, "profiled_async_wall_ms": wall_s * 1e3,
+           "device_busy_ms": busy_s * 1e3,
+           "device_idle_share": 1.0 - busy_s / wall_s,
+           "top_device_us": dict(top)}
+    log(f"phase 16a: NSGA-II {OPT_CLI}: sync {cli['sync_generations_per_s']:.3f}"
+        f" generations/s ({cli['sync_evals_per_s']:.1f} evals/s), async "
+        f"{cli['async_generations_per_s']:.3f} ({cli['async_evals_per_s']:.1f}"
+        f"); fronts bit-equal ({len(sync_front)} points), resume from "
+        f"generation 10 == uninterrupted; async overlap "
+        f"{tele['async_overlap_pct']}% of host work hidden; device idle "
+        f"{cli['device_idle_share']:.4f} of the async run")
+
+    # (b) robust versus pristine, benchmarks/opt_convergence.py's experiment
+    n, degree, rpop, rgens = (ROBUST[k] for k in ("n", "degree", "pop",
+                                                   "generations"))
+    space = AdjacencySpace(n_chiplets=n, max_degree=degree)
+    battery = single_link_faults(space)
+    budgets = Budgets(max_interposer_area=ROBUST["area_budget"])
+
+    def optimized_front(faults):
+        evaluator = PopulationEvaluator(space, budgets=budgets,
+                                        device_path=True, faults=faults,
+                                        device=dev)
+        opt = EvolutionarySearch(space, evaluator, seed=0, pop_size=rpop)
+        OptRunner(opt).run(rgens)
+        return [np.asarray(e.payload, np.int64) for e in opt.archive.front()]
+
+    zero_counts()
+    t0 = time.perf_counter()
+    pristine_front = optimized_front(None)
+    robust_front = optimized_front(FaultSetup(scenarios=battery))
+    torch.cuda.synchronize()
+    robust_s = time.perf_counter() - t0
+    read_counts("opt_robust", ("load_propagate", "minplus"))
+    if not pristine_front or not robust_front:
+        fail(f"phase 16b: empty front (pristine {len(pristine_front)}, "
+             f"robust {len(robust_front)})")
+    engine, engine_cpu = DseEngine(device=dev), DseEngine(device="cpu")
+
+    def best_worst_case(front):
+        args = (space, np.stack(front), battery.link_fail, battery.node_fail)
+        g = engine.evaluate_genomes_faults_async(*args).result()
+        g_cpu = engine_cpu.evaluate_genomes_faults_async(*args).result()
+        for f in ("latency", "throughput", "reachable_fraction"):
+            if not np.allclose(getattr(g, f), getattr(g_cpu, f), rtol=RTOL,
+                               atol=0.0):
+                fail(f"phase 16b: the battery grid's {f} differs from the "
+                     f"CPU's")
+        lat = np.asarray(g.latency, np.float64)
+        reach = np.asarray(g.reachable_fraction, np.float64)
+        worst = np.where(reach < 1.0 - REACH_EPS, float(BIG),
+                         lat).max(axis=1)
+        best = int(np.argmin(worst))
+        return {"front_size": len(front),
+                "best_worst_case_latency": float(worst[best]),
+                "its_delivered_worst_latency": float(lat[best].max()),
+                "its_pristine_latency": float(lat[best, 0]),
+                "its_min_reachable_fraction": float(reach[best].min()),
+                "front_min_reachable_fraction": float(reach.min())}
+
+    p_rec, r_rec = best_worst_case(pristine_front), best_worst_case(
+        robust_front)
+    # the robust search's disconnection constraint admits only designs
+    # that stay connected under every scenario: fatal if its front strands
+    # any traffic. Whether the pristine search's best design strands
+    # traffic depends on its trajectory (ROADMAP Queue C: rank flips on
+    # tied throughputs), so that is reported, not gated.
+    if r_rec["front_min_reachable_fraction"] < 1.0 - REACH_EPS:
+        fail(f"phase 16b: a design of the robust front reaches only "
+             f"{r_rec['front_min_reachable_fraction']} of its traffic under "
+             f"a single-link failure")
+    record = None
+    bench = os.path.join(ROOT, "BENCH_faults.json")
+    if os.path.exists(bench):
+        with open(bench) as f:
+            record = json.load(f).get("robust_vs_pristine")
+    robust = {"args": ROBUST, "battery_scenarios": battery.n_scenarios,
+              "wall_s": robust_s, "pristine_optimized": p_rec,
+              "robust_optimized": r_rec,
+              "jax_package_tpu_era_record_BENCH_faults": record}
+    log(f"phase 16b: robust versus pristine at n={n}, degree {degree}: the "
+        f"pristine front's best design reaches "
+        f"{p_rec['its_min_reachable_fraction']} of its traffic under the "
+        f"worst of {battery.n_scenarios} single-link scenarios, the robust "
+        f"front's {r_rec['its_min_reachable_fraction']} (the JAX package's "
+        f"TPU-era record in BENCH_faults.json, not this card's: "
+        f"{None if record is None else record['pristine_optimized']['its_min_reachable_fraction']}"
+        f" / {None if record is None else record['robust_optimized']['its_min_reachable_fraction']})")
+    shutil.rmtree(work, ignore_errors=True)
+    return {"cli_defaults": cli, "robust_vs_pristine": robust}
+
+
 def main() -> None:
     try:
         run_phases()
@@ -1581,6 +1922,13 @@ def run_phases() -> None:
         lambda *args, chunk: sfs.forward(one_thread, *args, chunk))
     flow_record = flow_paths(torch, dev, zero_counts, read_counts)
     print(json.dumps({"training": training}), flush=True)
+
+    # -- 15-16. the fault grid and the optimizer ------------------------------
+    faults_rec = fault_grid_path(torch, dev, zero_counts, read_counts,
+                                 lp_first_equal)
+    print(json.dumps({"faults_grid": faults_rec}), flush=True)
+    opt_rec = optimizer_path(torch, dev, zero_counts, read_counts)
+    print(json.dumps({"optimizer": opt_rec}), flush=True)
 
     totals = {name: sum(c[name] for c in path_launches.values())
               for name in kernels}

@@ -13,8 +13,8 @@ The engine is:
 
 It runs on one explicit ``device`` (None -> cuda, which raises without a
 GPU). ``evaluate_genomes`` is the optimizer's cost function
-(``dse.genomes``). The reference's mesh sharding and its fault grid are not
-ported yet.
+(``dse.genomes``), ``evaluate_genomes_faults_async`` its [P, F] fault grid.
+The reference's mesh sharding is not ported yet.
 """
 from __future__ import annotations
 
@@ -128,6 +128,25 @@ class DseEngine:
                 f"(routing {getattr(space, 'routing', None)!r}); "
                 f"use evaluate_points")
         return pipeline.evaluate_async(genomes)
+
+    def supports_faults(self, space) -> bool:
+        """True when ``evaluate_genomes_faults_async`` has a device path:
+        the fault grid exists for the adjacency pipeline only."""
+        pipeline = self._genome_pipeline(space)
+        return pipeline is not None and hasattr(pipeline,
+                                                "evaluate_faults_async")
+
+    def evaluate_genomes_faults_async(self, space, genomes, link_fail,
+                                      node_fail):
+        """The [P, F] population x fault grid: every genome under every
+        fault scenario in one batch on the engine's device; ``result()``
+        returns a ``dse.genomes.FaultGridResult``."""
+        if not self.supports_faults(space):
+            raise ValueError(
+                f"no device fault-grid path for {type(space).__name__} "
+                f"(routing {getattr(space, 'routing', None)!r})")
+        return self._genome_pipeline(space).evaluate_faults_async(
+            genomes, link_fail, node_fail)
 
     def evaluate_batch(self, batch: DesignBatch) -> DseResult:
         with _span("dse.evaluate_batch", b=batch.size, n=batch.n):

@@ -1,6 +1,6 @@
 """Genome -> metrics pipelines on one device: the optimizer's cost function.
-Port of ``src/repro/dse/genomes.py`` (the pristine path; the fault grid and
-the multi-device population sharding are not ported yet).
+Port of ``src/repro/dse/genomes.py`` (the multi-device population sharding
+is not ported yet).
 
 * ``AdjacencyPipeline`` — from a bit-genome population of
   ``opt.space.AdjacencySpace`` to (latency, throughput) on the device: the
@@ -11,6 +11,9 @@ the multi-device population sharding are not ported yet).
   load-propagation kernel). Everything data-independent (chiplet sides, PHY
   offsets, bump-limited bandwidths per (radix, degree)) is a small host
   table computed in float64, indexed by the design's radix.
+  ``evaluate_faults_async`` evaluates a population under a batch of fault
+  scenarios as one flat [P*F] grid of degraded designs through the same
+  routing tables and load propagation.
 * ``ParametricPipeline`` — ``opt.space.ParametricSpace`` genomes index a
   finite set of structures: they are built lazily on the host through the
   shared structure cache, stacked, and each population is one gather plus
@@ -91,6 +94,18 @@ class GenomeEvalResult:
     reports: ReportArrays     # [P] f64 host-exact constraint columns
 
 
+@dataclass
+class FaultGridResult:
+    """Degraded metrics over a [P, F] population x fault-scenario grid:
+    every genome evaluated under every fault scenario in one batch;
+    ``faults.objectives`` reduces the grid into robust Pareto
+    objectives."""
+    latency: np.ndarray              # [P, F] f32 (BIG when nothing routes)
+    throughput: np.ndarray           # [P, F] f32 (0 when nothing routes)
+    reachable_fraction: np.ndarray   # [P, F] f32 delivered traffic share
+    reports: ReportArrays            # [P] pristine constraint columns
+
+
 def _pending(device: torch.device, finisher) -> PendingGenomeEval:
     event = None
     if device.type == "cuda":
@@ -134,6 +149,47 @@ def _eval_proxies(next_hop, step_cost, node_weight, adj_bw, traffic,
     lat = ((pairwise_sum(total * sc_next.transpose(-1, -2)) + dest_weight)
            / t_total).to(torch.float32)
     return lat, thr
+
+
+def _eval_proxies_masked(next_hop, step_cost, node_weight, adj_bw, traffic,
+                         alive, max_hops: int):
+    """``_eval_proxies`` generalized to degraded structures: only traffic
+    between *reachable* alive pairs enters the books, and unreachable
+    traffic becomes an explicit reachable-fraction output instead of
+    inf-poisoning the proxies.
+
+    next_hop/step_cost/adj_bw: [B, n, n] degraded structures (src-major
+    tables; unreachable pairs self-loop); alive: [B, n] node-alive mask;
+    traffic: [n, n] shared. Returns (latency, throughput,
+    reachable_fraction) each [B] f32 — latency/throughput of the
+    *delivered* traffic (BIG / 0.0 when nothing routes), and the delivered
+    fraction of total offered traffic. Every sum is ``_eval_proxies``' in
+    the same order, so an undamaged, connected design gets the same bits
+    as from ``_eval_proxies``."""
+    B, n, _ = next_hop.shape
+    t32 = traffic.to(torch.float32)
+    ids = torch.arange(n, device=next_hop.device)
+    eye = ids[:, None] == ids[None, :]
+    # next_hop[b, u, d] = u marks "no route": the ids index u, dim 1
+    reach = (next_hop != ids[None, :, None]) | eye[None]
+    deliver = reach & alive[:, :, None] & alive[:, None, :]
+    t_m = torch.where(deliver, t32[None], 0.0)             # [B, n, n] src-major
+    t_tot = pairwise_sum(t_m)                              # [B]
+    dest_weight = _sum_last(_sum_last(t_m.transpose(-1, -2)) * node_weight)
+    total, flow = load_propagate(next_hop, t_m.transpose(-1, -2),
+                                 max_hops=max_hops, adaptive=True)
+    f = flow + flow.transpose(-1, -2)
+    ratio = torch.where(f > 0, adj_bw / torch.clamp_min(f, 1e-30), torch.inf)
+    min_ratio = ratio.amin(dim=(1, 2))
+    sc_next = torch.gather(step_cost, 2, next_hop.long())       # [B, u, d]
+    path_cost = pairwise_sum(total * sc_next.transpose(-1, -2))
+    routed = t_tot > 0
+    lat = torch.where(routed, (path_cost + dest_weight)
+                      / torch.clamp_min(t_tot, 1e-30), BIG).to(torch.float32)
+    thr = torch.where(routed, min_ratio * t_tot, 0.0).to(torch.float32)
+    reach_frac = (t_tot / torch.clamp_min(pairwise_sum(t32), 1e-30)
+                  ).to(torch.float32)
+    return lat, thr, reach_frac
 
 
 def _phy_scan(bits_pad, deg, radix, pitch, t, *, n: int, k_phys: int):
@@ -280,6 +336,52 @@ def _adjacency_eval(bits, t, *, n: int, k_phys: int, euclid: bool,
     return lat, thr, len_sum
 
 
+def _adjacency_eval_faults(bits, link_alive, node_alive, t, *, n: int,
+                           k_phys: int, euclid: bool, max_hops: int):
+    """The [P, F] population x fault grid: every genome evaluated under
+    every fault scenario in one batch.
+
+    bits: [P, G] repaired genomes; link_alive: [F, G] per-scenario link
+    survival (False = failed); node_alive: [F, n] chiplet survival. The
+    pristine structure (geometry, PHY assignment, bandwidths) is built once
+    per genome via ``_adjacency_structure``; each scenario then masks the
+    adjacency — dead links vanish, dead chiplets lose all incident links
+    and stop sourcing/sinking traffic — and the degraded routing tables are
+    recomputed under the mask by the same batched BFS
+    (``routing.device.hops_next_hop_batch``) over a flat [P*F] batch: row
+    p*F + f of the grid is genome p under scenario f, made by integer
+    gathers, never as a [P, F, n, n] transient. Returns (latency,
+    throughput, reachable_fraction) each [P, F] f32 plus the pristine
+    summed link length [P]."""
+    Pn = bits.shape[0]
+    F = link_alive.shape[0]
+    dev = bits.device
+    adj, step_cost, adj_bw, length = _adjacency_structure(
+        bits, t, n=n, k_phys=k_phys, euclid=euclid)
+    # scenario masks in pair space: pad column G (the diagonal) stays alive
+    # — adj is already False there
+    alive_pad = torch.cat([link_alive.to(torch.bool),
+                           torch.ones((F, 1), dtype=torch.bool, device=dev)],
+                          dim=1)
+    alive_pairs = alive_pad[:, t["pair_id"]]                    # [F, n, n]
+    node_ok = node_alive.to(torch.bool)                         # [F, n]
+    i = torch.arange(Pn * F, device=dev)
+    p_idx, f_idx = i // F, i % F
+    ok_f = node_ok[f_idx]                                       # [P*F, n]
+    adj_pf = (adj[p_idx] & alive_pairs[f_idx] & ok_f[:, :, None]
+              & ok_f[:, None, :])
+    step_pf = torch.where(adj_pf, step_cost[p_idx], 0.0)
+    bw_pf = adj_bw[p_idx]          # dead links carry zero flow -> unused
+    next_hop = hops_next_hop_batch(adj_pf)
+    node_weight = t["consts"][4].expand(n)
+    lat, thr, reach = _eval_proxies_masked(next_hop, step_pf, node_weight,
+                                           bw_pf, t["traffic"], ok_f,
+                                           max_hops)
+    len_sum = _sum_last(torch.where(bits.to(torch.bool), length, 0.0))
+    return (lat.reshape(Pn, F), thr.reshape(Pn, F), reach.reshape(Pn, F),
+            len_sum)
+
+
 class AdjacencyPipeline:
     """Device path for ``opt.space.AdjacencySpace`` populations."""
 
@@ -395,6 +497,25 @@ class AdjacencyPipeline:
         self._euclid = pkg.link_routing == "euclidean"
         self.max_hops = max(n - 1, 1)
 
+    def _bits(self, genomes: np.ndarray) -> tuple[np.ndarray, torch.Tensor]:
+        """Degrees [P, n] of a repaired population (checked against the
+        PHY bound) and its bits on the device, padded to the population
+        bucket with copies of the last genome."""
+        deg = self.space.degrees(genomes)
+        if deg.max(initial=0) > self.k_phys:
+            raise ValueError(
+                f"genome exceeds the repaired degree bound "
+                f"({int(deg.max())} > {self.k_phys}); repair genomes "
+                f"before evaluate_genomes")
+        Pn = len(genomes)
+        bp = bucket_population(Pn)
+        padded = genomes
+        if bp != Pn:
+            padded = np.concatenate(
+                [genomes, np.repeat(genomes[-1:], bp - Pn, axis=0)], axis=0)
+        return deg, torch.as_tensor(padded % 2, dtype=torch.int32,
+                                    device=self.device)
+
     def evaluate_async(self, genomes: np.ndarray) -> PendingGenomeEval:
         """Launch the whole population's evaluation and return without
         waiting for the device; ``result()`` waits and adds the host
@@ -402,20 +523,7 @@ class AdjacencyPipeline:
         genomes = np.asarray(genomes, np.int64)
         Pn = len(genomes)
         with _span("genomes.dispatch", space="adjacency", pop=Pn, n=self.n):
-            deg = self.space.degrees(genomes)
-            if deg.max(initial=0) > self.k_phys:
-                raise ValueError(
-                    f"genome exceeds the repaired degree bound "
-                    f"({int(deg.max())} > {self.k_phys}); repair genomes "
-                    f"before evaluate_genomes")
-            bp = bucket_population(Pn)
-            padded = genomes
-            if bp != Pn:
-                padded = np.concatenate(
-                    [genomes, np.repeat(genomes[-1:], bp - Pn, axis=0)],
-                    axis=0)
-            bits = torch.as_tensor(padded % 2, dtype=torch.int32,
-                                   device=self.device)
+            deg, bits = self._bits(genomes)
             with torch.no_grad():
                 lat, thr, len_sum = _adjacency_eval(
                     bits, self._tables, n=self.n, k_phys=self.k_phys,
@@ -430,6 +538,60 @@ class AdjacencyPipeline:
                                         reports=reports)
 
         return _pending(self.device, finish)
+
+    def evaluate(self, genomes: np.ndarray) -> GenomeEvalResult:
+        """Blocking wrapper over ``evaluate_async``."""
+        return self.evaluate_async(genomes).result()
+
+    def evaluate_faults_async(self, genomes: np.ndarray,
+                              link_fail: np.ndarray,
+                              node_fail: np.ndarray) -> PendingGenomeEval:
+        """Launch the [P, F] population x fault grid without waiting for
+        the device. link_fail: [F, G] bool (True = link failed); node_fail:
+        [F, n] bool (True = chiplet dead). ``result()`` returns a
+        ``FaultGridResult``; pristine reports are computed on the host as
+        in ``evaluate_async`` (faults are runtime events — the design is
+        still manufactured with every link)."""
+        genomes = np.asarray(genomes, np.int64)
+        link_fail = np.atleast_2d(np.asarray(link_fail, bool))
+        node_fail = np.atleast_2d(np.asarray(node_fail, bool))
+        Pn = len(genomes)
+        F = len(link_fail)
+        if link_fail.shape[1] != self.space.genome_length:
+            raise ValueError(
+                f"link_fail has {link_fail.shape[1]} link slots; space "
+                f"has {self.space.genome_length}")
+        if node_fail.shape != (F, self.n):
+            raise ValueError(
+                f"node_fail shape {node_fail.shape} != ({F}, {self.n})")
+        with _span("genomes.dispatch_faults", space="adjacency", pop=Pn,
+                   n=self.n, faults=F):
+            deg, bits = self._bits(genomes)
+            link_alive = torch.as_tensor(~link_fail, device=self.device)
+            node_alive = torch.as_tensor(~node_fail, device=self.device)
+            with torch.no_grad():
+                lat, thr, reach, len_sum = _adjacency_eval_faults(
+                    bits, link_alive, node_alive, self._tables, n=self.n,
+                    k_phys=self.k_phys, euclid=self._euclid,
+                    max_hops=self.max_hops)
+
+        def finish() -> FaultGridResult:
+            with _span("genomes.finish_faults", space="adjacency", pop=Pn):
+                reports = self._report_arrays(
+                    genomes, deg, len_sum.cpu().numpy()[:Pn])
+                return FaultGridResult(
+                    latency=lat.cpu().numpy()[:Pn],
+                    throughput=thr.cpu().numpy()[:Pn],
+                    reachable_fraction=reach.cpu().numpy()[:Pn],
+                    reports=reports)
+
+        return _pending(self.device, finish)
+
+    def evaluate_faults(self, genomes: np.ndarray, link_fail: np.ndarray,
+                        node_fail: np.ndarray) -> FaultGridResult:
+        """Blocking wrapper over ``evaluate_faults_async``."""
+        return self.evaluate_faults_async(genomes, link_fail,
+                                          node_fail).result()
 
     def _report_arrays(self, genomes, deg, len_sums) -> ReportArrays:
         """Constraint columns [P] in host float64, exact against
@@ -606,5 +768,6 @@ def make_pipeline(space, device):
 
 
 __all__ = ["bucket_population", "node_bucket", "NODE_TILE",
-           "PendingGenomeEval", "GenomeEvalResult", "AdjacencyPipeline",
+           "PendingGenomeEval", "GenomeEvalResult", "FaultGridResult",
+           "AdjacencyPipeline",
            "ParametricPipeline", "make_pipeline"]

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: load propagation, min-plus, the
 fused and tiled APSP, flow accumulation and the selective scan, each
 against its plain version, alone vs in a batch, and the wrappers' refusals;
-the routing tables, the genome cost function, the pair-walk throughput and
+the routing tables, the genome cost function and its fault grid, the
+optimizers' async and sync drivers, the pair-walk throughput and
 a reduced Falcon-Mamba training step on the card against the CPU. Every test here needs an NVIDIA
 Hopper GPU and skips without one; run them on the card with
 
@@ -370,6 +371,55 @@ def test_genome_cost_function_on_cuda_matches_cpu(cuda, kind):
         alone = DseEngine(device="cuda").evaluate_genomes(space, pop[i:i + 1])
         assert alone.latency[0] == gpu.latency[i]
         assert alone.throughput[0] == gpu.throughput[i]
+
+
+@pytest.mark.parametrize("model", ["iid", "chiplet"])
+def test_fault_grid_on_cuda_matches_cpu(cuda, model):
+    """The [P, F] grid on the card within rtol 1e-5 of the CPU's, the
+    pristine column bit-equal to evaluate_genomes on the card, a genome
+    alone bit-equal to it in the grid (dead chiplets: disconnected
+    graphs)."""
+    from repro_torch.dse import DseEngine
+    from repro_torch.faults.model import make_scenarios
+    from repro_torch.opt import AdjacencySpace
+
+    space = AdjacencySpace(n_chiplets=32, max_degree=8)
+    pop = space.sample(np.random.default_rng(1), 12)
+    kw = {"p": 0.05, "n_scenarios": 7, "seed": 0} if model == "iid" else {}
+    sc = make_scenarios(space, model, **kw)
+
+    def grid(device, genomes=pop):
+        return DseEngine(device=device).evaluate_genomes_faults_async(
+            space, genomes, sc.link_fail, sc.node_fail).result()
+
+    gpu, cpu = grid("cuda"), grid("cpu")
+    fields = ("latency", "throughput", "reachable_fraction")
+    for f in fields:
+        np.testing.assert_allclose(getattr(gpu, f), getattr(cpu, f),
+                                   rtol=RTOL, atol=0.0)
+    plain = DseEngine(device="cuda").evaluate_genomes(space, pop)
+    np.testing.assert_array_equal(gpu.latency[:, 0], plain.latency)
+    np.testing.assert_array_equal(gpu.throughput[:, 0], plain.throughput)
+    alone = grid("cuda", pop[5:6])
+    for f in fields:
+        np.testing.assert_array_equal(getattr(alone, f)[0],
+                                      getattr(gpu, f)[5])
+
+
+@pytest.mark.parametrize("algo", ["nsga2", "sa", "random"])
+def test_optimizer_async_equals_sync_on_cuda(cuda, algo):
+    from repro_torch.opt import (ALGORITHMS, AdjacencySpace, OptRunner,
+                                 PopulationEvaluator)
+
+    size = {"nsga2": "pop_size", "sa": "n_chains", "random": "batch_size"}
+    states = []
+    for mode in (False, True):
+        space = AdjacencySpace(n_chiplets=16, max_degree=5)
+        opt = ALGORITHMS[algo](space, PopulationEvaluator(space),
+                               seed=7, **{size[algo]: 12})
+        OptRunner(opt, async_pipeline=mode).run(4)
+        states.append(opt.state())
+    assert states[0] == states[1]
 
 
 def _scan_inputs(rng, B, S, Di, N, dev):

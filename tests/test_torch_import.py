@@ -48,7 +48,14 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.train.step", "repro_torch.data.pipeline",
                  "repro_torch.launch.train", "repro_torch.models",
                  "repro_torch.train", "repro_torch.data",
-                 "repro_torch.launch"):
+                 "repro_torch.launch", "repro_torch.utils.version",
+                 "repro_torch.faults", "repro_torch.faults.harness",
+                 "repro_torch.faults.model", "repro_torch.faults.objectives",
+                 "repro_torch.faults.reference", "repro_torch.obs.report",
+                 "repro_torch.obs.__main__", "repro_torch.opt.operators",
+                 "repro_torch.opt.archive", "repro_torch.opt.algorithms",
+                 "repro_torch.opt.runner", "repro_torch.opt.__main__",
+                 "repro_torch.dse.pareto"):
         assert name in rec["modules"]
     configs = [m for m in rec["modules"]
                if m.startswith("repro_torch.configs.")]
@@ -72,7 +79,9 @@ def test_evaluate_design_defaults_to_cuda_and_raises_without_it(no_gpu):
 
 @pytest.mark.parametrize("entry", ["engine", "encode", "batch_from_numpy",
                                    "diameter", "lowest_id_tables",
-                                   "hierarchical", "model"])
+                                   "hierarchical", "model",
+                                   "population_evaluator", "opt_runner",
+                                   "opt_cli"])
 def test_batched_entry_points_raise_without_gpu(no_gpu, entry):
     import numpy as np
     from repro_torch.core.latency import routed_diameter_batch
@@ -82,6 +91,9 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry):
                                  encode_designs, expand_experiments)
     from repro_torch.configs import get_config
     from repro_torch.models import Model, reduced
+    from repro_torch.opt import (AdjacencySpace, OptRunner,
+                                 PopulationEvaluator)
+    from repro_torch.opt.runner import main, make_optimizer
 
     nh = np.tile(np.arange(4, dtype=np.int32)[None, :, None], (1, 1, 4))
     z = np.zeros((1, 4, 4), np.float32)
@@ -97,6 +109,13 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry):
         "hierarchical": lambda: hops_next_hop_auto(
             np.ones((4, 4), bool) & ~np.eye(4, dtype=bool), None),
         "model": lambda: Model(reduced(get_config("falcon-mamba-7b"))),
+        "population_evaluator": lambda: PopulationEvaluator(
+            AdjacencySpace(8, 3)),
+        "opt_runner": lambda: OptRunner(make_optimizer(
+            "nsga2", AdjacencySpace(8, 3),
+            PopulationEvaluator(AdjacencySpace(8, 3)))).run(1),
+        "opt_cli": lambda: main(["--n-chiplets", "8", "--generations", "1",
+                                 "--pop-size", "4", "--quiet"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -172,3 +172,26 @@ def test_other_families_raise(arch):
 def test_remat_dots_raises():
     with pytest.raises(NotImplementedError, match="dots"):
         Model(reduced(get_config(ARCH), remat="dots"))
+
+
+def test_reference_argument_order_raises():
+    """ROADMAP Queue C pin: the port's ``Model`` takes ``params`` after the
+    data and its ops drop the reference's tile arguments, so a call in the
+    reference's order raises instead of computing something else."""
+    from repro_torch.kernels import ops
+    cfg = reduced(get_config(ARCH), ssm_chunk=8, dtype="float32")
+    model = Model(cfg, device="cpu")
+    params = model.params()
+    batch = {k: torch.from_numpy(v).long()
+             for k, v in _batch(cfg.vocab_size, s=8).items()}
+    with pytest.raises(KeyError, match="tokens"):
+        model.loss(params, batch)                 # reference: loss(params, batch)
+    with pytest.raises(IndexError):
+        model.forward(params, batch["tokens"])    # reference: forward(params, tokens)
+    a = torch.rand(2, 5, 5)
+    with pytest.raises(TypeError):
+        ops.minplus_matmul(a, a, 64)              # reference: bm as 3rd argument
+    flow = torch.zeros(4, 4)
+    cur = torch.tensor([0, 1])
+    with pytest.raises(TypeError):
+        ops.flow_accumulate(flow, cur, cur + 1, torch.ones(2), 128)  # bp
