@@ -111,9 +111,38 @@ Phases, each fatal on error (exit code 1, no result line):
     generations, interposer area 6500, the exhaustive single-link battery):
     every design of the robust front keeps all its traffic under every
     scenario, both fronts' battery grids within rtol 1e-5 of the CPU's,
-    printed beside the JAX package's record in ``BENCH_faults.json``.
+    printed beside the JAX package's record in ``BENCH_faults.json``;
+17. the search service, ``SearchService(device="cuda")``: (a)
+    ``benchmarks/serve_load.py``'s mix, 100 jobs in ``AdjacencySpace(10,
+    4)`` (NSGA-II, SA and random, populations 4-8, 4 generations, 4
+    tenants, 16 running at once), five sampled jobs bit-identical to their
+    solo runs on the card (front bytes, eval count, ``optimizer.state()``),
+    evals/s, p50/p99 job latency, rounds, mega-dispatches and their mean
+    occupancy, the ``serve.*`` spans, and the device idle share of one
+    profiled round of 16 jobs; (b) 8 jobs at ``AdjacencySpace(32, 8)``,
+    population 24, 5 generations, each bit-identical to its solo run, its
+    front's objectives within rtol 1e-5 of the CPU's; min-plus and
+    load-propagation rows bit-equal at B = 8 and B = 256 (where the
+    min-plus k split differs); (c) a job armed with
+    ``chaos_fail_generation`` ends FAILED, its batch-mates bit-identical;
+    (d) ``python -m repro_torch.serve --device cuda`` on a jobs file,
+    SIGKILLed mid-run, restarted on the same state dir and SIGTERM-drained
+    mid-run (exit 0, jobs suspended), then resumed to the end by a
+    ``SearchService`` on that state dir: the survivors' front files
+    byte-equal to their solo fronts, the chaos job FAILED;
+18. the simulator: ``FastSim.run_batch(backend="torch")`` on the card
+    (CUDA graphs of ``simfast_torch.K_CYCLES`` cycles) with every
+    ``SimStats`` field equal to the numpy and C backends' on
+    ``benchmarks/validate_proxies.py``'s engine-calibration design (a
+    64-chiplet mesh, random-uniform traffic, 2560-cycle windows) at the
+    saturation search's first chunk of 5 rates, and on a 16-chiplet mesh
+    under transpose traffic (over a 700-cycle window also eagerly, one
+    launch per op, timed against the graphs);
+    ``saturation_throughput_batched(backend="torch", chunk=10)`` on the
+    64-chiplet mesh with the numpy and C backends' rate and probe count
+    (chunk 5); the wall time of each backend.
 
-Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16) is driven with every
+Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17) is driven with every
 kernel's launch count set to 0 just before it and read just after; a path
 whose kernels were not launched fails the run. Launches made to compare a kernel with its
 plain version are not counted. The second-to-last line carries the card's
@@ -198,13 +227,30 @@ OPT_CLI = {"space": "adjacency", "n_chiplets": 32, "max_degree": 8,
 # the exhaustive single-link battery)
 ROBUST = {"n": 16, "degree": 3, "pop": 16, "generations": 12,
           "area_budget": 6500.0}
+# benchmarks/serve_load.py's load mix: jobs in AdjacencySpace(10, 4),
+# NSGA-II/SA/random, populations 4-8, 4 tenants
+SERVE_SPACE = {"kind": "adjacency", "n_chiplets": 10, "max_degree": 4}
+SERVE_ALGOS, SERVE_POPS = ("nsga2", "sa", "random"), (4, 5, 6, 8)
+SERVE_LOAD = {"jobs": 100, "generations": 4, "max_jobs": 16, "sampled": 5}
+# the optimizer CLI's space at full width: 8 co-batched jobs
+SERVE_FULL = {"space": {"kind": "adjacency", "n_chiplets": 32,
+                        "max_degree": 8},
+              "jobs": 8, "pop_size": 24, "generations": 5}
+# the simulator: benchmarks/validate_proxies.py's engine calibration (a
+# 64-chiplet mesh, random-uniform traffic, cycles max(600, 40 n)) and a
+# 16-chiplet mesh under transpose traffic
+SIM_CHIPLETS, SIM_SMALL = 64, 16
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(f"[chip_smoke] {msg}", flush=True)
+    """One progress line, with the seconds since the script started."""
+    print(f"[chip_smoke {time.perf_counter() - _T0:.1f}s] {msg}", flush=True)
 
 
 def fail(msg: str) -> None:
@@ -1584,6 +1630,426 @@ def optimizer_path(torch, dev, zero_counts, read_counts) -> dict:
     return {"cli_defaults": cli, "robust_vs_pristine": robust}
 
 
+def _serve_spec(JobSpec, i: int, space: dict, generations: int,
+                pop_size: int | None = None, **kw):
+    return JobSpec(job_id=f"job-{i:03d}", algo=SERVE_ALGOS[i % 3],
+                   generations=generations,
+                   pop_size=pop_size or SERVE_POPS[i % len(SERVE_POPS)],
+                   seed=i, tenant=f"team-{i % 4}", space=dict(space), **kw)
+
+
+def _solo_identical(run_spec_solo, front_json_bytes, job, dev) -> bool:
+    """A served job against ``run_spec_solo`` on the same device: front
+    bytes, eval count and the whole optimizer state (archive, RNG)."""
+    opt, rows = run_spec_solo(job.spec, device=dev)
+    return (job.status == "done"
+            and front_json_bytes(job.result_rows) == front_json_bytes(rows)
+            and job.n_evals == opt.evaluator.n_evals
+            and job.optimizer.state() == opt.state())
+
+
+def serve_path(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 17: the search service on the card (``SearchService(device=
+    "cuda")``): serve_load's mix of 100 jobs, 8 jobs at the optimizer CLI's
+    space, a chaos-armed job, and the daemon under SIGKILL and SIGTERM;
+    every served job bit-identical to its solo run on the card. Returns the
+    phase's record."""
+    import shutil
+    import signal
+
+    from repro_torch.dse import DseEngine
+    from repro_torch.kernels import load_prop as lp
+    from repro_torch.kernels import minplus as mp
+    from repro_torch.kernels.ref import BIG
+    from repro_torch.obs import metrics
+    from repro_torch.obs.log import configure
+    from repro_torch.obs.report import span_stats
+    from repro_torch.obs.trace import TRACER, disable_tracing, enable_tracing
+    from repro_torch.serve import (JobSpec, SearchService, front_json_bytes,
+                                   run_spec_solo)
+    from repro_torch.serve.job import make_job_space
+
+    def pct(xs, q):
+        xs = sorted(xs)
+        return xs[min(len(xs) - 1, max(0, round(q * (len(xs) - 1))))]
+
+    # the service logs every job's end at info; keep the phase's own lines
+    configure("warning", force=True)
+    # (a) load: 100 jobs, one shared space, co-batched mega-dispatches
+    n_jobs, gens = SERVE_LOAD["jobs"], SERVE_LOAD["generations"]
+    specs = [_serve_spec(JobSpec, i, SERVE_SPACE, gens)
+             for i in range(n_jobs)]
+    submitted: dict[str, float] = {}     # job id -> time.monotonic()
+    metrics.reset()
+    enable_tracing()
+    zero_counts()
+    try:
+        t0 = time.perf_counter()
+        with SearchService(device=dev, max_jobs=SERVE_LOAD["max_jobs"],
+                           max_queued=n_jobs + 1) as svc:
+            for spec in specs:
+                submitted[spec.job_id] = time.monotonic()
+                svc.submit(spec)
+            jobs = svc.wait_all(timeout_s=600.0)
+        stats = svc.stats()         # after the drain: every round counted
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        spans = span_stats(TRACER.to_dicts())
+    finally:
+        disable_tracing()
+        TRACER.clear()
+    counts = read_counts("serve_load", ("load_propagate", "minplus"))
+    done = [j for j in jobs if j.status == "done"]
+    if len(done) != n_jobs:
+        fail(f"phase 17a: {n_jobs - len(done)} load jobs did not finish")
+    step = max(1, len(done) // SERVE_LOAD["sampled"])
+    sampled = done[::step][:SERVE_LOAD["sampled"]]
+    for job in sampled:
+        if not _solo_identical(run_spec_solo, front_json_bytes, job, dev):
+            fail(f"phase 17a: job {job.job_id} ({job.spec.algo}) differs "
+                 f"from its solo run on the card")
+    dispatches = metrics.histogram("serve.batch_occupancy").count
+    # submit -> done: a job ends wall_s after it started (both monotonic)
+    lat = [j.started_at + j.wall_s - submitted[j.job_id] for j in jobs]
+    load = {"jobs": n_jobs, "generations": gens,
+            "max_jobs": SERVE_LOAD["max_jobs"], "wall_s": load_s,
+            "evals_total": stats["evals_total"],
+            "evals_per_s": stats["evals_total"] / load_s,
+            "latency_p50_s": pct(lat, 0.50), "latency_p99_s": pct(lat, 0.99),
+            "rounds": stats["rounds"], "mega_dispatches": dispatches,
+            "mean_batch_occupancy": stats["evals_total"] / max(1, dispatches),
+            "batch_faults": metrics.counter("serve.batch_fault").value,
+            "launches": {k: counts[k] for k in ("load_propagate", "minplus")},
+            "sampled_solo_identical": [j.job_id for j in sampled],
+            "spans": {k: {f: v[f] for f in ("count", "total_s", "mean_s",
+                                             "p50_s", "p99_s")}
+                      for k, v in spans.items()
+                      if k.startswith(("serve.", "genomes.", "opt."))}}
+    log(f"phase 17a: {n_jobs} jobs x {gens} generations: "
+        f"{load['evals_per_s']:.1f} evals/s, latency p50 "
+        f"{load['latency_p50_s']:.3f} s p99 {load['latency_p99_s']:.3f} s, "
+        f"{stats['rounds']} rounds, {dispatches} mega-dispatches of "
+        f"{load['mean_batch_occupancy']:.1f} evals; "
+        f"{len(sampled)} sampled jobs bit-identical to solo")
+
+    # one round profiled: 16 jobs of one generation, parked, then started
+    metrics.reset()
+    prof_svc = SearchService(device=dev, max_jobs=16)
+    for i in range(16):
+        prof_svc.submit(_serve_spec(JobSpec, 200 + i, SERVE_SPACE, 1, 8),
+                        auto_start=False)
+    wall_s, busy_s, top = profile_device(
+        torch, lambda: (prof_svc.start(), prof_svc.wait_all(60.0)), n_top=8)
+    prof_svc.drain()
+    if metrics.histogram("serve.batch_occupancy").count != 1:
+        fail("phase 17a: the profiled service ran more than one round")
+    load.update(profiled_round_wall_ms=wall_s * 1e3,
+                profiled_round_busy_ms=busy_s * 1e3,
+                device_idle_share=1.0 - busy_s / wall_s,
+                profiled_round_top_device_us=dict(top))
+
+    # (b) full width: 8 jobs at AdjacencySpace(32, 8), population 24
+    fw = SERVE_FULL
+    full_specs = [_serve_spec(JobSpec, i, fw["space"], fw["generations"],
+                              fw["pop_size"]) for i in range(fw["jobs"])]
+    zero_counts()
+    t0 = time.perf_counter()
+    with SearchService(device=dev, max_jobs=fw["jobs"]) as svc:
+        for spec in full_specs:
+            svc.submit(spec)
+        full_jobs = [svc.wait(s.job_id, 600.0) for s in full_specs]
+    full_stats = svc.stats()
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    full_counts = read_counts("serve_full", ("load_propagate", "minplus"))
+    space = make_job_space(full_specs[0])
+    engine_cpu = DseEngine(device="cpu")
+    worst = 0.0
+    for job in full_jobs:
+        if not _solo_identical(run_spec_solo, front_json_bytes, job, dev):
+            fail(f"phase 17b: job {job.job_id} ({job.spec.algo}) differs "
+                 f"from its solo run on the card")
+        front = job.optimizer.archive.front()
+        genomes = np.stack([np.asarray(e.payload, np.int64) for e in front])
+        cpu = engine_cpu.evaluate_genomes(space, genomes)
+        for f in ("latency", "throughput"):
+            got = np.asarray([getattr(e, f) for e in front], np.float64)
+            want = np.asarray(getattr(cpu, f), np.float64)
+            if not np.allclose(got, want, rtol=RTOL, atol=0.0):
+                fail(f"phase 17b: job {job.job_id}'s front {f} differs from "
+                     f"the CPU's")
+            worst = max(worst, float(np.max(np.abs(got / want - 1.0))))
+    full = {"space": fw["space"], "jobs": fw["jobs"],
+            "pop_size": fw["pop_size"], "generations": fw["generations"],
+            "wall_s": full_s, "evals_total": full_stats["evals_total"],
+            "evals_per_s": full_stats["evals_total"] / full_s,
+            "rounds": full_stats["rounds"],
+            "launches": {k: full_counts[k]
+                         for k in ("load_propagate", "minplus")},
+            "front_max_rel_diff_vs_cpu": worst}
+    log(f"phase 17b: {fw['jobs']} jobs at AdjacencySpace(32, 8), population "
+        f"{fw['pop_size']}, {fw['generations']} generations: "
+        f"{full['evals_per_s']:.1f} evals/s, every job bit-identical to its "
+        f"solo run on the card, fronts within {worst:.3g} of the CPU")
+
+    # the co-batching invariants on the card, on the operands of both
+    # spaces' routing tables and proxies: a row's bits at the solo bucket
+    # (8) and at a mega-batch bucket (256), where the min-plus kernel's k
+    # split differs
+    rng = np.random.default_rng(17)
+    splits = {}
+    for n in (16, 32):
+        a = torch.as_tensor(rng.random((256, n, n)) * 8, dtype=torch.float32,
+                            device=dev)
+        a[a > 7.5] = float("inf")
+        a[a > 6] = BIG
+        small, big = mp.minplus_cuda(a[:8].contiguous(), a[:8].contiguous()), \
+            mp.minplus_cuda(a, a)
+        plans = (mp.minplus_plan(8, n, n, n)["split"],
+                 mp.minplus_plan(256, n, n, n)["split"])
+        if not torch.equal(small, big[:8]):
+            fail(f"phase 17: min-plus rows differ between B=8 and B=256 at "
+                 f"n={n} (k splits {plans})")
+        nh, l0 = random_routing(rng, 256, n, n - 3)
+        nh = torch.as_tensor(nh, dtype=torch.int32, device=dev)
+        l0 = torch.as_tensor(l0, device=dev)
+        w8, f8 = lp.load_prop_cuda(nh[:8].contiguous(), l0[:8].contiguous(),
+                                   n - 1)
+        w256, f256 = lp.load_prop_cuda(nh, l0, n - 1)
+        if not (torch.equal(w8, w256[:8]) and torch.equal(f8, f256[:8])):
+            fail(f"phase 17: load-propagation rows differ between B=8 and "
+                 f"B=256 at n={n}")
+        splits[n] = plans
+    log(f"phase 17: min-plus rows (k splits at B=8 / B=256: {splits}) and "
+        f"load-propagation rows bit-equal at B=8 and B=256, n in {{16, 32}}")
+
+    # (c) chaos: a job that fails at generation 4, batch-mates intact
+    chaos_specs = [
+        JobSpec(job_id="ref1", algo="nsga2", generations=12, pop_size=8,
+                seed=3, space=dict(SERVE_SPACE)),
+        JobSpec(job_id="ref2", algo="sa", generations=12, pop_size=6,
+                seed=4, space=dict(SERVE_SPACE)),
+        JobSpec(job_id="victim", algo="random", generations=12, pop_size=6,
+                seed=5, space=dict(SERVE_SPACE), chaos_fail_generation=4)]
+    metrics.reset()
+    with SearchService(device=dev) as svc:
+        for spec in chaos_specs:
+            svc.submit(spec)
+        c_jobs = [svc.wait(s.job_id, 600.0) for s in chaos_specs]
+    victim = c_jobs[2]
+    if victim.status != "failed" or victim.generation != 4:
+        fail(f"phase 17c: the chaos job ended {victim.status} at generation "
+             f"{victim.generation}")
+    for job in c_jobs[:2]:
+        if not _solo_identical(run_spec_solo, front_json_bytes, job, dev):
+            fail(f"phase 17c: batch-mate {job.job_id} differs from its solo "
+                 f"run")
+    chaos = {"victim_status": victim.status,
+             "victim_generation": victim.generation,
+             "batch_faults": metrics.counter("serve.batch_fault").value,
+             "retries": metrics.counter("serve.retry").value}
+    log(f"phase 17c: the chaos job failed at generation 4 "
+        f"({chaos['batch_faults']} batch faults on serve.batch_fault); its "
+        f"batch-mates bit-identical to solo")
+
+    # (d) the daemon: SIGKILL mid-run and restart, then SIGTERM drain and
+    # resume; survivors' front files byte-equal to their solo fronts
+    work = os.path.join(ROOT, "build", "chip_smoke_serve")
+    shutil.rmtree(work, ignore_errors=True)
+    state = os.path.join(work, "state")
+    os.makedirs(work)
+    daemon_specs = [JobSpec(**dict(s.to_dict(), generations=60))
+                    for s in chaos_specs]
+    jobs_file = os.path.join(work, "jobs.json")
+    with open(jobs_file, "w") as f:
+        json.dump([s.to_dict() for s in daemon_specs], f)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (os.path.join(ROOT, "src") + os.pathsep
+                         + env.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "repro_torch.serve", "--device", "cuda",
+           "--state-dir", state, "--jobs", jobs_file, "--exit-when-idle"]
+    ckpt = os.path.join(state, "job-ref1.json")
+
+    def ckpt_generation() -> int:
+        try:
+            with open(ckpt) as f:
+                return int(json.load(f)["state"]["generation"])
+        except (OSError, ValueError, KeyError):
+            return -1
+
+    def run_until(signum, past: int) -> tuple[bool, int, int]:
+        """Start the daemon, wait until ref1's checkpoint is past
+        generation ``past``, send ``signum``; (landed mid-run, exit code,
+        generation at the signal)."""
+        proc = subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                                stderr=subprocess.DEVNULL)
+        try:
+            deadline = time.monotonic() + 180.0
+            while (proc.poll() is None and ckpt_generation() <= past
+                   and time.monotonic() < deadline):
+                time.sleep(0.005)
+            gen = ckpt_generation()
+            landed = proc.poll() is None
+            if landed:
+                proc.send_signal(signum)
+            return landed, proc.wait(timeout=120), gen
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    t0 = time.perf_counter()
+    killed, _, kill_gen = run_until(signal.SIGKILL, 0)
+    # the restart on the same state dir, drained by SIGTERM mid-run
+    termed, term_rc, term_gen = run_until(signal.SIGTERM, kill_gen + 2)
+    with open(os.path.join(state, "jobs.json")) as f:
+        after_term = {e["spec"]["job_id"]: e["status"]
+                      for e in json.load(f)["jobs"]}
+    if term_rc != 0:
+        fail(f"phase 17d: the daemon exited {term_rc} after SIGTERM")
+    if termed and after_term.get("ref1") != "suspended":
+        fail(f"phase 17d: after the SIGTERM drain ref1 is "
+             f"{after_term.get('ref1')}, not suspended")
+    daemon_s = time.perf_counter() - t0
+    # resume the drained jobs to the end: the daemon's service, in this
+    # process (a third daemon would add only its start-up)
+    with SearchService(device=dev, state_dir=state) as svc:
+        svc.wait_all(timeout_s=300.0)
+    with open(os.path.join(state, "jobs.json")) as f:
+        final = {e["spec"]["job_id"]: e["status"]
+                 for e in json.load(f)["jobs"]}
+    if final != {"ref1": "done", "ref2": "done", "victim": "failed"}:
+        fail(f"phase 17d: the daemon's jobs ended {final}")
+    for spec in daemon_specs[:2]:
+        with open(os.path.join(state, f"job-{spec.job_id}.front.json"),
+                  "rb") as f:
+            served = f.read()
+        if served != front_json_bytes(run_spec_solo(spec, device=dev)[1]):
+            fail(f"phase 17d: {spec.job_id}'s front file differs from its "
+                 f"solo front")
+    shutil.rmtree(work, ignore_errors=True)
+    configure("info", force=True)
+    daemon = {"sigkill_mid_run": killed, "killed_at_generation": kill_gen,
+              "sigterm_mid_run": termed, "drained_at_generation": term_gen,
+              "status_after_drain": after_term, "final_status": final,
+              "two_daemons_s": daemon_s}
+    log(f"phase 17d: python -m repro_torch.serve --device cuda: SIGKILL at "
+        f"generation {kill_gen} (mid-run: {killed}), restarted and "
+        f"SIGTERM-drained at {term_gen} (mid-run: {termed}, exit 0), "
+        f"resumed to {final}; survivors' front files == solo fronts")
+    return {"load": load, "full_width": full,
+            "minplus_k_splits_b8_b256": splits, "chaos": chaos,
+            "daemon": daemon}
+
+
+def simulator_path(torch, dev) -> dict:
+    """Phase 18: ``FastSim.run_batch(backend="torch")`` on the card against
+    the numpy backend (every SimStats field equal) on the engine
+    calibration's 64-chiplet mesh and a 16-chiplet mesh under transpose
+    traffic, and the batched saturation search on the torch, numpy and C
+    backends. Returns the phase's record."""
+    from repro_torch.sim import (SimConfig, fast_sim_from_design,
+                                 saturation_throughput_batched)
+    from repro_torch.sim._ckernel import get_kernel
+    from repro_torch.sim.simfast_torch import K_CYCLES
+    from repro_torch.topologies import make_design
+    from repro_torch.traffic import make_traffic
+
+    if get_kernel() is None:
+        fail("phase 18: no C compiler for the C backend")
+
+    def cfg_for(n):
+        cyc = max(600, 40 * n)
+        return SimConfig(packet_size_flits=2, warmup_cycles=cyc // 2,
+                         measure_cycles=cyc, drain_cycles=cyc, seed=0)
+
+    def timed(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    rec = {"k_cycles_per_graph": K_CYCLES}
+    n = SIM_CHIPLETS
+    cfg = cfg_for(n)
+    fast = fast_sim_from_design(make_design("mesh", n),
+                                make_traffic("random_uniform", n), cfg)
+    rates = []
+    r = 0.1
+    for _ in range(5):          # the search's first chunk, accumulated
+        rates.append(r)
+        r += 0.1
+    # the first call at a shape captures its CUDA graphs, included here
+    got, torch_s = timed(lambda: fast.run_batch(rates, cfg, "torch",
+                                                device=dev))
+    want, numpy_s = timed(lambda: fast.run_batch(rates, cfg, "numpy"))
+    c_out, c_s = timed(lambda: fast.run_batch(rates, cfg, "c"))
+    if got != want or c_out != want:
+        fail(f"phase 18: torch/C SimStats differ from numpy on the "
+             f"{n}-chiplet mesh at rates {rates}")
+    rec["calibration_chunk"] = {
+        "n": n, "rates": rates, "horizon_cycles": cfg.warmup_cycles
+        + cfg.measure_cycles + cfg.drain_cycles,
+        "torch_s_with_capture": torch_s, "numpy_s": numpy_s, "c_s": c_s,
+        "stats": [dataclasses.asdict(s) for s in got]}
+
+    m = SIM_SMALL
+    cfg_m = cfg_for(m)
+    small = fast_sim_from_design(make_design("mesh", m),
+                                 make_traffic("transpose", m), cfg_m)
+    m_rates = [0.1, 0.3, 0.5]
+    got_m, t_m = timed(lambda: small.run_batch(m_rates, cfg_m, "torch",
+                                               device=dev))
+    want_m = small.run_batch(m_rates, cfg_m, "numpy")
+    if got_m != want_m:
+        fail(f"phase 18: torch SimStats differ from numpy on the "
+             f"{m}-chiplet transpose mesh")
+    rec["transpose_16"] = {"rates": m_rates, "torch_s_with_capture": t_m,
+                           "stats": [dataclasses.asdict(s) for s in got_m]}
+    # one launch per op against the graphs, over a shorter window (the
+    # eager loop is launch-bound: 3-5 ms a cycle)
+    from repro_torch.sim.simfast_torch import run_batch_torch
+    cfg_e = SimConfig(packet_size_flits=2, warmup_cycles=100,
+                      measure_cycles=300, drain_cycles=300, seed=0)
+    want_e = small.run_batch(m_rates, cfg_e, "numpy")
+    graph_e, t_graph = timed(lambda: run_batch_torch(small, m_rates, cfg_e,
+                                                     device=dev))
+    graph_e, t_graph = timed(lambda: run_batch_torch(small, m_rates, cfg_e,
+                                                     device=dev))
+    eager_e, t_eager = timed(lambda: run_batch_torch(
+        small, m_rates, cfg_e, device=dev, cuda_graph=False))
+    if graph_e != want_e or eager_e != want_e:
+        fail("phase 18: the torch loop (graphs or eager) differs from numpy "
+             "on the 700-cycle window")
+    rec["graphs_vs_eager"] = {"cycles": 700, "rates": m_rates,
+                              "graphs_warm_s": t_graph, "eager_s": t_eager}
+
+    # the torch backend probes 10 rungs a call (a replica costs the card
+    # little); rate and probe count do not depend on the chunk
+    sat_t, sat_torch_s = timed(lambda: saturation_throughput_batched(
+        fast, cfg, chunk=10, backend="torch", device=dev))
+    sat_n, sat_numpy_s = timed(lambda: saturation_throughput_batched(
+        fast, cfg, backend="numpy"))
+    sat_c, sat_c_s = timed(lambda: saturation_throughput_batched(
+        fast, cfg, backend="c"))
+    if tuple(sat_t) != tuple(sat_n) or tuple(sat_c) != tuple(sat_n):
+        fail(f"phase 18: saturation search torch {tuple(sat_t)} / C "
+             f"{tuple(sat_c)} differs from numpy {tuple(sat_n)}")
+    rec["saturation"] = {"rate": sat_t.rate, "probes": sat_t.probes,
+                         "zero_load_runs": sat_t.zero_load_runs,
+                         "torch_chunk": 10, "torch_s": sat_torch_s,
+                         "numpy_chunk": 5, "numpy_s": sat_numpy_s,
+                         "c_chunk": 5, "c_s": sat_c_s}
+    log(f"phase 18: FastSim torch == numpy == C on the {n}-chiplet mesh "
+        f"(5 rates: torch {torch_s:.3f} s with graph capture, numpy "
+        f"{numpy_s:.3f} s, C {c_s:.3f} s) and the {m}-chiplet transpose "
+        f"mesh; 700 cycles in graphs {t_graph:.3f} s, eager {t_eager:.3f} "
+        f"s; saturation {sat_t.rate:.4f} after {sat_t.probes} probes on "
+        f"every backend (torch {sat_torch_s:.3f} s, numpy "
+        f"{sat_numpy_s:.3f} s, C {sat_c_s:.3f} s)")
+    return rec
+
+
 def main() -> None:
     try:
         run_phases()
@@ -1929,6 +2395,12 @@ def run_phases() -> None:
     print(json.dumps({"faults_grid": faults_rec}), flush=True)
     opt_rec = optimizer_path(torch, dev, zero_counts, read_counts)
     print(json.dumps({"optimizer": opt_rec}), flush=True)
+
+    # -- 17-18. the search service and the simulator --------------------------
+    serve_rec = serve_path(torch, dev, zero_counts, read_counts)
+    print(json.dumps({"serve": serve_rec}), flush=True)
+    sim_rec = simulator_path(torch, dev)
+    print(json.dumps({"simulator": sim_rec}), flush=True)
 
     totals = {name: sum(c[name] for c in path_launches.values())
               for name in kernels}

@@ -34,7 +34,9 @@ Three forms live here:
   ``load_prop_xla_blocked``: the same over ``tile``-row destination slabs,
   so the transient one-hot is [B, tile, n, n]. The CPU path above
   ``REPRO_LOAD_PROP_FUSED_N``; with ``tile=cuda_tile(n)`` it runs the
-  kernel's slab decomposition, ragged last slab included.
+  kernel's slab decomposition, ragged last slab included. Its flow adds
+  fixed ``FLOW_GROUP``-row terms in d order, so a design's bits do not
+  depend on the tile, which ``pick_tile`` picks from the batch.
 
 ``kernels.ops.load_propagate`` picks among them by the tensor's device: a
 CUDA tensor launches the kernel or raises; only a CPU tensor takes a plain
@@ -50,6 +52,7 @@ import torch
 SMEM_DEFAULT = 48 * 1024      # bytes a block may use without opting in
 SMEM_MAX = 232448             # the H100's per-block opt-in limit (227 KB)
 MAX_SLAB_ROWS = 8             # csrc/load_prop.cu kWarps: one warp a row
+FLOW_GROUP = 8                # destination rows a flow term of the slab form
 
 
 def _hops_smem(n: int, tile: int) -> int:
@@ -168,7 +171,16 @@ def load_prop_plain_blocked(next_hop: torch.Tensor, load0: torch.Tensor,
         _, total = _hop_loop(step, load, torch.zeros_like(load), max_hops,
                              adaptive)
         w[:, d0:d1] = total
-        flow = flow + torch.einsum("btuv,btu->buv", oh, total)
+        # flow in fixed FLOW_GROUP-row groups of destinations, added in d
+        # order: the sum's order, and so its bits, do not depend on the
+        # tile (pick_tile picks it from the batch) for any tile that is a
+        # multiple of FLOW_GROUP, as pick_tile's always are
+        cuts = [d0] + list(range(d0 - d0 % FLOW_GROUP + FLOW_GROUP, d1,
+                                 FLOW_GROUP)) + [d1]
+        for s0, s1 in zip(cuts[:-1], cuts[1:]):
+            flow = flow + torch.einsum("btuv,btu->buv",
+                                       oh[:, s0 - d0:s1 - d0],
+                                       total[:, s0 - d0:s1 - d0])
     return w, flow
 
 

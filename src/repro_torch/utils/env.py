@@ -29,7 +29,7 @@ _FALSY = ("", "0", "false", "off")
 class Knob:
     """One registered environment knob."""
     name: str
-    type: str                 # "int" | "str" | "bool"
+    type: str                 # "int" | "str" | "bool" | "path"
     default: object           # None = unset / auto
     doc: str
     choices: tuple | None = None
@@ -75,6 +75,49 @@ _register(
     "REPRO_ROUTING_TILE", "int", None,
     "Pin the destination-slab tile of the blocked routing scans (auto via "
     "load_prop.pick_tile when unset).")
+
+# --- faults (simulator probes) ---------------------------------------------
+_register(
+    "REPRO_SIM_WATCHDOG_S", "int", 0,
+    "Deadline in seconds around each FastSim saturation probe (0 = no "
+    "watchdog). A probe that exceeds it is retried with backoff "
+    "(faults/harness.call_with_retry).")
+_register(
+    "REPRO_SIM_RETRIES", "int", 1,
+    "Bounded retry count for saturation probes that time out or raise "
+    "(0 = fail fast).")
+
+# --- sim -------------------------------------------------------------------
+_register(
+    "REPRO_CKERNEL_DIR", "path", None,
+    "Cache directory for the runtime-compiled FastSim C kernel "
+    "(default: $XDG_CACHE_HOME/repro_simfast_ckernel, mode 0700).")
+
+# --- search service (repro_torch.serve) ------------------------------------
+_register(
+    "REPRO_SERVE_MAX_JOBS", "int", 8,
+    "Search service: jobs running (co-batched) concurrently; further "
+    "admitted jobs queue.")
+_register(
+    "REPRO_SERVE_MAX_QUEUED", "int", 64,
+    "Search service: queued-job bound; submissions beyond it are shed "
+    "with reason 'queue_full'.")
+_register(
+    "REPRO_SERVE_RETRIES", "int", 1,
+    "Search service: bounded per-job solo-dispatch retries after a "
+    "mega-batch or solo evaluation failure, before the job is FAILED.")
+_register(
+    "REPRO_SERVE_DEADLINE_S", "int", 0,
+    "Search service: default per-job wall deadline in seconds (0 = "
+    "none); JobSpec.deadline_s overrides per job.")
+_register(
+    "REPRO_SERVE_CKPT_EVERY", "int", 1,
+    "Search service: checkpoint every running job each N generations "
+    "(0 disables periodic snapshots; drain still checkpoints).")
+_register(
+    "REPRO_SERVE_DRAIN_TIMEOUT_S", "int", 30,
+    "Search service: seconds drain() waits for the scheduler to finish "
+    "the in-flight round and checkpoint before giving up.")
 
 # --- observability ---------------------------------------------------------
 _register(

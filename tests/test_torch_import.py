@@ -55,7 +55,12 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.obs.__main__", "repro_torch.opt.operators",
                  "repro_torch.opt.archive", "repro_torch.opt.algorithms",
                  "repro_torch.opt.runner", "repro_torch.opt.__main__",
-                 "repro_torch.dse.pareto"):
+                 "repro_torch.dse.pareto", "repro_torch.serve",
+                 "repro_torch.serve.job", "repro_torch.serve.service",
+                 "repro_torch.serve.__main__", "repro_torch.sim",
+                 "repro_torch.sim.cyclesim", "repro_torch.sim.simfast",
+                 "repro_torch.sim._ckernel", "repro_torch.sim.saturation",
+                 "repro_torch.sim.simfast_torch"):
         assert name in rec["modules"]
     configs = [m for m in rec["modules"]
                if m.startswith("repro_torch.configs.")]
@@ -81,8 +86,10 @@ def test_evaluate_design_defaults_to_cuda_and_raises_without_it(no_gpu):
                                    "diameter", "lowest_id_tables",
                                    "hierarchical", "model",
                                    "population_evaluator", "opt_runner",
-                                   "opt_cli"])
-def test_batched_entry_points_raise_without_gpu(no_gpu, entry):
+                                   "opt_cli", "search_service",
+                                   "run_spec_solo", "serve_cli",
+                                   "run_batch_torch", "fastsim_torch"])
+def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     import numpy as np
     from repro_torch.core.latency import routed_diameter_batch
     from repro_torch.routing.device import next_hop_lowest_id_batch
@@ -94,8 +101,18 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry):
     from repro_torch.opt import (AdjacencySpace, OptRunner,
                                  PopulationEvaluator)
     from repro_torch.opt.runner import main, make_optimizer
+    from repro_torch.serve import JobSpec, SearchService, run_spec_solo
+    from repro_torch.serve.__main__ import main as serve_main
+    from repro_torch.sim import SimConfig, fast_sim_from_design
+    from repro_torch.sim.simfast_torch import run_batch_torch
+    from repro_torch.topologies import make_design
+    from repro_torch.traffic import make_traffic
 
     nh = np.tile(np.arange(4, dtype=np.int32)[None, :, None], (1, 1, 4))
+    sim = fast_sim_from_design(make_design("mesh", 4),
+                               make_traffic("random_uniform", 4),
+                               SimConfig(warmup_cycles=10, measure_cycles=20,
+                                         drain_cycles=20))
     z = np.zeros((1, 4, 4), np.float32)
     calls = {
         "engine": lambda: DseEngine(),
@@ -116,6 +133,13 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry):
             PopulationEvaluator(AdjacencySpace(8, 3)))).run(1),
         "opt_cli": lambda: main(["--n-chiplets", "8", "--generations", "1",
                                  "--pop-size", "4", "--quiet"]),
+        "search_service": lambda: SearchService(),
+        "run_spec_solo": lambda: run_spec_solo(
+            JobSpec(job_id="a", generations=1, pop_size=4)),
+        "serve_cli": lambda: serve_main(["--state-dir",
+                                         str(tmp_path / "state")]),
+        "run_batch_torch": lambda: run_batch_torch(sim, [0.1], sim.cfg),
+        "fastsim_torch": lambda: sim.run_batch([0.1], backend="torch"),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
