@@ -140,9 +140,27 @@ Phases, each fatal on error (exit code 1, no result line):
     launch per op, timed against the graphs);
     ``saturation_throughput_batched(backend="torch", chunk=10)`` on the
     64-chiplet mesh with the numpy and C backends' rate and probe count
-    (chunk 5); the wall time of each backend.
+    (chunk 5); the wall time of each backend;
+19. checkpointed training, trace import and the pictures: (a)
+    ``repro_torch.launch.train.train`` at phase 13's configuration, 4 steps
+    uninterrupted against 2 steps, a SIGTERM (the handler's checkpoint to a
+    temporary directory), and a fresh ``Model`` and optimizer state
+    restored from disk for the last 2 steps: losses, parameters, AdamW
+    moments and the step counter bit-equal; the checkpoint's bytes and
+    shards and the ``ckpt.save`` / ``ckpt.restore`` span seconds; (b) a
+    20000-event ``synthetic_trace`` on a 64-chiplet mesh written, parsed
+    and aggregated into traffic, ``evaluate_design`` on the card within
+    rtol 1e-5 of the CPU and within rtol 1e-6 of the port's f64 oracle
+    (``core/reference.py``); (c) ``design_to_svg`` of that mesh and
+    ``latency_vs_load`` on it with the torch backend on the card, its rows
+    equal to the numpy and C backends' field for field;
+20. the static gate: ``python -m repro_torch.analysis --check`` in-process,
+    the lint of ``src/repro_torch`` and every registry contract recorded on
+    the card, each contract's kernels launched (B1/B2, B3/B4, B5 over the
+    phase), 0 unsuppressed findings; findings per check and seconds per
+    contract.
 
-Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17) is driven with every
+Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20) is driven with every
 kernel's launch count set to 0 just before it and read just after; a path
 whose kernels were not launched fails the run. Launches made to compare a kernel with its
 plain version are not counted. The second-to-last line carries the card's
@@ -241,6 +259,12 @@ SERVE_FULL = {"space": {"kind": "adjacency", "n_chiplets": 32,
 # 64-chiplet mesh, random-uniform traffic, cycles max(600, 40 n)) and a
 # 16-chiplet mesh under transpose traffic
 SIM_CHIPLETS, SIM_SMALL = 64, 16
+# checkpointed training: phase 13's configuration, RESUME_STEPS steps
+# uninterrupted against a SIGTERM after RESUME_AT steps and a resume
+RESUME_STEPS, RESUME_AT = 4, 2
+# trace import: a synthetic trace folded into a 64-chiplet mesh's traffic;
+# the f32 proxies against the port's f64 oracle
+TRACE_CHIPLETS, TRACE_EVENTS, ORACLE_RTOL = 64, 20000, 1e-6
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
@@ -2058,6 +2082,238 @@ def simulator_path(torch, dev) -> dict:
     return rec
 
 
+def resume_trace_paths(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 19: checkpointed training with resume on the card, trace
+    import into ``evaluate_design`` against the f64 oracle, and the SVG and
+    latency-vs-load pictures. Returns the phase's record."""
+    import shutil
+    import signal
+    import tempfile
+
+    from repro_torch.ckpt import latest_step
+    from repro_torch.configs import get_config
+    from repro_torch.core import evaluate_design
+    from repro_torch.core.graph import build_graph
+    from repro_torch.core.reference import (latency_reference,
+                                            throughput_reference)
+    from repro_torch.core.visualize import design_to_svg, latency_vs_load
+    from repro_torch.launch import train as T
+    from repro_torch.obs import trace as tr
+    from repro_torch.routing.tables import build_routing_table
+    from repro_torch.topologies import make_design
+    from repro_torch.traffic import (aggregate_trace, parse_trace_file,
+                                     write_trace_file)
+    from repro_torch.traffic.trace import synthetic_trace
+
+    rec = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_resume_")
+    try:
+        # -- 19a. training: uninterrupted against preempted + resumed --------
+        cfg = get_config(TRAIN_ARCH).replace(n_layers=TRAIN_LAYERS,
+                                             ssm_kernel=True)
+        kw = dict(steps=RESUME_STEPS, batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                  lr=TRAIN_LR, log_every=RESUME_STEPS, seed=0, device=dev)
+        torch.cuda.empty_cache()
+        zero_counts()
+        full_state, full_losses = T.train(cfg, **kw)
+        state_bytes = sum(
+            t.numel() * t.element_size() for t in
+            list(full_state["params"].values())
+            + [v for m in full_state["opt"].values() for v in m.values()])
+        free = shutil.disk_usage(tmp).free
+        if free < 2 * state_bytes:
+            fail(f"phase 19: {tmp} has {free} bytes free, the checkpoint "
+                 f"needs {state_bytes}")
+        real_step = T.make_train_step
+
+        def preempted(*args, **kwargs):
+            step_fn = real_step(*args, **kwargs)
+            calls = {"n": 0}
+
+            def step(state, batch):
+                out = step_fn(state, batch)
+                calls["n"] += 1
+                if calls["n"] == RESUME_AT:
+                    signal.raise_signal(signal.SIGTERM)
+                return out
+            return step
+
+        ckpt = os.path.join(tmp, "ckpt")
+        was_tracing = tr.tracing_enabled()
+        tr.enable_tracing(clear=True)
+        try:
+            T.make_train_step = preempted
+            try:
+                part_state, first = T.train(cfg, ckpt_dir=ckpt, **kw)
+            finally:
+                T.make_train_step = real_step
+            del part_state
+            torch.cuda.empty_cache()
+            step_dir = os.path.join(ckpt, f"step_{latest_step(ckpt)}")
+            files = os.listdir(step_dir)
+            ckpt_bytes = sum(os.path.getsize(os.path.join(step_dir, f))
+                             for f in files)
+            state, rest = T.train(cfg, ckpt_dir=ckpt, **kw)
+            torch.cuda.synchronize()
+            read_counts("resume", ("selective_scan_fwd",
+                                   "selective_scan_bwd"))
+            spans = {e["name"]: e["dur_us"] / 1e6
+                     for e in tr.TRACER.to_dicts()
+                     if e["name"] in ("ckpt.save", "ckpt.restore")}
+        finally:
+            if not was_tracing:
+                tr.disable_tracing()
+        if latest_step(ckpt) != RESUME_AT - 1 or len(first) != RESUME_AT:
+            fail(f"phase 19a: the SIGTERM checkpoint is at step "
+                 f"{latest_step(ckpt)} after {len(first)} steps")
+        if first + rest != full_losses:
+            fail(f"phase 19a: resumed losses {first} + {rest} differ from "
+                 f"the uninterrupted run's {full_losses}")
+        differ = [k for k in full_state["params"]
+                  if not torch.equal(full_state["params"][k],
+                                     state["params"][k])]
+        differ += [f"{m}.{k}" for m in full_state["opt"]
+                   for k in full_state["opt"][m]
+                   if not torch.equal(full_state["opt"][m][k],
+                                      state["opt"][m][k])]
+        if differ or state["step"] != full_state["step"]:
+            fail(f"phase 19a: the resumed state differs from the "
+                 f"uninterrupted one in {differ[:6]} (step "
+                 f"{state['step']} vs {full_state['step']})")
+        rec["resume"] = {
+            "arch": TRAIN_ARCH, "layers_kept": TRAIN_LAYERS,
+            "steps": RESUME_STEPS, "preempted_after": RESUME_AT,
+            "losses": full_losses, "bit_equal": True,
+            "ckpt_bytes": ckpt_bytes, "state_bytes": state_bytes,
+            "shards": sum(f.startswith("shard_") for f in files),
+            "save_s": spans.get("ckpt.save"),
+            "restore_s": spans.get("ckpt.restore")}
+        del full_state, state
+        torch.cuda.empty_cache()
+        log(f"phase 19a: {TRAIN_ARCH} ({TRAIN_LAYERS} layers) {RESUME_STEPS} "
+            f"steps uninterrupted == {RESUME_AT} steps, SIGTERM, checkpoint "
+            f"and resume, bit for bit (losses {full_losses}); checkpoint "
+            f"{ckpt_bytes} bytes in {rec['resume']['shards']} shards, save "
+            f"{spans.get('ckpt.save'):.3f} s, restore "
+            f"{spans.get('ckpt.restore'):.3f} s")
+
+        # -- 19b. a trace -> evaluate_design -> the f64 oracle ----------------
+        n = TRACE_CHIPLETS
+        events = synthetic_trace(n, TRACE_EVENTS, seed=0)
+        path = os.path.join(tmp, "mesh.trace")
+        write_trace_file(path, events)
+        parsed = parse_trace_file(path)
+        if parsed != sorted(events, key=lambda e: e[0]):
+            fail("phase 19b: the parsed trace differs from the written one")
+        traffic = aggregate_trace(parsed, n)
+        design = make_design("mesh", n)
+        zero_counts()
+        got = evaluate_design(design, traffic, device=dev)
+        read_counts("trace_design", ("load_propagate",))
+        cpu = evaluate_design(design, traffic, device="cpu")
+        g = build_graph(design)
+        nh = build_routing_table(g, design.routing, design.routing_metric,
+                                 design.seed)
+        t0 = time.perf_counter()
+        oracle = {"latency": latency_reference(g, nh, traffic),
+                  "throughput": throughput_reference(g, nh, traffic)}
+        oracle_s = time.perf_counter() - t0
+        rel = {}
+        for what in ("latency", "throughput"):
+            v, c, o = (getattr(got, what), getattr(cpu, what), oracle[what])
+            rel[what] = {"cpu": abs(v / c - 1), "oracle": abs(v / o - 1)}
+            if not (np.isfinite(v) and abs(v / c - 1) <= RTOL):
+                fail(f"phase 19b: {what} {v} vs CPU {c}")
+            if abs(v / o - 1) > ORACLE_RTOL:
+                fail(f"phase 19b: {what} {v} vs the f64 oracle {o}")
+        rec["trace"] = {"chiplets": n, "events": TRACE_EVENTS,
+                        "latency": got.latency, "throughput": got.throughput,
+                        "oracle": oracle, "relative_error": rel,
+                        "oracle_s": oracle_s}
+        log(f"phase 19b: {TRACE_EVENTS}-event trace on a {n}-chiplet mesh: "
+            f"latency {got.latency} throughput {got.throughput}; relative "
+            f"error to the CPU {rel['latency']['cpu']:.3g} / "
+            f"{rel['throughput']['cpu']:.3g}, to the f64 oracle "
+            f"{rel['latency']['oracle']:.3g} / "
+            f"{rel['throughput']['oracle']:.3g}")
+
+        # -- 19c. the pictures ------------------------------------------------
+        svg = design_to_svg(design, os.path.join(tmp, "mesh.svg"))
+        if not (svg.startswith("<svg") and svg.endswith("</svg>")
+                and svg.count("<rect") > n):
+            fail("phase 19c: the SVG lacks the mesh's chiplets")
+        curves = {}
+        for backend in ("torch", "numpy", "c"):
+            t0 = time.perf_counter()
+            rows = latency_vs_load(design, traffic, backend=backend,
+                                   device=dev if backend == "torch" else None)
+            curves[backend] = (rows, time.perf_counter() - t0)
+        if not (curves["torch"][0] == curves["numpy"][0]
+                == curves["c"][0]):
+            fail("phase 19c: latency_vs_load rows differ between the torch, "
+                 "numpy and C backends")
+        rows = curves["torch"][0]
+        rec["latency_vs_load"] = {
+            "rows": rows, "svg_chars": len(svg),
+            **{f"{b}_s": curves[b][1] for b in curves}}
+        log(f"phase 19c: SVG {len(svg)} characters; latency_vs_load "
+            f"{len(rows)} rows equal on torch ({curves['torch'][1]:.3f} s), "
+            f"numpy ({curves['numpy'][1]:.3f} s) and C "
+            f"({curves['c'][1]:.3f} s): "
+            f"{[(r['rate'], round(r['latency'], 3)) for r in rows]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return rec
+
+
+def analysis_path(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 20: ``python -m repro_torch.analysis --check`` in-process with
+    the audit on the card: the lint, and every registry contract recorded
+    on ``cuda`` with its kernels' launch counters advancing. Returns the
+    phase's record (findings per check, seconds, launches per contract)."""
+    from repro_torch.analysis.findings import apply_baseline, load_baseline
+    from repro_torch.analysis.graph_audit import audit_contract, launch_counts
+    from repro_torch.analysis.lint import lint_paths
+    from repro_torch.analysis.registry import contracts
+
+    t0 = time.perf_counter()
+    lint = lint_paths()
+    lint_s = time.perf_counter() - t0
+    zero_counts()
+    per, audit = {}, []
+    for c in contracts():
+        before = launch_counts()
+        t0 = time.perf_counter()
+        found = audit_contract(c, dev)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        per[c.name] = {"checks": c.checks(), "findings": len(found),
+                       "s": time.perf_counter() - t0,
+                       "launches": {k: after[k] - before[k] for k in after
+                                    if after[k] != before[k]}}
+        audit += found
+    read_counts("analysis", ("load_propagate", "apsp_fused", "apsp_square",
+                             "minplus"))
+    findings = apply_baseline(lint + audit, load_baseline())
+    if findings:
+        fail("phase 20: the analysis gate found "
+             + "; ".join(f.format() for f in findings))
+    by_check: dict[str, int] = {}
+    for c in contracts():
+        for check in c.checks():
+            key = check.split("=")[0].split("<")[0].split(">")[0]
+            by_check[key] = by_check.get(key, 0) + 1
+    rec = {"lint_findings": len(lint), "lint_s": lint_s,
+           "audit_findings": len(audit),
+           "audit_s": sum(r["s"] for r in per.values()),
+           "contracts_per_check": by_check, "contracts": per}
+    log(f"phase 20: lint {len(lint)} findings in {lint_s:.3f} s; "
+        f"{len(per)} contracts audited on the card in "
+        f"{rec['audit_s']:.3f} s, {len(audit)} findings; contracts per "
+        f"check {by_check}")
+    return rec
+
+
 def main() -> None:
     try:
         run_phases()
@@ -2410,6 +2666,12 @@ def run_phases() -> None:
     sim_rec = simulator_path(torch, dev)
     print(json.dumps({"simulator": sim_rec}), flush=True)
 
+    # -- 19-20. checkpointed training, trace import, pictures; the gate ------
+    resume_rec = resume_trace_paths(torch, dev, zero_counts, read_counts)
+    print(json.dumps({"resume_trace": resume_rec}), flush=True)
+    analysis_rec = analysis_path(torch, dev, zero_counts, read_counts)
+    print(json.dumps({"analysis": analysis_rec}), flush=True)
+
     totals = {name: sum(c[name] for c in path_launches.values())
               for name in kernels}
     print(json.dumps({"path_launches": path_launches}), flush=True)
@@ -2434,6 +2696,8 @@ def run_phases() -> None:
     # reference ran its tiled kernel: the 256-chiplet points and genomes
     tiled = sum(path_launches[p]["load_propagate"]
                 for p in ("large_n", "genomes_adjacency_256"))
+    tiled += analysis_rec["contracts"]["ops.load_propagate[slab,n=256,B=2]"][
+        "launches"].get("load_prop_cuda", 0)
     fused_rec = dict(head, max_abs_err=max(
         [max_err] + [r["max_abs_err"] for r in chunk_recs]))
     records = [

@@ -2,12 +2,16 @@
 [options]``; port of ``src/repro/launch/train.py`` on one device.
 
 It builds the model on the CUDA device (``--device cpu`` or
-``device="cpu"`` for the host), prefetches batches on a background thread
-(the data order is a pure function of the step counter), and trains with
-AdamW or Adafactor. The reference's mesh (ROADMAP Queue A 12) and
-checkpoint/resume (Queue A 11) arguments are not ported yet. The family the
-port's ``Model`` implements is ``ssm`` (falcon-mamba-7b; ``--reduced`` for
-the CPU-scale config).
+``device="cpu"`` for the host), restores the latest checkpoint under
+``--ckpt-dir`` if there is one (fault-tolerant resume: the data order is a
+pure function of the step counter, and the step draws no random numbers,
+so a resumed run equals the uninterrupted one bit for bit), prefetches
+batches on a background thread, trains with AdamW or Adafactor, and
+checkpoints every ``--ckpt-interval`` steps and on SIGTERM (preemption:
+the handler sets a flag, the loop saves after the step in flight and
+exits). The reference's mesh arguments (ROADMAP Queue A 12) are not
+ported. The family the port's ``Model`` implements is ``ssm``
+(falcon-mamba-7b; ``--reduced`` for the CPU-scale config).
 """
 from __future__ import annotations
 
@@ -17,6 +21,7 @@ import time
 
 import torch
 
+from ..ckpt import CheckpointManager
 from ..configs import ARCH_IDS, get_config
 from ..data import Prefetcher, make_pipeline
 from ..models import Model, reduced
@@ -49,21 +54,32 @@ def to_device(batch: dict, device: torch.device) -> dict:
 
 def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
           lr: float = 3e-4, optimizer: str = "adamw", accum: int = 1,
+          ckpt_dir: str | None = None, ckpt_interval: int = 100,
           log_every: int = 10, seed: int = 0, data_path: str | None = None,
           target_loss: float | None = None, device=None):
-    """Train ``cfg`` for ``steps`` steps; returns (state, losses)."""
+    """Train ``cfg`` up to step ``steps``, resuming from the latest
+    checkpoint under ``ckpt_dir`` if there is one; returns (state, losses)
+    with the losses of the steps this call ran."""
     dev = resolve_device(device)
     model = Model(cfg, seed=seed, device=dev)
     opt_cfg = OptConfig(learning_rate=lr, warmup_steps=min(100, steps // 10),
                         decay_steps=steps)
     state = build_state(model, optimizer)
+    start_step = 0
+    mgr = None
+    if ckpt_dir:
+        mgr = CheckpointManager(ckpt_dir, interval=ckpt_interval)
+        state, restored = mgr.restore_or_init(state)
+        if restored >= 0:
+            start_step = restored + 1
+            _LOG.info(f"[train] resumed from step {restored}")
     step_fn = make_train_step(model, opt_cfg, optimizer, accum_steps=accum)
     source = make_pipeline(cfg, batch, seq_len, seed=seed, path=data_path)
-    pf = Prefetcher(source, start_step=0)
+    pf = Prefetcher(source, start_step=start_step)
 
     stop = {"now": False}
 
-    def on_sigterm(signum, frame):   # preemption: stop after this step
+    def on_sigterm(signum, frame):   # preemption: checkpoint + exit
         stop["now"] = True
 
     old = signal.signal(signal.SIGTERM, on_sigterm)
@@ -72,7 +88,7 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
     slow_steps = 0
     step_times = []
     try:
-        for i in range(steps):
+        for i in range(start_step, steps):
             step_idx, host_batch = pf.get()
             assert step_idx == i, (step_idx, i)
             t0 = time.perf_counter()
@@ -93,8 +109,11 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
                           f"lr {float(metrics['lr']):.2e} "
                           f"gnorm {float(metrics['grad_norm']):.2f} "
                           f"{dt*1e3:.0f}ms ({tput:.0f} tok/s)")
+            if mgr:
+                mgr.maybe_save(i, state, force=stop["now"])
             if stop["now"]:
-                _LOG.warning(f"[train] SIGTERM: stopping after step {i}")
+                what = "checkpointed at" if mgr else "stopping after"
+                _LOG.warning(f"[train] SIGTERM: {what} step {i}, exiting")
                 break
             if target_loss is not None and loss <= target_loss:
                 _LOG.info(f"[train] target loss {target_loss} reached")
@@ -103,9 +122,10 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
         pf.close()
         signal.signal(signal.SIGTERM, old)
     wall = time.perf_counter() - t_start
-    _LOG.info(f"[train] done: {len(losses)} steps in {wall:.1f}s, "
-              f"loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
-              f"{slow_steps} straggler steps flagged")
+    if losses:
+        _LOG.info(f"[train] done: {len(losses)} steps in {wall:.1f}s, "
+                  f"loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
+                  f"{slow_steps} straggler steps flagged")
     return state, losses
 
 
@@ -119,6 +139,8 @@ def main(argv=None):
     ap.add_argument("--optimizer", default="adamw",
                     choices=["adamw", "adafactor"])
     ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-interval", type=int, default=100)
     ap.add_argument("--reduced", action="store_true",
                     help="use the CPU-scale reduced config")
     ap.add_argument("--data", default=None, help="binary token file")
@@ -131,6 +153,7 @@ def main(argv=None):
         cfg = reduced(cfg)
     train(cfg, steps=args.steps, batch=args.batch, seq_len=args.seq_len,
           lr=args.lr, optimizer=args.optimizer, accum=args.accum,
+          ckpt_dir=args.ckpt_dir, ckpt_interval=args.ckpt_interval,
           data_path=args.data, device=args.device)
 
 

@@ -204,31 +204,11 @@ class AdjacencySpace(SearchSpace):
         P, G = bits.shape
         if P == 0:
             return bits
-        n, maxd = self.n_chiplets, self.max_degree
+        n = self.n_chiplets
         pu, pv = self.pair_u, self.pair_v
         bits = bits.copy()
         deg = self.degrees(bits)
-
-        # 1. degree cap, dropping from the highest pair index down. Dropping
-        # only ever *decrements* degrees, so a vertex not over the cap at
-        # the start never goes over later, and the scan touches exactly the
-        # columns that are set somewhere AND incident to an initially
-        # over-cap vertex. The scan is loop-carried (each drop changes the
-        # degrees later columns see): one host step per candidate column,
-        # with [P]-wide integer updates, bit-identical to the sequential
-        # scan of ``_repair_one``.
-        over = deg > maxd
-        if over.any():
-            cand = ((bits == 1) &
-                    (over[:, pu] | over[:, pv])).any(axis=0)
-            for g in np.nonzero(cand)[0][::-1]:
-                u, v = pu[g], pv[g]
-                drop = ((bits[:, g] == 1)
-                        & ((deg[:, u] > maxd) | (deg[:, v] > maxd))
-                        ).astype(np.int64)
-                bits[:, g] -= drop
-                deg[:, u] -= drop
-                deg[:, v] -= drop
+        self._degree_cap(bits, deg)
 
         # 2. connectivity — only for genomes that need it. Connected ⟺
         # every vertex reachable from vertex 0. The frontier expansion runs
@@ -251,6 +231,29 @@ class AdjacencySpace(SearchSpace):
         if len(bad):
             bits[bad] = self._connect_batch(bits[bad], deg[bad])
         return bits
+
+    def _degree_cap(self, bits: np.ndarray, deg: np.ndarray) -> None:
+        """1. degree cap, in place on ``bits`` [P, G] and ``deg`` [P, n],
+        dropping from the highest pair index down. Dropping only ever
+        *decrements* degrees, so a vertex not over the cap at the start
+        never goes over later, and the scan touches exactly the columns that
+        are set somewhere AND incident to an initially over-cap vertex. The
+        scan is loop-carried (each drop changes the degrees later columns
+        see): one host step per candidate column, with [P]-wide integer
+        updates, bit-identical to the sequential scan of ``_repair_one``."""
+        maxd, pu, pv = self.max_degree, self.pair_u, self.pair_v
+        over = deg > maxd
+        if over.any():
+            cand = ((bits == 1) &
+                    (over[:, pu] | over[:, pv])).any(axis=0)
+            for g in np.nonzero(cand)[0][::-1]:
+                u, v = pu[g], pv[g]
+                drop = ((bits[:, g] == 1)
+                        & ((deg[:, u] > maxd) | (deg[:, v] > maxd))
+                        ).astype(np.int64)
+                bits[:, g] -= drop
+                deg[:, u] -= drop
+                deg[:, v] -= drop
 
     def _connect_batch(self, bits: np.ndarray, deg: np.ndarray) -> np.ndarray:
         """Connectivity repair for a (sub)population of degree-capped

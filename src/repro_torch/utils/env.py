@@ -191,5 +191,35 @@ def override(**values):
                 os.environ[name] = old
 
 
+def table() -> list[dict]:
+    """One row per knob (name, type, default, current, doc) — the
+    ``python -m repro_torch.analysis --env`` listing."""
+    rows = []
+    for name in sorted(KNOBS):
+        k = KNOBS[name]
+        cur = os.environ.get(name)
+        rows.append({
+            "name": k.name, "type": k.type,
+            "default": "(auto)" if k.default is None else str(k.default),
+            "current": "(unset)" if cur is None else cur,
+            "doc": k.doc,
+            "choices": "|".join(k.choices) if k.choices else "",
+        })
+    return rows
+
+
+def format_table() -> str:
+    rows = table()
+    cols = ("name", "type", "default", "current")
+    widths = {c: max(len(c), *(len(r[c]) for r in rows)) for c in cols}
+    lines = ["  ".join(c.ljust(widths[c]) for c in cols)]
+    lines.append("  ".join("-" * widths[c] for c in cols))
+    for r in rows:
+        lines.append("  ".join(r[c].ljust(widths[c]) for c in cols))
+        lines.append(" " * 4 + r["doc"]
+                     + (f" [{r['choices']}]" if r["choices"] else ""))
+    return "\n".join(lines)
+
+
 __all__ = ["Knob", "KNOBS", "get_str", "get_int", "get_opt_int", "get_bool",
-           "override"]
+           "override", "table", "format_table"]

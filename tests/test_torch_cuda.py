@@ -2,8 +2,12 @@
 fused and tiled APSP, flow accumulation and the selective scan, each
 against its plain version, alone vs in a batch, and the wrappers' refusals;
 the routing tables, the genome cost function and its fault grid, the
-optimizers' async and sync drivers, the pair-walk throughput and
-a reduced Falcon-Mamba training step on the card against the CPU. Every test here needs an NVIDIA
+optimizers' async and sync drivers, the pair-walk throughput,
+a reduced Falcon-Mamba training step on the card against the CPU, its
+resume from a checkpoint (bit-equal to the uninterrupted run), every
+analysis contract recorded on the card, a trace through
+``evaluate_design`` against the f64 oracle (rtol 1e-5) and
+``latency_vs_load``'s torch rows (equal to numpy's). Every test here needs an NVIDIA
 Hopper GPU and skips without one; run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -646,3 +650,102 @@ def test_model_seed_gives_the_same_weights_on_every_device(cuda):
     for k, v in on_card.items():
         assert v.device.type == "cuda"
         assert torch.equal(v.cpu(), on_cpu[k]), k
+
+
+def test_resumed_training_on_cuda_equals_uninterrupted(cuda, tmp_path,
+                                                       monkeypatch):
+    """4 steps on the card == 2 steps, a SIGTERM checkpoint and a resume
+    for 2 more: losses, parameters and AdamW moments bit-equal."""
+    import signal
+
+    import repro_torch.launch.train as T
+    from repro_torch.configs import get_config
+    from repro_torch.models import reduced
+
+    cfg = reduced(get_config("falcon-mamba-7b"), ssm_kernel=True)
+    kw = dict(steps=4, batch=2, seq_len=64, lr=5e-3, log_every=100,
+              device=cuda)
+    full, full_losses = T.train(cfg, **kw)
+    real = T.make_train_step
+
+    def preempted(*args, **k):
+        fn = real(*args, **k)
+        calls = {"n": 0}
+
+        def step(state, batch):
+            out = fn(state, batch)
+            calls["n"] += 1
+            if calls["n"] == 2:
+                signal.raise_signal(signal.SIGTERM)
+            return out
+        return step
+
+    d = str(tmp_path / "ck")
+    monkeypatch.setattr(T, "make_train_step", preempted)
+    _, first = T.train(cfg, ckpt_dir=d, **kw)
+    monkeypatch.setattr(T, "make_train_step", real)
+    state, rest = T.train(cfg, ckpt_dir=d, **kw)
+    assert first + rest == full_losses
+    assert state["step"] == full["step"] == 4
+    for k in full["params"]:
+        assert state["params"][k].device.type == "cuda"
+        assert torch.equal(state["params"][k], full["params"][k]), k
+    for m in full["opt"]:
+        for k in full["opt"][m]:
+            assert torch.equal(state["opt"][m][k], full["opt"][m][k]), (m, k)
+
+
+def _contract_names():
+    from repro_torch.analysis.registry import contracts
+
+    return [c.name for c in contracts()]
+
+
+@pytest.mark.parametrize("name", _contract_names())
+def test_analysis_contract_passes_on_cuda(cuda, name):
+    """Each registry contract recorded on the card: no finding, and the
+    kernels it names launched (the audit's kernel-route check)."""
+    import repro_torch.core  # noqa: F401  (import order)
+    from repro_torch.analysis.graph_audit import audit_contract
+    from repro_torch.analysis.registry import contracts
+
+    c = next(c for c in contracts() if c.name == name)
+    assert [f.format() for f in audit_contract(c, cuda)] == []
+
+
+def test_trace_through_evaluate_design_on_cuda_matches_the_oracle(cuda):
+    import repro_torch.core  # noqa: F401
+    from repro_torch.core import evaluate_design
+    from repro_torch.core.graph import build_graph
+    from repro_torch.core.reference import (latency_reference,
+                                            throughput_reference)
+    from repro_torch.routing.tables import build_routing_table
+    from repro_torch.topologies import make_design
+    from repro_torch.traffic import aggregate_trace
+    from repro_torch.traffic.trace import synthetic_trace
+
+    design = make_design("torus", 36)
+    traffic = aggregate_trace(synthetic_trace(36, 5000, seed=2), 36)
+    got = evaluate_design(design, traffic, device=cuda)
+    g = build_graph(design)
+    nh = build_routing_table(g, design.routing, design.routing_metric,
+                             design.seed)
+    assert got.latency == pytest.approx(latency_reference(g, nh, traffic),
+                                        rel=1e-5)
+    assert got.throughput == pytest.approx(
+        throughput_reference(g, nh, traffic), rel=1e-5)
+
+
+def test_latency_vs_load_torch_on_cuda_equals_numpy(cuda):
+    from repro_torch.core.visualize import latency_vs_load
+    from repro_torch.sim import SimConfig
+    from repro_torch.topologies import make_design
+    from repro_torch.traffic import make_traffic
+
+    cfg = SimConfig(packet_size_flits=1, warmup_cycles=200,
+                    measure_cycles=600, drain_cycles=800)
+    args = (make_design("mesh", 16), make_traffic("transpose", 16))
+    rows = latency_vs_load(*args, rates=(0.02, 0.2, 0.6), config=cfg,
+                           backend="torch", device=cuda)
+    assert rows == latency_vs_load(*args, rates=(0.02, 0.2, 0.6),
+                                   config=cfg, backend="numpy")

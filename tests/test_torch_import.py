@@ -60,7 +60,14 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.serve.__main__", "repro_torch.sim",
                  "repro_torch.sim.cyclesim", "repro_torch.sim.simfast",
                  "repro_torch.sim._ckernel", "repro_torch.sim.saturation",
-                 "repro_torch.sim.simfast_torch"):
+                 "repro_torch.sim.simfast_torch", "repro_torch.ckpt",
+                 "repro_torch.ckpt.checkpoint", "repro_torch.analysis",
+                 "repro_torch.analysis.findings", "repro_torch.analysis.lint",
+                 "repro_torch.analysis.graph_audit",
+                 "repro_torch.analysis.registry",
+                 "repro_torch.analysis.__main__",
+                 "repro_torch.core.visualize", "repro_torch.core.reference",
+                 "repro_torch.traffic.trace"):
         assert name in rec["modules"]
     configs = [m for m in rec["modules"]
                if m.startswith("repro_torch.configs.")]
@@ -88,7 +95,9 @@ def test_evaluate_design_defaults_to_cuda_and_raises_without_it(no_gpu):
                                    "population_evaluator", "opt_runner",
                                    "opt_cli", "search_service",
                                    "run_spec_solo", "serve_cli",
-                                   "run_batch_torch", "fastsim_torch"])
+                                   "run_batch_torch", "fastsim_torch",
+                                   "latency_vs_load_torch",
+                                   "analysis_audit_cli"])
 def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     import numpy as np
     from repro_torch.core.latency import routed_diameter_batch
@@ -107,6 +116,8 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     from repro_torch.sim.simfast_torch import run_batch_torch
     from repro_torch.topologies import make_design
     from repro_torch.traffic import make_traffic
+    from repro_torch.core.visualize import latency_vs_load
+    from repro_torch.analysis.__main__ import main as analysis_main
 
     nh = np.tile(np.arange(4, dtype=np.int32)[None, :, None], (1, 1, 4))
     sim = fast_sim_from_design(make_design("mesh", 4),
@@ -140,6 +151,10 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
                                          str(tmp_path / "state")]),
         "run_batch_torch": lambda: run_batch_torch(sim, [0.1], sim.cfg),
         "fastsim_torch": lambda: sim.run_batch([0.1], backend="torch"),
+        "latency_vs_load_torch": lambda: latency_vs_load(
+            make_design("mesh", 4), make_traffic("random_uniform", 4),
+            rates=(0.1,), config=sim.cfg, backend="torch"),
+        "analysis_audit_cli": lambda: analysis_main(["--audit"]),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
