@@ -2269,8 +2269,11 @@ def resume_trace_paths(torch, dev, zero_counts, read_counts) -> dict:
 def analysis_path(torch, dev, zero_counts, read_counts) -> dict:
     """Phase 20: ``python -m repro_torch.analysis --check`` in-process with
     the audit on the card: the lint, and every registry contract recorded
-    on ``cuda`` with its kernels' launch counters advancing. Returns the
-    phase's record (findings per check, seconds, launches per contract)."""
+    on ``cuda`` with its kernels' launch counters advancing and every run's
+    outputs held against the CPU's plain forms on the same seeded inputs
+    (the contract's ``parity``: bits for min-plus and APSP, RTOL/ATOL for
+    the float sums). Returns the phase's record (findings per check,
+    seconds, launches and largest CPU difference per contract)."""
     from repro_torch.analysis.findings import apply_baseline, load_baseline
     from repro_torch.analysis.graph_audit import audit_contract, launch_counts
     from repro_torch.analysis.lint import lint_paths
@@ -2283,14 +2286,19 @@ def analysis_path(torch, dev, zero_counts, read_counts) -> dict:
     per, audit = {}, []
     for c in contracts():
         before = launch_counts()
+        info: dict = {}
         t0 = time.perf_counter()
-        found = audit_contract(c, dev)
+        found = audit_contract(c, dev, info)
         torch.cuda.synchronize()
         after = launch_counts()
         per[c.name] = {"checks": c.checks(), "findings": len(found),
                        "s": time.perf_counter() - t0,
+                       "runs": len(info.get("runs", ())),
+                       "cpu_max_abs_err": info.get("cpu_max_abs_err"),
                        "launches": {k: after[k] - before[k] for k in after
                                     if after[k] != before[k]}}
+        if c.parity is not None and "cpu_max_abs_err" not in info:
+            fail(f"phase 20: {c.name} was not held against the CPU")
         audit += found
     read_counts("analysis", ("load_propagate", "apsp_fused", "apsp_square",
                              "minplus"))
@@ -2298,6 +2306,7 @@ def analysis_path(torch, dev, zero_counts, read_counts) -> dict:
     if findings:
         fail("phase 20: the analysis gate found "
              + "; ".join(f.format() for f in findings))
+    contracts_by_name = {c.name: c for c in contracts()}
     by_check: dict[str, int] = {}
     for c in contracts():
         for check in c.checks():
@@ -2309,8 +2318,13 @@ def analysis_path(torch, dev, zero_counts, read_counts) -> dict:
            "contracts_per_check": by_check, "contracts": per}
     log(f"phase 20: lint {len(lint)} findings in {lint_s:.3f} s; "
         f"{len(per)} contracts audited on the card in "
-        f"{rec['audit_s']:.3f} s, {len(audit)} findings; contracts per "
-        f"check {by_check}")
+        f"{rec['audit_s']:.3f} s (CPU parity runs included), "
+        f"{len(audit)} findings; contracts per check {by_check}")
+    for name, r in per.items():
+        if r["cpu_max_abs_err"] is not None:
+            log(f"phase 20: {name}: {r['runs']} runs equal the CPU's within "
+                f"{contracts_by_name[name].parity}, largest |difference| "
+                f"{r['cpu_max_abs_err']!r}, launches {r['launches']}")
     return rec
 
 

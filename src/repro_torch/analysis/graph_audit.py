@@ -40,6 +40,11 @@ Checks:
 * ``kernels`` — on a CUDA device, the launch counters
   (:func:`launch_counts`) the program must advance: the proof that the
   kernel route ran.
+* ``parity`` — on a CUDA device, every recorded run (the contract's own and
+  the ladder's) is recorded again on the CPU, which takes the plain forms,
+  and each output must agree within ``(rtol, atol)``; ``(0, 0)`` is bit
+  equality. This holds the kernels against their plain versions at the
+  shapes the contracts give them.
 
 The reference's ``hlo``/``max_hlo_buffer_bytes`` bound reads XLA's
 optimized HLO and has no counterpart here; it is dropped.
@@ -208,6 +213,7 @@ class Contract:
 
     ``trace`` and ``ladder`` are thunks of the device, so building the
     registry stays import-cheap: nothing runs until the audit does.
+    ``ladder`` returns one recorded run per raw size of the ladder.
     """
 
     name: str
@@ -220,9 +226,10 @@ class Contract:
     dims: dict | None = None                      # symbol -> concrete size
     gather_index_min_bits: int | None = None
     out_dtypes: tuple | None = None
-    ladder: Callable[[torch.device], list[str]] | None = None
+    ladder: Callable[[torch.device], list[Trace]] | None = None
     ladder_expected: int | None = None
     kernels: tuple[str, ...] = ()                 # launch_counts() names
+    parity: tuple[float, float] | None = None     # (rtol, atol) vs the CPU
     bench: dict | None = None                     # benchmark variant export
 
     def checks(self) -> list[str]:
@@ -244,7 +251,37 @@ class Contract:
             out.append(f"ladder={self.ladder_expected}")
         if self.kernels:
             out.append(f"kernels={'+'.join(self.kernels)}")
+        if self.parity is not None:
+            out.append("cpu-parity" if self.parity == (0.0, 0.0)
+                       else f"cpu-parity<={self.parity[0]:g}r+"
+                            f"{self.parity[1]:g}a")
         return out
+
+
+def output_error(got, want, rtol: float, atol: float) -> tuple[float, bool]:
+    """(largest absolute difference, whether every element agrees) of two
+    runs' outputs, tensor by tensor in order: shapes and dtypes must match,
+    and each element within ``atol + rtol * |want|`` (equal infinities
+    agree; ``(0, 0)`` asks for equal values)."""
+    gs, ws = _tensors(got), _tensors(want)
+    if len(gs) != len(ws):
+        return float("inf"), False
+    worst, ok = 0.0, True
+    for g, w in zip(gs, ws):
+        if g.shape != w.shape or g.dtype != w.dtype:
+            return float("inf"), False
+        g, w = g.detach().cpu(), w.detach().cpu()
+        if not (g.is_floating_point() or g.is_complex()):
+            g, w = g.to(torch.int64), w.to(torch.int64)
+            same = g == w
+        else:
+            g, w = g.to(torch.float64), w.to(torch.float64)
+            same = torch.isclose(g, w, rtol=rtol, atol=atol)
+        diff = torch.where(g == w, 0.0, (g - w).abs().to(torch.float64))
+        if diff.numel():
+            worst = max(worst, float(diff.max()))
+        ok = ok and bool(same.all())
+    return worst, ok
 
 
 def _resolve_shape(pattern: tuple, dims: dict | None) -> tuple:
@@ -252,10 +289,15 @@ def _resolve_shape(pattern: tuple, dims: dict | None) -> tuple:
                  for d in pattern) if dims else tuple(pattern)
 
 
-def audit_contract(c: Contract, device="cpu") -> list[Finding]:
+def audit_contract(c: Contract, device="cpu",
+                   info: dict | None = None) -> list[Finding]:
     """Run every declared check of one contract on ``device``; findings
     carry the contract name and anchor at the registry (the audit is a
-    property of the recorded program, not of one source line)."""
+    property of the recorded program, not of one source line). When
+    ``info`` is a dict it receives ``runs``, every recorded :class:`Trace`
+    (the contract's own run, then the ladder's), and on a CUDA device with
+    a ``parity`` check ``cpu_max_abs_err``, the largest difference from
+    the CPU's runs."""
     dev = torch.device(device)
     findings: list[Finding] = []
 
@@ -270,6 +312,7 @@ def audit_contract(c: Contract, device="cpu") -> list[Finding]:
     except Exception as e:   # a registry entry that fails to run IS a finding
         add("audit-trace-error", f"recording failed: {e!r}")
         return findings
+    runs = [trace]
     if on_cuda:
         after = launch_counts()
         for k in c.kernels:
@@ -338,10 +381,12 @@ def audit_contract(c: Contract, device="cpu") -> list[Finding]:
 
     if c.ladder is not None:
         try:
-            keys = c.ladder(dev)
+            traces = c.ladder(dev)
         except Exception as e:
             add("audit-trace-error", f"ladder recording failed: {e!r}")
         else:
+            runs.extend(traces)
+            keys = [program_key(t) for t in traces]
             distinct = len(set(keys))
             if c.ladder_expected is not None \
                     and distinct != c.ladder_expected:
@@ -349,6 +394,32 @@ def audit_contract(c: Contract, device="cpu") -> list[Finding]:
                     f"bucket ladder yields {distinct} distinct programs "
                     f"over {len(keys)} sizes; expected {c.ladder_expected} "
                     "— bucketing is fragmented or over-merged")
+
+    if on_cuda and c.parity is not None:
+        cpu = torch.device("cpu")
+        try:
+            want = [c.trace(cpu)] + (c.ladder(cpu) if c.ladder else [])
+        except Exception as e:
+            add("audit-trace-error", f"CPU recording failed: {e!r}")
+        else:
+            rtol, atol = c.parity
+            worst, bad = 0.0, []
+            for i, (g, w) in enumerate(zip(runs, want)):
+                err, ok = output_error(g.outputs, w.outputs, rtol, atol)
+                worst = max(worst, err)
+                if not ok:
+                    bad.append(i)
+            if len(runs) != len(want):
+                bad.append(len(want))
+            if bad:
+                add("audit-cpu-parity",
+                    f"runs {bad} of {len(runs)} differ from the CPU's plain "
+                    f"forms (largest |difference| {worst:g}, allowed "
+                    f"rtol {rtol:g} atol {atol:g})")
+            if info is not None:
+                info["cpu_max_abs_err"] = worst
+    if info is not None:
+        info["runs"] = runs
     return findings
 
 
@@ -360,5 +431,6 @@ def audit_all(contracts: list[Contract], device="cpu") -> list[Finding]:
 
 
 __all__ = ["Contract", "OpRecord", "Trace", "record", "record_numpy",
-           "program_key", "launch_counts", "audit_contract", "audit_all",
+           "program_key", "launch_counts", "output_error", "audit_contract",
+           "audit_all",
            "SCATTER_OPS", "INDEX_OPS", "REGISTRY_PATH"]

@@ -23,12 +23,17 @@ import functools
 import numpy as np
 import torch
 
-from .graph_audit import (SCATTER_OPS, Contract, program_key, record,
-                          record_numpy)
+from .graph_audit import SCATTER_OPS, Contract, record, record_numpy
 
 # The bucket shape the dense ops contracts are audited at — and therefore
 # the largest n at which the benchmark times the dense variants.
 LARGE_N_DENSE_MAX = 256
+
+# How far a card run may be from the CPU's plain forms: the min-plus
+# programs (APSP, hop tables) give the same bits on every form; the float
+# sums of load propagation and the proxies agree to f32 rounding.
+EXACT = (0.0, 0.0)
+F32_SUMS = (1e-5, 1e-6)
 
 
 def _mesh_adjacency(n: int) -> np.ndarray:
@@ -142,7 +147,7 @@ def _trace_adjacency(dev, n_chiplets: int, pop: int):
 
 
 def _adjacency_ladder(dev, n_chiplets: int, pops=(5, 8, 9, 16, 17)):
-    return [program_key(_trace_adjacency(dev, n_chiplets, p)) for p in pops]
+    return [_trace_adjacency(dev, n_chiplets, p) for p in pops]
 
 
 def _trace_adjacency_faults(dev, n_chiplets: int, pop: int, n_faults: int):
@@ -204,7 +209,7 @@ def _trace_parametric(dev, n_raw: int, pop: int):
 
 
 def _parametric_ladder(dev, sizes=(9, 16, 17, 24, 33), pop: int = 8):
-    return [program_key(_trace_parametric(dev, n, pop)) for n in sizes]
+    return [_trace_parametric(dev, n, pop) for n in sizes]
 
 
 # ---------------------------------------------------------------------------
@@ -230,7 +235,7 @@ def _trace_repair_cap(dev, density: float):
 
 
 def _repair_ladder(dev, densities=(0.6, 0.65, 0.7, 0.75, 0.8, 0.9)):
-    return [program_key(_trace_repair_cap(dev, p)) for p in densities]
+    return [_trace_repair_cap(dev, p) for p in densities]
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +255,7 @@ def contracts() -> tuple[Contract, ...]:
             forbid_f64=True,
             out_dtypes=(f32, f32),
             kernels=("load_prop_cuda",),
+            parity=F32_SUMS,
             bench={"op": "load_propagate", "form": form, "role": role,
                    "n": n},
             **kw)
@@ -263,6 +269,7 @@ def contracts() -> tuple[Contract, ...]:
             forbid_f64=True,
             out_dtypes=(f32,),
             kernels=(kernel,),
+            parity=EXACT,
             bench={"op": "apsp", "form": form, "role": role, "n": n},
             **kw)
 
@@ -283,7 +290,9 @@ def contracts() -> tuple[Contract, ...]:
             trace=lambda dev: _trace_lowest_id(dev, 64, 2),
             forbidden_ops=SCATTER_OPS,
             forbid_f64=True,
-            out_dtypes=(i16,)),
+            out_dtypes=(i16,),
+            # its distances come from the APSP kernel on the card
+            parity=EXACT),
         Contract(
             name="routing.lowest_id_next_hops[blocked,n=256,B=1]",
             description="destination-blocked next-hop selection",
@@ -293,7 +302,8 @@ def contracts() -> tuple[Contract, ...]:
             out_dtypes=(i16,),
             # per-slab selection [B, n, tile, tile] = 2^22; the dense
             # [B, n, n, n] score tensor would be 2^24
-            max_transient_elements=1 << 23),
+            max_transient_elements=1 << 23,
+            parity=EXACT),
         Contract(
             name="routing.hops_next_hop[dense,n=64,B=2]",
             description="BFS-by-matmul hop tables",
@@ -301,7 +311,8 @@ def contracts() -> tuple[Contract, ...]:
             forbidden_ops=SCATTER_OPS,
             forbid_f64=True,
             out_dtypes=(i16,),
-            kernels=("minplus_cuda",)),
+            kernels=("minplus_cuda",),
+            parity=EXACT),
         Contract(
             name="routing.hops_next_hop[blocked,n=256,B=1]",
             description="destination-blocked BFS hop tables",
@@ -310,7 +321,8 @@ def contracts() -> tuple[Contract, ...]:
             forbid_f64=True,
             out_dtypes=(i16,),
             max_transient_elements=1 << 23,
-            kernels=("minplus_cuda",)),
+            kernels=("minplus_cuda",),
+            parity=EXACT),
         # -- dse.genomes ----------------------------------------------------
         Contract(
             name="dse.genomes.adjacency[n=16]",
@@ -322,7 +334,8 @@ def contracts() -> tuple[Contract, ...]:
             ladder=lambda dev: _adjacency_ladder(dev, 16),
             # pops (5, 8, 9, 16, 17) bucket to {8, 16, 32}
             ladder_expected=3,
-            kernels=("load_prop_cuda", "minplus_cuda")),
+            kernels=("load_prop_cuda", "minplus_cuda"),
+            parity=F32_SUMS),
         Contract(
             name="dse.genomes.adjacency_faults[n=16,P=8,F=4]",
             description="[P, F] population x fault grid (scatter-free; "
@@ -335,7 +348,8 @@ def contracts() -> tuple[Contract, ...]:
             out_dtypes=(f32, f32, f32, f32),
             dims={"P": 8, "F": 4, "n": 16},
             forbidden_shapes=(("P", "F", "n", "n"),),
-            kernels=("load_prop_cuda", "minplus_cuda")),
+            kernels=("load_prop_cuda", "minplus_cuda"),
+            parity=F32_SUMS),
         Contract(
             name="dse.genomes.parametric[n<=48]",
             description="structure-table parametric eval (int16 tables)",
@@ -346,7 +360,8 @@ def contracts() -> tuple[Contract, ...]:
             ladder=lambda dev: _parametric_ladder(dev),
             # node counts (9, 16, 17, 24, 33) bucket to {16, 32, 48}
             ladder_expected=3,
-            kernels=("load_prop_cuda",)),
+            kernels=("load_prop_cuda",),
+            parity=F32_SUMS),
         # -- opt.space ------------------------------------------------------
         Contract(
             name="opt.space.repair_cap[n=16,P=12]",

@@ -26,6 +26,7 @@ from repro_torch.analysis import graph_audit as ga  # noqa: E402
 from repro_torch.analysis.__main__ import main  # noqa: E402
 from repro_torch.analysis.lint import RULES, lint_file, lint_paths  # noqa: E402
 from repro_torch.analysis.registry import contracts, large_n_plan  # noqa: E402
+from repro.analysis import lint as ref_lint  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -49,28 +50,89 @@ def _lint(tmp_path, rel: str, body: str):
     return lint_file(path, tmp_path)
 
 
+def _ref_lint(tmp_path, rel: str, body: str):
+    """The reference's lint of the same fixture, written at the same module
+    of the reference's tree (``src/repro_torch/`` -> ``src/repro/``)."""
+    rel = rel.replace("src/repro_torch/", "src/repro/", 1)
+    path = tmp_path / "ref" / rel
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text("import os, time\nimport numpy as np\n" + body + "\n")
+    return ref_lint.lint_file(path, tmp_path / "ref")
+
+
+def _lint_both(tmp_path, rel: str, body: str) -> list:
+    """The port's (rule, line) findings of a fixture, asserted equal to the
+    reference's on the same fixture."""
+    port = [(f.rule, f.line) for f in _lint(tmp_path, rel, body)]
+    assert port == [(f.rule, f.line) for f in _ref_lint(tmp_path, rel, body)]
+    return port
+
+
 @pytest.mark.parametrize("rule", sorted(_LINT_FIXTURES))
 def test_lint_rule_fires_and_inline_allow_suppresses(tmp_path, rule):
+    """Each rule fires on its fixture, and both inline allows suppress it,
+    exactly as the reference's lint does on the same fixture."""
     rel, line = _LINT_FIXTURES[rule]
     found = _lint(tmp_path, rel, line)
     assert [(f.rule, f.line, f.path) for f in found] == [(rule, 3, rel)]
+    assert _lint_both(tmp_path, rel, line) == [(rule, 3)]
     allowed = f"# repro-lint: allow[{rule}] planted fixture\n{line}"
-    assert _lint(tmp_path, rel, allowed) == []
+    assert _lint_both(tmp_path, rel, allowed) == []
     same_line = f"{line}  # repro-lint: allow[{rule}] planted fixture"
-    assert _lint(tmp_path, rel, same_line) == []
+    assert _lint_both(tmp_path, rel, same_line) == []
     assert set(_LINT_FIXTURES) | {"suppression-reason"} == set(RULES)
+    assert set(RULES) == set(ref_lint.RULES)
 
 
 def test_lint_scope_of_each_rule(tmp_path):
     # print is fine in obs/log.py; np.random and loops outside their modules
-    assert _lint(tmp_path, "src/repro_torch/obs/log.py", 'print("x")') == []
-    assert _lint(tmp_path, "src/repro_torch/opt/operators.py",
-                 "r = np.random.default_rng(0)") == []
-    assert _lint(tmp_path, "src/repro_torch/core/reports.py",
-                 "for i in range(n): pass") == []
+    assert _lint_both(tmp_path, "src/repro_torch/obs/log.py",
+                      'print("x")') == []
+    assert _lint_both(tmp_path, "src/repro_torch/opt/operators.py",
+                      "r = np.random.default_rng(0)") == []
+    assert _lint_both(tmp_path, "src/repro_torch/core/reports.py",
+                      "for i in range(n): pass") == []
     # a stepped range is a chunk loop, not an axis loop
-    assert _lint(tmp_path, "src/repro_torch/kernels/x.py",
-                 "for i in range(0, n, 8): pass") == []
+    assert _lint_both(tmp_path, "src/repro_torch/kernels/x.py",
+                      "for i in range(0, n, 8): pass") == []
+
+
+# module of the port -> fixture lines; every module the port's lint scopes
+# a rule to, each linted by both packages at its counterpart
+_SCOPED_MODULES = sorted({m for m in ("src/repro_torch/kernels/ops.py",
+                                      "src/repro_torch/routing/device.py",
+                                      "src/repro_torch/routing/hierarchical.py",
+                                      "src/repro_torch/dse/genomes.py",
+                                      "src/repro_torch/dse/batch.py",
+                                      "src/repro_torch/core/latency.py",
+                                      "src/repro_torch/core/throughput.py",
+                                      "src/repro_torch/opt/space.py",
+                                      "src/repro_torch/opt/algorithms.py",
+                                      "src/repro_torch/serve/job.py",
+                                      "src/repro_torch/obs/log.py",
+                                      "src/repro_torch/core/reports.py")})
+_SCOPED_BODY = "\n".join([
+    'print("x")',
+    "t = time.time()",
+    "r = np.random.default_rng(0)",
+    'v = os.getenv("REPRO_LOG")',
+    "for i in range(pop_size): pass",
+    "for d in range(n_dest): pass",
+    "for i in range(0, n, 8): pass",
+    "while True: break",
+    "# repro-lint: allow[no-wallclock]",
+    "t = time.time()",
+])
+
+
+@pytest.mark.parametrize("rel", _SCOPED_MODULES)
+def test_lint_scopes_equal_the_references(tmp_path, rel):
+    """Every rule at every module it is scoped to (and at two it is not),
+    linted by both packages at the same module: the same (rule, line)
+    findings and the same suppressions."""
+    found = _lint_both(tmp_path, rel, _SCOPED_BODY)
+    assert ("no-wallclock", 4) in found
+    assert ("suppression-reason", 11) in found
 
 
 def test_env_read_checks_the_registry(tmp_path):
@@ -184,15 +246,72 @@ def test_audit_passes_the_clean_twin(check):
 
 
 def test_audit_ladder_counts_distinct_programs():
-    def key(n):
-        return ga.program_key(ga.record(lambda x: x * 2, torch.ones(n)))
+    def run(n):
+        return ga.record(lambda x: x * 2, torch.ones(n))
 
     c = ga.Contract(name="ladder", trace=lambda dev: ga.record(torch.neg, _X),
-                    ladder=lambda dev: [key(n) for n in (8, 8, 16, 32)],
+                    ladder=lambda dev: [run(n) for n in (8, 8, 16, 32)],
                     ladder_expected=3)
     assert _rules(c) == []
+    info: dict = {}
+    ga.audit_contract(c, "cpu", info)
+    assert [tuple(t.outputs.shape) for t in info["runs"]] == \
+        [(3, 4), (8,), (8,), (16,), (32,)]
     c.ladder_expected = 2
     assert _rules(c) == ["audit-recompile"]
+
+
+def _per_device(cpu_fn, card_fn, n=5):
+    """A contract whose program is ``cpu_fn`` when recorded for the CPU and
+    ``card_fn`` otherwise, with a two-size ladder; its inputs stay on the
+    host, so the card's path of the audit runs here."""
+    def run(dev, k):
+        fn = cpu_fn if dev.type == "cpu" else card_fn
+        return ga.record(fn, torch.linspace(-1.0, 1.0, k))
+
+    return ga.Contract(name="parity", trace=lambda dev: run(dev, n),
+                       ladder=lambda dev: [run(dev, 3), run(dev, 4)],
+                       ladder_expected=2, parity=(0.0, 0.0))
+
+
+@pytest.mark.parametrize("case", ["bits", "tolerance", "ladder", "dtype"])
+def test_audit_holds_card_runs_against_the_cpu(monkeypatch, case):
+    """On a CUDA device a contract with ``parity`` records every run again
+    on the CPU: outputs out of tolerance, in the contract's own run or in a
+    ladder's, are a finding; outputs within it are not."""
+    monkeypatch.setattr(ga, "launch_counts", dict)
+    card = {"bits": lambda x: x * 3.0 + 1e-7,
+            "tolerance": lambda x: x * 3.0 + 1e-7,
+            "ladder": lambda x: x * (3.0 if x.numel() == 5 else 2.0),
+            "dtype": lambda x: (x * 3.0).to(torch.float64)}[case]
+    c = _per_device(lambda x: x * 3.0, card)
+    if case == "tolerance":
+        c.parity = (0.0, 1e-6)
+    info: dict = {}
+    found = ga.audit_contract(c, "cuda", info)
+    assert len(info["runs"]) == 3
+    if case == "tolerance":
+        assert found == [] and 0.0 < info["cpu_max_abs_err"] <= 1e-6
+    else:
+        assert [f.rule for f in found] == ["audit-cpu-parity"]
+        assert info["cpu_max_abs_err"] > 0.0
+    # the CPU's audit has nothing to compare with
+    assert ga.audit_contract(c, "cpu") == []
+
+
+def test_output_error_compares_values_shapes_and_dtypes():
+    inf = float("inf")
+    a = (torch.tensor([1.0, inf, 2.0]), torch.tensor([3, 4], dtype=torch.int16))
+    assert ga.output_error(a, tuple(t.clone() for t in a), 0.0, 0.0) == \
+        (0.0, True)
+    b = (torch.tensor([1.0, inf, 2.5]), a[1])
+    assert ga.output_error(b, a, 0.0, 0.0) == (0.5, False)
+    assert ga.output_error(b, a, 0.3, 0.0) == (0.5, True)
+    c = (a[0], torch.tensor([3, 5], dtype=torch.int16))
+    assert ga.output_error(c, a, 1.0, 1.0) == (1.0, False)
+    assert ga.output_error((a[0],), a, 0.0, 0.0)[1] is False
+    assert ga.output_error((a[0], a[1].to(torch.int32)), a, 0.0, 0.0)[1] \
+        is False
 
 
 def test_program_key_ignores_loop_trip_counts():
@@ -255,6 +374,19 @@ def test_record_numpy_catches_a_host_transient():
 def test_registry_contract_passes_on_cpu(name):
     c = next(c for c in contracts() if c.name == name)
     assert ga.audit_contract(c, "cpu") == []
+
+
+def test_every_kernel_contract_is_held_against_the_cpu():
+    """Every contract whose program launches a kernel on the card records
+    its runs again on the CPU there: bits for the min-plus programs, f32
+    rounding for the float sums."""
+    for c in contracts():
+        if c.kernels:
+            assert c.parity is not None, c.name
+        if c.name.startswith(("ops.apsp", "routing.")):
+            assert c.parity == (0.0, 0.0), c.name
+        elif c.parity is not None:
+            assert c.parity == (1e-5, 1e-6), c.name
 
 
 def test_registry_names_and_plan_follow_the_reference():

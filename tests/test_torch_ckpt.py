@@ -17,6 +17,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -27,6 +28,9 @@ from repro_torch.ckpt import (CheckpointManager, latest_step,  # noqa: E402
                               restore_checkpoint, save_checkpoint)
 from repro_torch.ckpt import checkpoint as ckpt_mod  # noqa: E402
 from repro_torch.faults.harness import CheckpointCorruptError  # noqa: E402
+from repro.ckpt import checkpoint as ref_ckpt  # noqa: E402
+from repro.faults.harness import \
+    CheckpointCorruptError as RefCorruptError  # noqa: E402
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 
@@ -201,6 +205,181 @@ def test_save_is_traced(tmp_path):
         if not was:
             tr.disable_tracing()
     assert "ckpt.save" in names
+
+
+# ---------------------------------------------------------------------------
+# the same trees through the reference's checkpoints
+# ---------------------------------------------------------------------------
+
+def _np_tree(seed: int = 0) -> dict:
+    """A numpy-valued tree for the reference: f32, bf16, int32 and int64
+    leaves in nested dicts (inserted out of key order) and a list."""
+    import ml_dtypes
+
+    rng = np.random.default_rng(seed)
+    return {
+        "params": {"w": rng.standard_normal((5, 7)).astype(np.float32),
+                   "b": rng.standard_normal(7).astype(ml_dtypes.bfloat16)},
+        "opt": {"m": [rng.standard_normal(3).astype(np.float32),
+                      np.arange(4, dtype=np.int32) + seed],
+                "count": np.asarray(seed, np.int64)},
+        "emb": rng.standard_normal((3, 2)).astype(np.float32),
+    }
+
+
+def _as_torch(tree):
+    """The same tree as the port's tensors, bf16 through its raw bits."""
+    if isinstance(tree, dict):
+        return {k: _as_torch(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_as_torch(v) for v in tree]
+    if tree.dtype.name == "bfloat16":
+        return torch.from_numpy(tree.view(np.int16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(tree))
+
+
+def _np_zeros_like(tree):
+    if isinstance(tree, dict):
+        return {k: _np_zeros_like(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_np_zeros_like(v) for v in tree]
+    return np.zeros_like(tree)
+
+
+def _raw(x) -> np.ndarray:
+    """A leaf's stored bits: bf16 as uint16, everything else as is."""
+    if isinstance(x, torch.Tensor):
+        x = _bits(x).numpy()
+        return x.view(np.uint16) if x.dtype == np.int16 else x
+    x = np.asarray(x)
+    return x.view(np.uint16) if x.dtype.name == "bfloat16" else x
+
+
+def _assert_same_values(port_tree, ref_tree):
+    import jax
+
+    ref = jax.tree_util.tree_leaves(ref_tree)
+    port, _ = ckpt_mod.flatten_tree(port_tree)
+    assert len(port) == len(ref)
+    for p, r in zip(port, ref):
+        p, r = _raw(p), _raw(r)
+        assert p.dtype == r.dtype and np.array_equal(p, r)
+
+
+def _save_both(tmp_path, steps, keep_last=3, seed=None):
+    port, ref = str(tmp_path / "port"), str(tmp_path / "ref")
+    for s in steps:
+        tree = _np_tree(s if seed is None else seed)
+        ref_ckpt.save_checkpoint(ref, s, tree, keep_last=keep_last)
+        save_checkpoint(port, s, _as_torch(tree), keep_last=keep_last)
+    return port, ref
+
+
+def _manifest(d: str, step: int) -> dict:
+    with open(os.path.join(d, f"step_{step}", "manifest.json")) as f:
+        return json.load(f)
+
+
+@pytest.mark.parametrize("shard_bytes", [None, 30])
+def test_layout_equals_the_references(tmp_path, monkeypatch, shard_bytes):
+    """The same tree saved by both packages: the same leaf count, leaf
+    dtypes, shard files and their keys, and the same stored bits in every
+    shard (bf16 as its uint16 view in both). Only the structure string and
+    the version stamp are each package's own."""
+    if shard_bytes is not None:
+        monkeypatch.setattr(ckpt_mod, "_SHARD_BYTES", shard_bytes)
+        monkeypatch.setattr(ref_ckpt, "_SHARD_BYTES", shard_bytes)
+    port, ref = _save_both(tmp_path, [7])
+    mp, mr = _manifest(port, 7), _manifest(ref, 7)
+    assert set(mp) == set(mr)
+    for key in ("step", "n_leaves", "dtypes"):
+        assert mp[key] == mr[key], key
+    assert [(s["file"], s["keys"]) for s in mp["shards"]] == \
+        [(s["file"], s["keys"]) for s in mr["shards"]]
+    assert len(mp["shards"]) == (1 if shard_bytes is None else 3)
+    assert sorted(os.listdir(os.path.join(port, "step_7"))) == \
+        sorted(os.listdir(os.path.join(ref, "step_7")))
+    for sh in mr["shards"]:
+        with np.load(os.path.join(port, "step_7", sh["file"])) as zp, \
+                np.load(os.path.join(ref, "step_7", sh["file"])) as zr:
+            assert sorted(zp.files) == sorted(zr.files)
+            for k in zr.files:
+                assert zp[k].dtype == zr[k].dtype
+                assert np.array_equal(zp[k], zr[k]), k
+    restored_ref, step_ref = ref_ckpt.restore_checkpoint(
+        ref, _np_zeros_like(_np_tree()))
+    restored, step = restore_checkpoint(port, _as_torch(
+        _np_zeros_like(_np_tree())))
+    assert step == step_ref == 7
+    _assert_same_values(restored, restored_ref)
+    _assert_same_values(restored, _np_tree(7))
+
+
+@pytest.mark.parametrize("keep_last", [1, 2, 3])
+def test_retention_latest_and_fallback_equal_the_references(tmp_path,
+                                                            keep_last):
+    """Saves of steps 1-5 on both packages keep the same step directories
+    and LATEST; once the newest step's shard is corrupted, both restore the
+    same older step (or both fail), and both refuse the corrupt step when
+    it is asked for."""
+    port, ref = _save_both(tmp_path, [1, 2, 3, 4, 5], keep_last=keep_last)
+    assert sorted(os.listdir(port)) == sorted(os.listdir(ref))
+    for d in (port, ref):
+        with open(os.path.join(d, "LATEST")) as f:
+            assert f.read() == "5"
+    assert latest_step(port) == ref_ckpt.latest_step(ref) == 5
+    for d in (port, ref):
+        shard = os.path.join(d, "step_5", "shard_0.npz")
+        with open(shard, "r+b") as f:
+            f.seek(100)
+            byte = f.read(1)
+            f.seek(100)
+            f.write(bytes([byte[0] ^ 0xFF]))
+    like_ref, like = _np_zeros_like(_np_tree()), _as_torch(
+        _np_zeros_like(_np_tree()))
+    if keep_last == 1:
+        with pytest.raises(RefCorruptError):
+            ref_ckpt.restore_checkpoint(ref, like_ref)
+        with pytest.raises(CheckpointCorruptError):
+            restore_checkpoint(port, like)
+    else:
+        out_ref, step_ref = ref_ckpt.restore_checkpoint(ref, like_ref)
+        out, step = restore_checkpoint(port, like)
+        assert step == step_ref == 4
+        _assert_same_values(out, out_ref)
+    with pytest.raises(RefCorruptError):
+        ref_ckpt.restore_checkpoint(ref, _np_zeros_like(_np_tree()), step=5)
+    with pytest.raises(CheckpointCorruptError):
+        restore_checkpoint(port, _as_torch(_np_zeros_like(_np_tree())),
+                           step=5)
+    # LATEST naming a deleted step: both fall back to the newest on disk
+    for d in (port, ref):
+        with open(os.path.join(d, "LATEST"), "w") as f:
+            f.write("9")
+    assert latest_step(port) == ref_ckpt.latest_step(ref) == 5
+
+
+def test_manager_schedule_equals_the_references(tmp_path):
+    """Both managers save at the same steps (every ``interval``, and when
+    forced), keep the same directories and resume at the same step."""
+    port = CheckpointManager(str(tmp_path / "port"), interval=3, keep_last=2)
+    ref = ref_ckpt.CheckpointManager(str(tmp_path / "ref"), interval=3,
+                                     keep_last=2)
+    tree = _np_tree(1)
+    assert ref.restore_or_init(tree)[1] == port.restore_or_init(
+        _as_torch(tree))[1] == -1
+    for s in range(8):
+        force = s == 7
+        saved_ref = ref.maybe_save(s, tree, force=force)
+        saved = port.maybe_save(s, _as_torch(tree), force=force)
+        assert (saved is None) == (saved_ref is None), s
+    assert sorted(os.listdir(port.directory)) == \
+        sorted(os.listdir(ref.directory)) == ["LATEST", "step_6", "step_7"]
+    out_ref, step_ref = ref.restore_or_init(_np_zeros_like(tree))
+    out, step = port.restore_or_init(_as_torch(_np_zeros_like(tree)))
+    assert step == step_ref == 7
+    _assert_same_values(out, out_ref)
 
 
 # ---------------------------------------------------------------------------

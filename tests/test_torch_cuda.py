@@ -703,14 +703,19 @@ def _contract_names():
 
 @pytest.mark.parametrize("name", _contract_names())
 def test_analysis_contract_passes_on_cuda(cuda, name):
-    """Each registry contract recorded on the card: no finding, and the
-    kernels it names launched (the audit's kernel-route check)."""
+    """Each registry contract recorded on the card: no finding, the
+    kernels it names launched (the audit's kernel-route check), and every
+    run's outputs equal the CPU's plain forms within the contract's parity
+    (the audit's cpu-parity check)."""
     import repro_torch.core  # noqa: F401  (import order)
     from repro_torch.analysis.graph_audit import audit_contract
     from repro_torch.analysis.registry import contracts
 
     c = next(c for c in contracts() if c.name == name)
-    assert [f.format() for f in audit_contract(c, cuda)] == []
+    info: dict = {}
+    assert [f.format() for f in audit_contract(c, cuda, info)] == []
+    assert (c.parity is None) == ("cpu_max_abs_err" not in info)
+    assert c.parity is not None or not c.kernels
 
 
 def test_trace_through_evaluate_design_on_cuda_matches_the_oracle(cuda):

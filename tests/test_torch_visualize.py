@@ -104,3 +104,30 @@ def test_latency_vs_load_default_config_and_backend():
                                          ref_make_traffic("random_uniform",
                                                           4))
     assert got == want
+
+
+def test_latency_vs_load_runs_on_the_host_unless_torch_is_asked(monkeypatch):
+    """A recorded difference in kind (ROADMAP Queue C): like
+    ``FastSim.run_batch``, ``latency_vs_load`` runs the cycle loop on the
+    host (C, else numpy) unless the caller passes ``backend="torch"``,
+    whatever ``device`` says; only the torch backend reads ``device``."""
+    from repro_torch.sim import simfast_torch
+
+    calls = []
+
+    def torch_loop(sim, rates, cfg, device=None):
+        calls.append(device)
+        raise RuntimeError("the torch backend ran")
+
+    monkeypatch.setattr(simfast_torch, "run_batch_torch", torch_loop)
+    args = (make_design("mesh", 4), make_traffic("random_uniform", 4))
+    kw = dict(rates=_RATES, config=SimConfig(**_CFG))
+    want = ref_visualize.latency_vs_load(
+        ref_make_design("mesh", 4), ref_make_traffic("random_uniform", 4),
+        rates=_RATES, config=RefSimConfig(**_CFG))
+    assert visualize.latency_vs_load(*args, **kw) == want
+    assert visualize.latency_vs_load(*args, device="cuda", **kw) == want
+    assert calls == []
+    with pytest.raises(RuntimeError, match="the torch backend ran"):
+        visualize.latency_vs_load(*args, backend="torch", **kw)
+    assert calls == [None]
