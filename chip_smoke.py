@@ -158,9 +158,25 @@ Phases, each fatal on error (exit code 1, no result line):
     the lint of ``src/repro_torch`` and every registry contract recorded on
     the card, each contract's kernels launched (B1/B2, B3/B4, B5 over the
     phase), 0 unsuppressed findings; findings per check and seconds per
-    contract.
+    contract;
+21. serving: ``repro_torch.launch.serve.generate`` and ``Model.prefill`` for
+    every decoder-only config at its published widths, one model at a time
+    (qwen2.5-3b and hymba-1.5b at full depth, the others cut to 2 layers,
+    DeepSeek's dense first layer kept): 4 prompts of 16 tokens and 32 new
+    greedy tokens (every logit finite, two runs equal), a prefill at 2 x
+    2048 (flash attention, banded for hymba), the decode step's logits at
+    the first 64 positions within rtol/atol 0.05 of the forward pass's in
+    float32 (the reference's decode-vs-forward bound; in bf16 the
+    difference is reported), hymba's ring buffer (window cut to 64, 96
+    steps, float32, within 0.06); for hymba and falcon-mamba B7 held at
+    the prefill in float32 against the plain scan on each layer's inputs
+    within the scan's test bounds, launched once per Mamba layer, and the
+    logits against the chunked-scan route's within 1e-4; every config at
+    ``reduced(cfg, dtype="float32")`` on the card against the CPU (greedy
+    tokens equal, logits within rtol / atol 1e-5); decode ms per step and
+    tokens/s, prefill tokens/s, and the device idle share of a decode step.
 
-Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20) is driven with every
+Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20, 21) is driven with every
 kernel's launch count set to 0 just before it and read just after; a path
 whose kernels were not launched fails the run. Launches made to compare a kernel with its
 plain version are not counted. The second-to-last line carries the card's
@@ -265,6 +281,24 @@ RESUME_STEPS, RESUME_AT = 4, 2
 # trace import: a synthetic trace folded into a 64-chiplet mesh's traffic;
 # the f32 proxies against the port's f64 oracle
 TRACE_CHIPLETS, TRACE_EVENTS, ORACLE_RTOL = 64, 20000, 1e-6
+# serving: every decoder-only config at its published widths through
+# launch.serve.generate (its CLI's 4 prompts of 16 tokens, 32 new) and
+# Model.prefill at 2 x 2048; qwen2.5-3b and hymba-1.5b at full depth, the
+# others cut to SERVE_LAYERS (falcon-mamba-7b to phase 13's TRAIN_LAYERS)
+SERVE_FULL_DEPTH = ("qwen2.5-3b", "hymba-1.5b")
+SERVE_LAYERS = 2
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 32
+PREFILL_BATCH, PREFILL_SEQ = 2, 2048
+DECODE_POSITIONS = 64
+DECODE_TOL = dict(rtol=0.05, atol=0.05)     # tests/test_models_smoke.py:137
+RING_ARCH, RING_WINDOW, RING_STEPS = "hymba-1.5b", 64, 96
+RING_TOL = dict(rtol=0.06, atol=0.06)       # tests/test_moe_cache.py:95
+CARD_CPU_TOL = dict(rtol=1e-5, atol=1e-5)
+# float32 logits of the two scan routes through a whole model: f32 sums in
+# another order alone (decode against forward, same run) move hymba-1.5b's
+# and the other configs' logits by up to 3.5e-5 on the card, so the routes
+# are held at 1e-4 and B7 itself within SCAN_FWD_TOL on each layer's inputs
+ROUTE_LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
@@ -2328,6 +2362,295 @@ def analysis_path(torch, dev, zero_counts, read_counts) -> dict:
     return rec
 
 
+def serve_models_path(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 21: ``repro_torch.launch.serve`` for every decoder-only config
+    at its published widths, one model at a time. Per config: B7 held at
+    the prefill (Mamba configs, float32: each launch within
+    ``SCAN_FWD_TOL`` of the plain scan on the layer's own inputs, one
+    launch per Mamba layer, and the logits within ``ROUTE_LOGITS_TOL`` of
+    the chunked-scan route's); then the serve
+    path with the launch counts zeroed: ``generate`` twice (every logit
+    finite, both runs' tokens equal; the second timed), ``Model.prefill``
+    at 2 x 2048 twice (the second timed) and the decode step's logits at
+    the first 64 positions against the forward pass's, within
+    ``DECODE_TOL`` in float32 and measured in the config's dtype; hymba's
+    ring buffer at ``RING_WINDOW`` (float32); then every
+    config at ``reduced(cfg, dtype="float32")`` on the card against the
+    CPU. Returns the phase's record."""
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model, reduced
+    from repro_torch.models import layers as L
+
+    def max_err(a, b) -> float:
+        return (a.float() - b.float()).abs().max().item()
+
+    def decode_logits(model, tokens, n, params, max_len=None):
+        cache = model.init_cache(tokens.shape[0], max_len or n)
+        out = []
+        for t in range(n):
+            lg, cache = model.decode_step(cache, tokens[:, t:t + 1], t,
+                                          params)
+            out.append(lg[:, 0].float())
+        return torch.stack(out, 1), cache
+
+    def forward_logits(model, tokens, n, params, extra=None):
+        with torch.no_grad():
+            x, _ = model(tokens, params, extra=extra)
+            return L.unembed(params["unembed"], x[:, :n],
+                             model.cfg.logit_softcap).float()
+
+    archs = [a for a in ARCH_IDS if get_config(a).family != "encdec"]
+    per: dict[str, dict] = {}
+    for arch in archs:
+        published = get_config(arch)
+        cfg, cut = published, {}
+        if arch not in SERVE_FULL_DEPTH:
+            layers = TRAIN_LAYERS if arch == TRAIN_ARCH else SERVE_LAYERS
+            cut["n_layers"] = [published.n_layers, layers]
+            cfg = cfg.replace(n_layers=layers)
+        if cfg.uses_ssm:
+            cfg = cfg.replace(ssm_kernel=True)
+        vlm = cfg.family == "vlm"
+        n_img = cfg.n_image_tokens if vlm else 0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        model = Model(cfg, seed=0, device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        params = model.params()
+        rec = {"layers": len(model.dense_blocks) + len(model.blocks),
+               "first_dense_layers": len(model.dense_blocks),
+               "reduced": cut, "dtype": cfg.dtype,
+               "n_params": sum(p.numel() for p in model.parameters()),
+               "build_s": build_s}
+        rng = np.random.default_rng(21)
+        f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+        pre_tok = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ - n_img))).to(dev)
+        extra = ({"patches": f32(rng.normal(0, 1, (PREFILL_BATCH, n_img,
+                                                   cfg.d_model)))}
+                 if vlm else None)
+
+        # B7 at this prefill, float32: each launch held against the plain
+        # scan on the inputs the layer gave it, and the logits against the
+        # chunked-scan route's
+        if cfg.uses_ssm:
+            kernel, route = ss.selective_scan_fwd_cuda, ops.selective_scan_fwd
+            scan_errs = []
+
+            last = {}
+
+            def held(*args, chunk):
+                got = route(*args, chunk=chunk)
+                last.update(args=[t.contiguous() for t in args], chunk=chunk)
+                want = ss.selective_scan_fwd_plain(*last["args"], chunk=chunk)
+                scan_errs.append(max(max_err(g, w)
+                                     for g, w in zip(got, want)))
+                if not all(torch.allclose(g, w, **SCAN_FWD_TOL)
+                           for g, w in zip(got, want)):
+                    fail(f"phase 21: {arch} B7 differs from the plain scan "
+                         f"by {scan_errs[-1]} at layer {len(scan_errs) - 1}, "
+                         f"{tuple(args[0].shape)}")
+                return got
+
+            f32_logits = {}
+            for kern in (True, False):
+                model.cfg = cfg.replace(dtype="float32", ssm_kernel=kern)
+                before = kernel.launches
+                ops.selective_scan_fwd = held
+                try:
+                    f32_logits[kern] = model.prefill(pre_tok, params,
+                                                     extra=extra)
+                finally:
+                    ops.selective_scan_fwd = route
+                torch.cuda.synchronize()
+                launched = kernel.launches - before
+                if launched != (cfg.n_layers if kern else 0):
+                    fail(f"phase 21: {arch} float32 prefill with ssm_kernel="
+                         f"{kern} launched B7 {launched} times, not once per "
+                         f"Mamba layer ({cfg.n_layers})")
+            model.cfg = cfg
+            err = max_err(f32_logits[True], f32_logits[False])
+            if not torch.allclose(f32_logits[True], f32_logits[False],
+                                  **ROUTE_LOGITS_TOL):
+                fail(f"phase 21: {arch} prefill logits through B7 differ "
+                     f"from the chunked scan's by {err}")
+            rec["b7_prefill_f32"] = {
+                "launches_per_prefill": cfg.n_layers,
+                "shape": [PREFILL_BATCH, PREFILL_SEQ, cfg.d_inner,
+                          cfg.ssm_state],
+                "scan_max_abs_err": max(scan_errs),
+                "logits_max_abs_err_vs_chunked_scan": err,
+                # the last layer's inputs, timed (launches not counted)
+                "ms": time_cuda(torch, lambda: kernel(
+                    *last["args"], chunk=last["chunk"]), reps=10)}
+            del f32_logits, last
+
+        # the serve path: generate, prefill, decode against the forward
+        zero_counts()
+        prompts = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+        finite = []
+        step = model.decode_step
+
+        def checked(cache, tokens, pos, params=None):
+            lg, cache = step(cache, tokens, pos, params)
+            finite.append(torch.isfinite(lg).all())
+            return lg, cache
+
+        model.decode_step = checked
+        tokens = generate(model, prompts, SERVE_NEW, params=params)
+        del model.decode_step
+        if not torch.stack(finite).all().item():
+            fail(f"phase 21: {arch} generate gave non-finite logits")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = generate(model, prompts, SERVE_NEW, params=params)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        if not np.array_equal(tokens, again):
+            fail(f"phase 21: {arch} two greedy runs gave other tokens")
+        n_steps = SERVE_PROMPT + SERVE_NEW
+        lg = model.prefill(pre_tok, params, extra=extra)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = model.prefill(pre_tok, params, extra=extra)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        if not (lg.shape == (PREFILL_BATCH, 1, cfg.vocab_size)
+                and torch.isfinite(lg).all().item()):
+            fail(f"phase 21: {arch} prefill logits {tuple(lg.shape)} are "
+                 f"not finite or not [B, 1, V]")
+        # the decode step against the forward at 2048 positions (flash; the
+        # VLM's forward gets an empty patch prefix, as decode carries none).
+        # Held in float32; in bf16 it is measured only: there flash and the
+        # plain scores round apart and near-tied MoE routing flips
+        gate_tok = (torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))).to(dev)
+            if vlm else pre_tok)
+        gate_extra = ({"patches": torch.zeros((PREFILL_BATCH, 0,
+                                               cfg.d_model), device=dev)}
+                      if vlm else None)
+        gate_err = {}
+        for dtype in dict.fromkeys(("float32", cfg.dtype)):
+            model.cfg = cfg.replace(dtype=dtype)
+            full = forward_logits(model, gate_tok, DECODE_POSITIONS, params,
+                                  gate_extra)
+            dec, cache = decode_logits(model, gate_tok, DECODE_POSITIONS,
+                                       params)
+            gate_err[dtype] = err = max_err(dec, full)
+            if dtype == "float32" and not torch.allclose(dec, full,
+                                                         **DECODE_TOL):
+                fail(f"phase 21: {arch} float32 decode logits differ from "
+                     f"the forward's by {err} over the first "
+                     f"{DECODE_POSITIONS} positions")
+            del dec, full
+        model.cfg = cfg
+        torch.cuda.synchronize()
+        counts = read_counts(f"serve_{arch}", ("selective_scan_fwd",)
+                             if cfg.uses_ssm else ())
+        n_forward = 2 + len(gate_err)
+        want_b7 = n_forward * cfg.n_layers if cfg.uses_ssm else 0
+        if counts["selective_scan_fwd"] != want_b7 or any(
+                n for k, n in counts.items() if k != "selective_scan_fwd"):
+            fail(f"phase 21: {arch} serve path launches {counts}; B7 should "
+                 f"run once per Mamba layer in each of {n_forward} forward "
+                 f"passes")
+        one = torch.from_numpy(prompts[:PREFILL_BATCH, :1]).to(dev)
+        wall_s, busy_s, top = profile_device(
+            torch, lambda: model.decode_step(cache, one, DECODE_POSITIONS - 1,
+                                             params), n_top=5)
+        rec.update({
+            "generate_s": gen_s, "decode_steps": n_steps,
+            "decode_ms_per_step": gen_s / n_steps * 1e3,
+            "decode_tokens_per_s": SERVE_BATCH * n_steps / gen_s,
+            "prefill_shape": [PREFILL_BATCH, PREFILL_SEQ],
+            "prefill_s": prefill_s,
+            "prefill_tokens_per_s": PREFILL_BATCH * PREFILL_SEQ / prefill_s,
+            "decode_vs_forward_max_abs_err": gate_err,
+            "decode_step_profiled_ms": wall_s * 1e3,
+            "decode_step_device_idle_share": 1.0 - busy_s / wall_s,
+            "decode_step_top_device_us": dict(top),
+            "peak_alloc_bytes": torch.cuda.max_memory_allocated(),
+            "launches": counts["selective_scan_fwd"],
+            "sample_tokens": tokens[0, :8].tolist()})
+        del cache
+
+        if arch == RING_ARCH:       # the ring buffer, window cut to 64
+            model.cfg = cfg.replace(window=RING_WINDOW, dtype="float32")
+            full = forward_logits(model, gate_tok, RING_STEPS, params)
+            dec, cache = decode_logits(model, gate_tok, RING_STEPS, params)
+            if cache["scan"]["k"].shape[2] != RING_WINDOW:
+                fail(f"phase 21: the ring cache holds "
+                     f"{cache['scan']['k'].shape[2]} slots")
+            ring_err = max_err(dec, full)
+            if not torch.allclose(dec, full, **RING_TOL):
+                fail(f"phase 21: {arch} ring-buffer decode differs from the "
+                     f"windowed forward by {ring_err}")
+            model.cfg = cfg
+            rec["ring"] = {"window": RING_WINDOW, "steps": RING_STEPS,
+                           "reduced": {"window": [published.window,
+                                                  RING_WINDOW]},
+                           "max_abs_err": ring_err}
+            del dec, full, cache
+        per[arch] = rec
+        log(f"phase 21: {arch} ({rec['layers']} layers, {rec['n_params']} "
+            f"parameters, built in {build_s:.1f} s): decode "
+            f"{rec['decode_ms_per_step']:.2f} ms/step "
+            f"({rec['decode_tokens_per_s']:.1f} tokens/s), prefill "
+            f"{rec['prefill_tokens_per_s']:.0f} tokens/s; decode vs forward "
+            f"{gate_err}; B7 launches {counts['selective_scan_fwd']}"
+            + (f"; ring {rec['ring']['max_abs_err']:.4g}" if "ring" in rec
+               else ""))
+        del model, step, checked, params, lg, pre_tok, gate_tok, extra
+        torch.cuda.empty_cache()
+
+    # the card against the CPU, every config at reduced(cfg, float32); the
+    # Mamba configs through B7 on the card and its plain version on the CPU
+    card_cpu = {}
+    for arch in archs:
+        rc = reduced(get_config(arch), dtype="float32")
+        if rc.uses_ssm:
+            rc = rc.replace(ssm_kernel=True)
+        cpu = Model(rc, seed=0, device="cpu")
+        gpu = Model(rc, seed=0, device=dev)
+        prompts = np.random.default_rng(1).integers(
+            0, rc.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+        t_cpu = generate(cpu, prompts, SERVE_NEW)
+        t_gpu = generate(gpu, prompts, SERVE_NEW)
+        if not np.array_equal(t_cpu, t_gpu):
+            fail(f"phase 21: {arch} greedy tokens on the card differ from "
+                 f"the CPU's")
+        seq = torch.from_numpy(np.concatenate([prompts, t_cpu], 1))
+        n = SERVE_PROMPT + SERVE_NEW
+        lc, _ = decode_logits(cpu, seq, n, cpu.params())
+        lg_, _ = decode_logits(gpu, seq.to(dev), n, gpu.params())
+        rng = np.random.default_rng(2)
+        n_img = rc.n_image_tokens if rc.family == "vlm" else 0
+        tok = rng.integers(0, rc.vocab_size, (2, 64 - n_img))
+        patches = rng.normal(0, 1, (2, n_img, rc.d_model)).astype(np.float32)
+        ex = lambda d: ({"patches": torch.from_numpy(patches).to(d)}
+                        if n_img else None)
+        pc = cpu.prefill(torch.from_numpy(tok), extra=ex("cpu"))
+        pg = gpu.prefill(torch.from_numpy(tok).to(dev), extra=ex(dev))
+        errs = {"decode": max_err(lg_.cpu(), lc),
+                "prefill": max_err(pg.cpu(), pc)}
+        if not (torch.allclose(lg_.cpu(), lc, **CARD_CPU_TOL)
+                and torch.allclose(pg.cpu(), pc, **CARD_CPU_TOL)):
+            fail(f"phase 21: {arch} reduced float32 logits on the card "
+                 f"differ from the CPU's by {errs}")
+        card_cpu[arch] = errs
+        del cpu, gpu
+    log(f"phase 21: every config at reduced(cfg, float32): greedy tokens on "
+        f"the card equal the CPU's, logits within {CARD_CPU_TOL} "
+        f"(largest {max(max(e.values()) for e in card_cpu.values()):.3g})")
+    return {"configs": per, "card_vs_cpu_max_abs_err": card_cpu}
+
+
 def main() -> None:
     try:
         run_phases()
@@ -2685,6 +3008,16 @@ def run_phases() -> None:
     print(json.dumps({"resume_trace": resume_rec}), flush=True)
     analysis_rec = analysis_path(torch, dev, zero_counts, read_counts)
     print(json.dumps({"analysis": analysis_rec}), flush=True)
+
+    # -- 21. serving every decoder-only config ---------------------------------
+    phases_1_20_s = time.perf_counter() - t_start
+    t0 = time.perf_counter()
+    serve_models_rec = serve_models_path(torch, dev, zero_counts, read_counts)
+    serve_models_rec.update(phase_s=time.perf_counter() - t0,
+                            phases_1_20_s=phases_1_20_s)
+    print(json.dumps({"serve_models": serve_models_rec}), flush=True)
+    log(f"phase 21: {serve_models_rec['phase_s']:.1f} s (phases 1-20 took "
+        f"{phases_1_20_s:.1f} s)")
 
     totals = {name: sum(c[name] for c in path_launches.values())
               for name in kernels}

@@ -1,1 +1,1 @@
-"""Launchers of the port (``src/repro/launch``): the training driver."""
+"""Launchers of the port (``src/repro/launch``): training and serving."""

@@ -1,5 +1,6 @@
-"""Model stack of the port (``src/repro/models``): the SSM family's
-training path (``Model``, ``ModelConfig``, ``reduced``)."""
+"""Model stack of the port (``src/repro/models``): every decoder-only
+family's forward, loss, caches, decode step and prefill (``Model``,
+``ModelConfig``, ``reduced``)."""
 from .config import ModelConfig, reduced
 from .model import Model
 

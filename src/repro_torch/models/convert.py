@@ -4,7 +4,8 @@ The reference keeps its parameters as a nested dict with the blocks stacked
 on a leading layer axis by ``jax.vmap`` (``src/repro/models/model.py``,
 ``init_params``); the port's ``Model`` has one module per layer.
 ``flatten_reference`` maps such a tree (of parameters, or of gradients) to
-the port's parameter names, unstacking the blocks, and
+the port's parameter names, unstacking the blocks and numbering the list
+of DeepSeek's leading dense blocks (``dense_blocks.<i>.*``), and
 ``load_reference_params`` copies it into a model, so a test can hand the
 same parameters to both packages and compare gradients leaf by leaf.
 """
@@ -18,16 +19,21 @@ def _flatten(tree, prefix: str, out: dict) -> None:
     if isinstance(tree, dict):
         for k, v in tree.items():
             _flatten(v, f"{prefix}{k}.", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten(v, f"{prefix}{i}.", out)
     else:
         out[prefix[:-1]] = np.asarray(tree)
 
 
 def flatten_reference(tree: dict) -> dict[str, np.ndarray]:
     """Reference tree -> {port parameter name: array}: ``blocks`` is
-    unstacked along its leading layer axis into ``blocks.<i>.*``."""
+    unstacked along its leading layer axis into ``blocks.<i>.*``, and a list
+    (``dense_blocks``, or the port's own ``Model.params()`` blocks) is
+    numbered in order."""
     out: dict[str, np.ndarray] = {}
     for key, sub in tree.items():
-        if key == "blocks":
+        if key == "blocks" and isinstance(sub, dict):
             stacked: dict[str, np.ndarray] = {}
             _flatten(sub, "", stacked)
             n_layers = len(next(iter(stacked.values())))

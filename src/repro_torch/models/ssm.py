@@ -14,8 +14,9 @@ Two routes through the scan, as in the reference:
   path and the model-level plain version of the kernel route.
 
 The reference runs the kernel per shard through ``shard_map`` under a mesh;
-the port runs on one device. The decode step and its cache wait for the
-serve slice (ROADMAP Queue A 14).
+the port runs on one device. Decode is the O(1) recurrence step on a
+carried (conv window, f32 state) cache: ``init_mamba_cache`` and
+``mamba_decode_step``, plain PyTorch as in the reference (no kernel).
 """
 from __future__ import annotations
 
@@ -175,5 +176,43 @@ def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
     return torch.matmul(y, p["out_proj"].to(dt_))
 
 
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> Params:
+    di, n, kc = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    return {
+        "conv": torch.zeros((batch, kc - 1, di), dtype=dtype, device=device),
+        "state": torch.zeros((batch, di, n), dtype=torch.float32,
+                             device=device),
+    }
+
+
+def mamba_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                      cache: Params) -> tuple[torch.Tensor, Params]:
+    """One-token decode. x: [B, 1, D]; cache: the last kc-1 conv inputs
+    [B, kc-1, Di] and the ssm state [B, Di, N] (f32). Returns (y [B, 1, D],
+    the new cache)."""
+    di = cfg.d_inner
+    dt_ = x.dtype
+    xz = torch.matmul(x, p["in_proj"].to(dt_))
+    xin, z = torch.split(xz, di, dim=-1)                        # [B,1,Di]
+
+    conv_win = torch.cat([cache["conv"], xin], dim=1)           # [B,kc,Di]
+    xc = (conv_win * p["conv_w"].to(dt_)).sum(dim=1)
+    xc = F.silu(xc + p["conv_b"].to(dt_))[:, None, :]           # [B,1,Di]
+
+    dt, b_mat, c_mat = _ssm_params_from_x(p, cfg, xc)
+    a = -torch.exp(p["a_log"])
+    xc32 = xc.to(torch.float32)[:, 0]
+    a_bar = torch.exp(dt[:, 0, :, None] * a)                    # [B,Di,N]
+    bx = dt[:, 0, :, None] * b_mat[:, 0, None, :] * xc32[..., None]
+    h = a_bar * cache["state"] + bx                             # [B,Di,N]
+    y = torch.einsum("bin,bn->bi", h, c_mat[:, 0])
+    y = y + xc32 * p["d_skip"]
+    y = y[:, None, :].to(dt_) * F.silu(z)
+    out = torch.matmul(y, p["out_proj"].to(dt_))
+    return out, {"conv": conv_win[:, 1:], "state": h}
+
+
 __all__ = ["init_mamba", "mamba_forward", "softplus", "_ssm_params_from_x",
-           "_fused_selective_scan", "_scan_chunk", "_largest_divisor"]
+           "_fused_selective_scan", "_scan_chunk", "_largest_divisor",
+           "init_mamba_cache", "mamba_decode_step"]

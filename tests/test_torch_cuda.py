@@ -6,8 +6,10 @@ optimizers' async and sync drivers, the pair-walk throughput,
 a reduced Falcon-Mamba training step on the card against the CPU, its
 resume from a checkpoint (bit-equal to the uninterrupted run), every
 analysis contract recorded on the card, a trace through
-``evaluate_design`` against the f64 oracle (rtol 1e-5) and
-``latency_vs_load``'s torch rows (equal to numpy's). Every test here needs an NVIDIA
+``evaluate_design`` against the f64 oracle (rtol 1e-5),
+``latency_vs_load``'s torch rows (equal to numpy's), and serving every
+decoder-only config at reduced widths against the CPU (greedy tokens equal,
+logits within 1e-5) with the hybrid's prefill on the scan kernel. Every test here needs an NVIDIA
 Hopper GPU and skips without one; run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -754,3 +756,67 @@ def test_latency_vs_load_torch_on_cuda_equals_numpy(cuda):
                            backend="torch", device=cuda)
     assert rows == latency_vs_load(*args, rates=(0.02, 0.2, 0.6),
                                    config=cfg, backend="numpy")
+
+
+_SERVE_ARCHS = ("qwen2.5-3b", "deepseek-v2-lite-16b", "olmoe-1b-7b",
+                "nemotron-4-15b", "glm4-9b", "codeqwen1.5-7b",
+                "falcon-mamba-7b", "llava-next-34b", "hymba-1.5b")
+
+
+@pytest.mark.parametrize("arch", _SERVE_ARCHS)
+def test_serving_on_cuda_matches_cpu(cuda, arch):
+    """``launch.serve.generate`` at ``reduced(cfg, dtype="float32")``: the
+    greedy tokens on the card equal the CPU's, and every decode step's
+    logits (prompt and generated tokens fed back) and a 64-position
+    prefill's are within rtol 1e-5 / atol 1e-5; the Mamba configs take the
+    scan kernel on the card and its plain version on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import Model, reduced
+
+    cfg = reduced(get_config(arch), dtype="float32")
+    if cfg.uses_ssm:
+        cfg = cfg.replace(ssm_kernel=True)
+    models = {d: Model(cfg, seed=0, device=d) for d in ("cpu", cuda)}
+    prompts = np.random.default_rng(1).integers(0, cfg.vocab_size, (3, 8))
+    tokens = {d: generate(m, prompts, 6) for d, m in models.items()}
+    np.testing.assert_array_equal(tokens[cuda], tokens["cpu"])
+    seq = torch.from_numpy(np.concatenate([prompts, tokens["cpu"]], 1))
+    n_img = cfg.n_image_tokens if cfg.family == "vlm" else 0
+    rng = np.random.default_rng(2)
+    text = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 64 - n_img)))
+    patches = torch.from_numpy(rng.normal(
+        0, 1, (2, n_img, cfg.d_model)).astype(np.float32))
+    out = {}
+    for d, m in models.items():
+        cache = m.init_cache(3, seq.shape[1])
+        steps = [m.decode_step(cache, seq[:, t:t + 1].to(d), t)[0]
+                 for t in range(seq.shape[1])]
+        extra = {"patches": patches.to(d)} if n_img else None
+        out[str(d)] = (torch.cat(steps, 1).cpu(),
+                       m.prefill(text.to(d), extra=extra).cpu())
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_hybrid_prefill_on_cuda_runs_the_scan_kernel_once_a_layer(cuda):
+    """hymba's prefill with ``ssm_kernel=True`` launches B7 once per Mamba
+    layer, and its float32 logits are within 1e-4 of the chunked-scan
+    route's on the same weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.models import Model, reduced
+
+    cfg = reduced(get_config("hymba-1.5b"), dtype="float32", ssm_kernel=True)
+    model = Model(cfg, seed=0, device=cuda)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 64))).to(cuda)
+    before = ss.selective_scan_fwd_cuda.launches
+    kernel = model.prefill(tokens)
+    assert ss.selective_scan_fwd_cuda.launches - before == cfg.n_layers
+    model.cfg = dataclasses.replace(cfg, ssm_kernel=False)
+    chunked = model.prefill(tokens)
+    assert ss.selective_scan_fwd_cuda.launches - before == cfg.n_layers
+    assert torch.allclose(kernel, chunked, rtol=1e-4, atol=1e-4)

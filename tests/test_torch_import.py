@@ -67,7 +67,8 @@ def test_port_imports_neither_jax_nor_repro():
                  "repro_torch.analysis.registry",
                  "repro_torch.analysis.__main__",
                  "repro_torch.core.visualize", "repro_torch.core.reference",
-                 "repro_torch.traffic.trace"):
+                 "repro_torch.traffic.trace", "repro_torch.models.moe",
+                 "repro_torch.models.mla", "repro_torch.launch.serve"):
         assert name in rec["modules"]
     configs = [m for m in rec["modules"]
                if m.startswith("repro_torch.configs.")]
@@ -97,7 +98,8 @@ def test_evaluate_design_defaults_to_cuda_and_raises_without_it(no_gpu):
                                    "run_spec_solo", "serve_cli",
                                    "run_batch_torch", "fastsim_torch",
                                    "latency_vs_load_torch",
-                                   "analysis_audit_cli"])
+                                   "analysis_audit_cli", "launch_serve_cli",
+                                   "serve_generate"])
 def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     import numpy as np
     from repro_torch.core.latency import routed_diameter_batch
@@ -118,6 +120,7 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     from repro_torch.traffic import make_traffic
     from repro_torch.core.visualize import latency_vs_load
     from repro_torch.analysis.__main__ import main as analysis_main
+    from repro_torch.launch.serve import generate, main as launch_serve_main
 
     nh = np.tile(np.arange(4, dtype=np.int32)[None, :, None], (1, 1, 4))
     sim = fast_sim_from_design(make_design("mesh", 4),
@@ -155,6 +158,11 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
             make_design("mesh", 4), make_traffic("random_uniform", 4),
             rates=(0.1,), config=sim.cfg, backend="torch"),
         "analysis_audit_cli": lambda: analysis_main(["--audit"]),
+        "launch_serve_cli": lambda: launch_serve_main(
+            ["--arch", "qwen2.5-3b", "--reduced"]),
+        "serve_generate": lambda: generate(
+            Model(reduced(get_config("hymba-1.5b"))),
+            np.zeros((1, 4), np.int64), 2),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
