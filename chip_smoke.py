@@ -174,16 +174,35 @@ Phases, each fatal on error (exit code 1, no result line):
     logits against the chunked-scan route's within 1e-4; every config at
     ``reduced(cfg, dtype="float32")`` on the card against the CPU (greedy
     tokens equal, logits within rtol / atol 1e-5); decode ms per step and
-    tokens/s, prefill tokens/s, and the device idle share of a decode step.
+    tokens/s, prefill tokens/s, and the device idle share of a decode step;
+22. training every family: (a) whisper-medium at its published widths and
+    depth (24 encoder and 24 decoder layers, d_model 1024, vocab 51865,
+    1500 frames): forward and loss at 2 x 2048 tokens, the cross-KV cache
+    filled from the encoder, the decode step against the forward over the
+    first 64 positions (float32 within rtol/atol 0.05; bf16 reported),
+    ``launch.serve.generate`` with that cache (4 prompts of 16 tokens, 32
+    new, two runs equal), 4 AdamW steps; (b) qwen2.5-3b, olmoe-1b-7b,
+    deepseek-v2-lite-16b, hymba-1.5b and llava-next-34b at published widths
+    cut to 2 layers (phase 21's models of that cut reused), 4 AdamW steps
+    at 2 x 2048 (llava: 576 patches and 1472 tokens), losses finite, scan
+    launches as remat predicts; hymba's B7 and B8 held on every launch of
+    its first step against their plain versions on the layer's own inputs
+    at [2, 2048, 3200] (the scans' test bounds) and B8 timed there beside
+    its bound; build seconds, step ms, tokens/s, peak memory and the device
+    idle share of a step; (c) each of the six at ``reduced(cfg,
+    dtype="float32")`` on the card against the CPU (loss within rtol 1e-5,
+    gradient norm within rtol 1e-4); (d) hymba at reduced widths under
+    remat "dots", "full" and "none": losses and gradients bit-equal, the
+    scan launches each policy predicts.
 
-Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20, 21) is driven with every
-kernel's launch count set to 0 just before it and read just after; a path
-whose kernels were not launched fails the run. Launches made to compare a kernel with its
-plain version are not counted. The second-to-last line carries the card's
-name and power limit from nvidia-smi, the line before it the
-``{"kernels": [...]}`` record, and the last line
-``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
-repository's ``src/`` beside this file, it exits non-zero.
+Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20, 21, 22)
+is driven with every kernel's launch count set to 0 just before it and read
+just after; a path whose kernels were not launched fails the run. Launches
+made to compare a kernel with its plain version are not counted. The
+second-to-last line carries the card's name and power limit from
+nvidia-smi, the line before it the ``{"kernels": [...]}`` record, and the
+last line ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+without the repository's ``src/`` beside this file, it exits non-zero.
 """
 from __future__ import annotations
 
@@ -299,6 +318,18 @@ CARD_CPU_TOL = dict(rtol=1e-5, atol=1e-5)
 # and the other configs' logits by up to 3.5e-5 on the card, so the routes
 # are held at 1e-4 and B7 itself within SCAN_FWD_TOL on each layer's inputs
 ROUTE_LOGITS_TOL = dict(rtol=1e-4, atol=1e-4)
+# training every family (phase 22): whisper-medium at its published widths
+# and depth; the others at published widths cut to SERVE_LAYERS, batch
+# TRAIN_BATCH x TRAIN_SEQ, FAMILY_STEPS AdamW steps at TRAIN_LR; each at
+# reduced(cfg, float32) against the CPU (loss within CARD_CPU_TOL's rtol,
+# the gradient norm within CARD_CPU_GRAD_RTOL: f32 sums in another order
+# over every leaf); the remat policies on REMAT_ARCH at reduced widths
+ENCDEC_ARCH = "whisper-medium"
+FAMILY_ARCHS = ("qwen2.5-3b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
+                "hymba-1.5b", "llava-next-34b")
+FAMILY_STEPS = 4
+CARD_CPU_GRAD_RTOL = 1e-4
+REMAT_ARCH = "hymba-1.5b"
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
@@ -985,6 +1016,49 @@ def scan_inputs(torch, rng, B, S, Di, N, dev):
             f(a), f(np.zeros((B, Di, N))), f(rng.normal(0, 1, (B, S, Di))))
 
 
+def scan_bounds(B: int, S: int, Di: int, N: int, chunk: int,
+                clock_hz: float) -> tuple[dict, dict]:
+    """The least times of the scan forward (B7) and backward (B8) at one
+    shape: the larger of their bytes over the memory rate and their exps
+    (the SFU's rate) or flops over the float32 peak."""
+    elems = B * S * Di * N
+    f32 = 4.0
+    exp_per_s = SMS * SFU_PER_SM * clock_hz
+
+    def bound(nbytes, exps, flops):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = max(exps / exp_per_s, flops / FP32_OPS_PER_S) * 1e3
+        return {"bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "exps": exps, "flops": flops}
+
+    seq_io = B * S * Di * f32
+    small = (2 * B * S * N + Di * N + B * Di * N) * f32
+    ckpt_bytes = B * (S // chunk) * Di * N * f32
+    # forward: x, dt in; y out; B, C, a, h0, hT; the checkpoints. One exp
+    # per state update; dt*a, dx*B, the update FMA and the y FMA: 6 flops.
+    # backward: x, dt, dy in; dx, ddt out; B, C, a, dB, dC, dA, dh0; the
+    # checkpoints. The states must be recomputed once (one exp each, reused
+    # by the reverse walk); about 18 flops per state in the recomputation
+    # and the adjoint step
+    return (bound(3 * seq_io + small + B * Di * N * f32 + ckpt_bytes,
+                  elems, 6 * elems),
+            bound(5 * seq_io + 2 * small + B * Di * N * f32 + ckpt_bytes,
+                  elems, 18 * elems))
+
+
+def scan_launches(cfg, steps: int) -> dict:
+    """The B7 and B8 launches of ``steps`` training steps of ``cfg``: each
+    Mamba layer's scan runs once forward and once backward a step, and its
+    forward once more under remat, "dots" as "full" (the policy sees the
+    dispatched ops only, and B7 sits behind an autograd function that calls
+    it through ctypes, so it is recomputed)."""
+    layers = cfg.n_layers if cfg.uses_ssm else 0
+    passes = 1 if cfg.remat == "none" else 2
+    return {"selective_scan_fwd": passes * layers * steps,
+            "selective_scan_bwd": layers * steps}
+
+
 def scan_and_training_paths(torch, dev, zero_counts, read_counts,
                             clock_hz, one_thread_fwd) -> tuple[list[dict],
                                                               dict]:
@@ -1060,21 +1134,7 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
         f"bit-equal; a sequence alone bit-equal to it in the batch")
 
     # timing at the path's shape; bounds from its bytes and its exps/flops
-    B, S, _, _, _ = path_shape
-    elems = B * S * Di * N
-    f32 = 4.0
-    exp_per_s = SMS * SFU_PER_SM * clock_hz
-
-    def bound(nbytes, exps, flops):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = max(exps / exp_per_s, flops / FP32_OPS_PER_S) * 1e3
-        return {"bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "exps": exps, "flops": flops}
-
-    seq_io = B * S * Di * f32
-    small = (2 * B * S * N + Di * N + B * Di * N) * f32
-    ckpt_bytes = B * (S // chunk) * Di * N * f32
+    fwd_bound, bwd_bound = scan_bounds(*path_shape, clock_hz)
     fwd_call = lambda: ss.selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0,
                                                   chunk=chunk)
     fwd_ms = time_cuda(torch, fwd_call, reps=10)
@@ -1091,11 +1151,7 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
         "enqueue_ms": enqueue_ms(torch, fwd_call, reps=10),
         "plain_ms": time_cuda(torch, lambda: ss.selective_scan_fwd_plain(
             xc, dt, bm, cm, a, h0, chunk=chunk), reps=2, warmup=1),
-        "library_ms": None,
-        # x, dt in; y out; B, C, a, h0, hT; the checkpoints. One exp per
-        # state update; dt*a, dx*B, the update FMA and the y FMA: 6 flops
-        **bound(3 * seq_io + small + B * Di * N * f32 + ckpt_bytes,
-                elems, 6 * elems)}
+        "library_ms": None, **fwd_bound}
     bwd_rec = {
         "name": "selective_scan_bwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
@@ -1105,13 +1161,7 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
         "enqueue_ms": enqueue_ms(torch, bwd_call, reps=10),
         "plain_ms": time_cuda(torch, lambda: ss.selective_scan_bwd_plain(
             xc, dt, bm, cm, a, ckpt, dy, chunk=chunk), reps=1, warmup=1),
-        "library_ms": None,
-        # x, dt, dy in; dx, ddt out; B, C, a, dB, dC, dA, dh0; the
-        # checkpoints. The states must be recomputed once (one exp each,
-        # reused by the reverse walk); about 18 flops per state in the
-        # recomputation and the adjoint step
-        **bound(5 * seq_io + 2 * small + B * Di * N * f32 + ckpt_bytes,
-                elems, 18 * elems)}
+        "library_ms": None, **bwd_bound}
     del xc, dt, bm, cm, a, h0, dy, ckpt, fk, fp, f0, bk, bp, fk2, bk2
     log(f"phase 12: at {path_shape}: forward {fwd_ms:.4f} ms (bound "
         f"{fwd_rec['bound_ms']:.4f}, {fwd_rec['bound_by']}), backward "
@@ -1133,9 +1183,7 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
                                       "selective_scan_bwd"))
     counts = {k: counts[k] for k in ("selective_scan_fwd",
                                      "selective_scan_bwd")}
-    # remat re-runs each layer's forward inside its backward
-    expected = {"selective_scan_fwd": 2 * TRAIN_LAYERS * TRAIN_STEPS,
-                "selective_scan_bwd": TRAIN_LAYERS * TRAIN_STEPS}
+    expected = scan_launches(cfg, TRAIN_STEPS)
     if counts != expected:
         fail(f"phase 13: scan launches {counts}, remat predicts {expected}")
     if not (len(losses) == TRAIN_STEPS and np.all(np.isfinite(losses))
@@ -2362,7 +2410,8 @@ def analysis_path(torch, dev, zero_counts, read_counts) -> dict:
     return rec
 
 
-def serve_models_path(torch, dev, zero_counts, read_counts) -> dict:
+def serve_models_path(torch, dev, zero_counts, read_counts,
+                      kept: dict) -> dict:
     """Phase 21: ``repro_torch.launch.serve`` for every decoder-only config
     at its published widths, one model at a time. Per config: B7 held at
     the prefill (Mamba configs, float32: each launch within
@@ -2376,7 +2425,9 @@ def serve_models_path(torch, dev, zero_counts, read_counts) -> dict:
     ``DECODE_TOL`` in float32 and measured in the config's dtype; hymba's
     ring buffer at ``RING_WINDOW`` (float32); then every
     config at ``reduced(cfg, dtype="float32")`` on the card against the
-    CPU. Returns the phase's record."""
+    CPU. The models of the configs that phase 22 trains at the same cut
+    (``FAMILY_ARCHS``) stay on the card in ``kept``. Returns the phase's
+    record."""
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ss
@@ -2606,6 +2657,8 @@ def serve_models_path(torch, dev, zero_counts, read_counts) -> dict:
             f"{gate_err}; B7 launches {counts['selective_scan_fwd']}"
             + (f"; ring {rec['ring']['max_abs_err']:.4g}" if "ring" in rec
                else ""))
+        if arch in FAMILY_ARCHS and arch not in SERVE_FULL_DEPTH:
+            kept[arch] = (model, build_s)
         del model, step, checked, params, lg, pre_tok, gate_tok, extra
         torch.cuda.empty_cache()
 
@@ -2649,6 +2702,369 @@ def serve_models_path(torch, dev, zero_counts, read_counts) -> dict:
         f"the card equal the CPU's, logits within {CARD_CPU_TOL} "
         f"(largest {max(max(e.values()) for e in card_cpu.values()):.3g})")
     return {"configs": per, "card_vs_cpu_max_abs_err": card_cpu}
+
+
+def train_families_path(torch, dev, zero_counts, read_counts, clock_hz,
+                        kept: dict) -> dict:
+    """Phase 22: training every family on the card. (a) whisper-medium at
+    its published widths and depth: forward and loss at 2 x 2048 tokens
+    over 1500 frames, the cross-KV cache filled from the encoder, the
+    decode step against the forward over ``DECODE_POSITIONS`` (float32
+    within ``DECODE_TOL``; bf16 measured), ``launch.serve.generate`` with
+    the filled cache (two greedy runs equal), ``FAMILY_STEPS`` AdamW steps.
+    (b) The other families at published widths cut to ``SERVE_LAYERS``,
+    ``FAMILY_STEPS`` steps each (the models phase 21 drew at that cut taken
+    from ``kept``); hymba's B7 and B8 held on each launch of its first step
+    against the plain scans on the layer's own inputs, and B8 timed at that
+    shape beside its bound. Every family's scan launches as its remat
+    predicts, its losses finite; step ms, tokens/s, peak memory and the
+    device idle share of one step. (c) Each family at ``reduced(cfg,
+    float32)``: loss and gradient norm on the card against the CPU. (d)
+    hymba at reduced widths under remat "dots", "full" and "none": equal
+    losses and gradients, launches as each policy predicts. Returns the
+    phase's record."""
+    import contextlib
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_pipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.serve import generate
+    from repro_torch.launch.train import build_state, to_device
+    from repro_torch.models import Model, reduced
+    from repro_torch.models import layers as L
+    from repro_torch.train import OptConfig, make_train_step
+    from repro_torch.train.optimizer import global_norm
+
+    card = card_line()
+    ocfg = OptConfig(learning_rate=TRAIN_LR, warmup_steps=0,
+                     decay_steps=FAMILY_STEPS)
+    n_tok = TRAIN_BATCH * TRAIN_SEQ
+
+    def max_err(a, b) -> float:
+        return (a.float() - b.float()).abs().max().item()
+
+    @contextlib.contextmanager
+    def scans_held(errs: dict, last: dict):
+        """Each B7 / B8 launch inside held against its plain version on the
+        same inputs (those comparisons launch nothing)."""
+        route = {"fwd": ops.selective_scan_fwd, "bwd": ops.selective_scan_bwd}
+        plain = {"fwd": ss.selective_scan_fwd_plain,
+                 "bwd": ss.selective_scan_bwd_plain}
+        tol = {"fwd": SCAN_FWD_TOL, "bwd": SCAN_BWD_TOL}
+
+        def held(which):
+            def call(*args, chunk):
+                got = route[which](*args, chunk=chunk)
+                args = [t.contiguous() for t in args]
+                want = plain[which](*args, chunk=chunk)
+                errs[which].append(max(max_err(g, w)
+                                       for g, w in zip(got, want)))
+                if not all(torch.allclose(g, w, **tol[which])
+                           for g, w in zip(got, want)):
+                    fail(f"phase 22: B{7 if which == 'fwd' else 8} differs "
+                         f"from its plain version by {errs[which][-1]} at "
+                         f"{tuple(args[0].shape)}")
+                last[which] = (args, chunk)
+                return got
+            return call
+
+        ops.selective_scan_fwd = held("fwd")
+        ops.selective_scan_bwd = held("bwd")
+        try:
+            yield
+        finally:
+            ops.selective_scan_fwd = route["fwd"]
+            ops.selective_scan_bwd = route["bwd"]
+
+    def train_steps(model, path: str, holds=None) -> dict:
+        """FAMILY_STEPS AdamW steps on the data pipeline's batches (the
+        first under ``holds``), the launch counts zeroed before and read
+        after; then one step under the profiler. The peak is the process's
+        less what the models kept for later families hold."""
+        cfg = model.cfg
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        others = torch.cuda.memory_allocated() - sum(
+            p.numel() * p.element_size() for p in model.parameters())
+        source = make_pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+        state = build_state(model, "adamw")
+        step = make_train_step(model, ocfg)
+        losses, step_s = [], []
+        zero_counts()
+        for i in range(FAMILY_STEPS):
+            batch = to_device(source.batch_at(i), dev)
+            ctx = holds if (holds is not None and i == 0) else \
+                contextlib.nullcontext()
+            t0 = time.perf_counter()
+            with ctx:
+                state, m = step(state, batch)
+            losses.append(m["loss"].item())
+            step_s.append(time.perf_counter() - t0)
+        counts = read_counts(path, ("selective_scan_fwd",
+                                    "selective_scan_bwd")
+                             if cfg.uses_ssm else ())
+        want = scan_launches(cfg, FAMILY_STEPS)
+        scans = {k: counts[k] for k in want}
+        if scans != want or any(n for k, n in counts.items()
+                                if k not in scans):
+            fail(f"phase 22: {path} launched {counts}; remat "
+                 f"{cfg.remat!r} predicts {want}")
+        if not np.all(np.isfinite(losses)):
+            fail(f"phase 22: {path} losses {losses} are not finite")
+        peak = torch.cuda.max_memory_allocated() - others
+        wall_s, busy_s, top = profile_device(
+            torch, lambda: step(state, batch), n_top=5)
+        step_ms = statistics.median(step_s[1:]) * 1e3
+        del state, step, batch
+        return {"losses": losses, "step_ms": step_ms,
+                "first_step_ms": step_s[0] * 1e3,
+                "tokens_per_s": n_tok / (step_ms / 1e3),
+                "peak_alloc_bytes": peak, "other_models_bytes": others,
+                "profiled_step_ms": wall_s * 1e3,
+                "device_busy_ms": busy_s * 1e3,
+                "device_idle_share": 1.0 - busy_s / wall_s,
+                "top_device_us": dict(top), "launches": scans}
+
+    def family_line(arch, rec) -> str:
+        return (f"phase 22: {arch} ({rec['layers']} layers, "
+                f"{rec['n_params']} parameters): build_s "
+                f"{rec['build_s']:.1f}, step {rec['step_ms']:.1f} ms, "
+                f"{rec['tokens_per_s']:.0f} tokens/s, peak "
+                f"{rec['peak_alloc_bytes'] / 1e9:.2f} GB, device idle "
+                f"{rec['device_idle_share']:.4f}; losses {rec['losses']}; "
+                f"scan launches {rec['launches']} ({card})")
+
+    per: dict[str, dict] = {}
+    rng = np.random.default_rng(22)
+
+    def f32(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    # -- (a) whisper-medium at its published widths and depth --------------
+    cfg = get_config(ENCDEC_ARCH)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = Model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = model.params()
+    T, D, V = cfg.n_audio_frames, cfg.d_model, cfg.vocab_size
+    tok = torch.from_numpy(rng.integers(0, V, (TRAIN_BATCH,
+                                               TRAIN_SEQ + 1))).to(dev)
+    frames = f32(rng.normal(0, 1, (TRAIN_BATCH, T, D)))
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:], "frames": frames}
+    zero_counts()
+    with torch.no_grad():
+        x, _ = model(batch["tokens"], params, extra={"frames": frames})
+        loss, metrics = model.loss(batch, params=params)
+    if not (x.shape == (TRAIN_BATCH, TRAIN_SEQ, D)
+            and torch.isfinite(x).all().item()
+            and np.isfinite(loss.item())
+            and metrics["ce"].item() < 2 * np.log(V)):
+        fail(f"phase 22: whisper forward {tuple(x.shape)} / loss "
+             f"{loss.item()} not finite or not near log(vocab)")
+    wrec = {"layers": len(model.blocks),
+            "encoder_layers": len(model.enc_blocks), "frames": T,
+            "n_params": sum(p.numel() for p in model.parameters()),
+            "build_s": build_s, "forward_loss": loss.item()}
+    del x, loss, metrics
+
+    def decode_vs_forward(dtype) -> float:
+        model.cfg = cfg.replace(dtype=dtype)
+        dt = model.cfg.compute_dtype
+        n = DECODE_POSITIONS
+        with torch.no_grad():
+            x, _ = model(batch["tokens"][:, :n], params,
+                         extra={"frames": frames})
+            full = L.unembed(params["unembed"], x, cfg.logit_softcap).float()
+            enc, _ = model._encode(frames.to(dt), params)
+        cache = model.init_cache(TRAIN_BATCH, n)
+        cache["cross_k"], cache["cross_v"] = model.cross_kv(enc, params)
+        dec = torch.stack([model.decode_step(
+            cache, batch["tokens"][:, t:t + 1], t, params)[0][:, 0].float()
+            for t in range(n)], 1)
+        err = max_err(dec, full)
+        if dtype == "float32" and not torch.allclose(dec, full,
+                                                     **DECODE_TOL):
+            fail(f"phase 22: whisper float32 decode logits differ from the "
+                 f"forward's by {err} over the first {n} positions")
+        return err
+
+    gate_err = {d: decode_vs_forward(d)
+                for d in dict.fromkeys(("float32", cfg.dtype))}
+    model.cfg = cfg
+    # greedy decode through launch.serve.generate, its cache's cross keys
+    # and values filled from the encoder
+    frames4 = f32(rng.normal(0, 1, (SERVE_BATCH, T, D)))
+    with torch.no_grad():
+        enc4, _ = model._encode(frames4.to(cfg.compute_dtype), params)
+    cross = model.cross_kv(enc4, params)
+    init_cache, decode_step = model.init_cache, model.decode_step
+    finite = []
+
+    def filled(b, max_len):
+        cache = init_cache(b, max_len)
+        cache["cross_k"], cache["cross_v"] = cross
+        return cache
+
+    def checked(cache, tokens, pos, params=None):
+        lg, cache = decode_step(cache, tokens, pos, params)
+        finite.append(torch.isfinite(lg).all())
+        return lg, cache
+
+    model.init_cache, model.decode_step = filled, checked
+    prompts = np.random.default_rng(0).integers(0, V, (SERVE_BATCH,
+                                                       SERVE_PROMPT))
+    tokens = generate(model, prompts, SERVE_NEW, params=params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = generate(model, prompts, SERVE_NEW, params=params)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    del model.init_cache, model.decode_step
+    if not torch.stack(finite).all().item():
+        fail("phase 22: whisper generate gave non-finite logits")
+    if not np.array_equal(tokens, again):
+        fail("phase 22: whisper's two greedy runs gave other tokens")
+    read_counts("whisper_serve", ())
+    n_steps = SERVE_PROMPT + SERVE_NEW
+    wrec.update({"decode_vs_forward_max_abs_err": gate_err,
+                 "generate_s": gen_s,
+                 "decode_ms_per_step": gen_s / n_steps * 1e3,
+                 "decode_tokens_per_s": SERVE_BATCH * n_steps / gen_s,
+                 "sample_tokens": tokens[0, :8].tolist()})
+    del cross, enc4, frames4, params, batch, frames, tok
+    torch.cuda.empty_cache()
+    wrec.update(train_steps(model, f"train_{ENCDEC_ARCH}"))
+    per[ENCDEC_ARCH] = wrec
+    log(family_line(ENCDEC_ARCH, wrec))
+    log(f"phase 22: whisper decode vs forward {gate_err} over "
+        f"{DECODE_POSITIONS} positions; generate "
+        f"{wrec['decode_ms_per_step']:.2f} ms/step "
+        f"({wrec['decode_tokens_per_s']:.1f} tokens/s) ({card})")
+    del model
+    torch.cuda.empty_cache()
+
+    # -- (b) the other families, cut to SERVE_LAYERS ------------------------
+    b8 = None
+    for arch in FAMILY_ARCHS:
+        published = get_config(arch)
+        cfg = published.replace(n_layers=SERVE_LAYERS)
+        if cfg.uses_ssm:
+            cfg = cfg.replace(ssm_kernel=True)
+        model, build_s = kept.pop(arch, (None, None))
+        reused = model is not None and model.cfg == cfg
+        if not reused:
+            model = None
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            model = Model(cfg, seed=0, device=dev)
+            torch.cuda.synchronize()
+            build_s = time.perf_counter() - t0
+        rec = {"layers": len(model.dense_blocks) + len(model.blocks),
+               "first_dense_layers": len(model.dense_blocks),
+               "reduced": {"n_layers": [published.n_layers, SERVE_LAYERS]},
+               "n_params": sum(p.numel() for p in model.parameters()),
+               "build_s": build_s, "drawn_in_phase_21": reused}
+        errs, last = {"fwd": [], "bwd": []}, {}
+        holds = scans_held(errs, last) if cfg.uses_ssm else None
+        rec.update(train_steps(model, f"train_{arch}", holds))
+        if cfg.uses_ssm:
+            args, chunk = last["bwd"]
+            shape = [*args[0].shape, args[2].shape[-1]]
+            want = scan_launches(cfg, 1)
+            if (len(errs["fwd"]), len(errs["bwd"])) != (
+                    want["selective_scan_fwd"], want["selective_scan_bwd"]):
+                fail(f"phase 22: {arch}'s first step held "
+                     f"{len(errs['fwd'])} B7 and {len(errs['bwd'])} B8 "
+                     f"launches, not {want}")
+
+            def call():
+                return ss.selective_scan_bwd_cuda(*args, chunk=chunk)
+
+            _, bwd_bound = scan_bounds(*shape, chunk, clock_hz)
+            b8 = {"arch": arch, "shape": shape, "chunk": chunk,
+                  "ms": time_cuda(torch, call, reps=5),
+                  **call_device_ms(torch, call, SCAN_BWD_KERNELS, reps=5),
+                  "plain_ms": time_cuda(
+                      torch, lambda: ss.selective_scan_bwd_plain(
+                          *args, chunk=chunk), reps=1, warmup=1),
+                  **bwd_bound, "max_abs_err": max(errs["bwd"]),
+                  "b7_max_abs_err": max(errs["fwd"]),
+                  "held_launches": {"fwd": len(errs["fwd"]),
+                                    "bwd": len(errs["bwd"])}}
+            rec["scans_held"] = b8
+            log(f"phase 22: {arch} B7 / B8 on each launch of a step within "
+                f"{SCAN_FWD_TOL} / {SCAN_BWD_TOL} of plain at {shape} "
+                f"(max abs err {b8['b7_max_abs_err']:.3g} / "
+                f"{b8['max_abs_err']:.3g}); B8 {b8['ms']:.4f} ms (device "
+                f"{b8['device_ms']:.4f}, bound {b8['bound_ms']:.4f} "
+                f"{b8['bound_by']}, plain {b8['plain_ms']:.1f}) ({card})")
+            del args, last, call
+        per[arch] = rec
+        log(family_line(arch, rec))
+        del model
+        torch.cuda.empty_cache()
+    if b8 is None:
+        fail("phase 22: no trained family ran the scan kernels")
+
+    # -- (c) the card against the CPU at reduced(cfg, float32) --------------
+    card_cpu = {}
+    for arch in (ENCDEC_ARCH,) + FAMILY_ARCHS:
+        rc = reduced(get_config(arch), dtype="float32")
+        if rc.uses_ssm:
+            rc = rc.replace(ssm_kernel=True)
+        host = make_pipeline(rc, 2, 64, seed=1).batch_at(0)
+
+        def loss_and_norm(d):
+            m = Model(rc, seed=0, device=d)
+            loss, _ = m.loss(to_device(host, torch.device(d)))
+            grads = torch.autograd.grad(loss, list(m.parameters()))
+            return loss.item(), global_norm(dict(enumerate(grads))).item()
+
+        (lc, gc), (lg, gg) = loss_and_norm("cpu"), loss_and_norm(dev)
+        card_cpu[arch] = {"loss_rel": abs(lg / lc - 1),
+                          "grad_norm_rel": abs(gg / gc - 1)}
+        if not (card_cpu[arch]["loss_rel"] <= CARD_CPU_TOL["rtol"]
+                and card_cpu[arch]["grad_norm_rel"] <= CARD_CPU_GRAD_RTOL):
+            fail(f"phase 22: {arch} reduced float32 loss {lg} / gradient "
+                 f"norm {gg} on the card vs {lc} / {gc} on the CPU")
+    log(f"phase 22: every family at reduced(cfg, float32): loss within rtol "
+        f"{CARD_CPU_TOL['rtol']} and gradient norm within "
+        f"{CARD_CPU_GRAD_RTOL} of the CPU's ({card_cpu}) ({card})")
+
+    # -- (d) remat "dots" against "full" and "none" on the card ------------
+    rc = reduced(get_config(REMAT_ARCH), ssm_kernel=True)
+    host = make_pipeline(rc, 2, 128, seed=2).batch_at(0)
+    remat = {}
+    for policy in ("dots", "full", "none"):
+        m = Model(rc.replace(remat=policy), seed=0, device=dev)
+        zero_counts()
+        loss, _ = m.loss(to_device(host, dev))
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        torch.cuda.synchronize()
+        counts = read_counts(f"remat_{policy}", ("selective_scan_fwd",
+                                                 "selective_scan_bwd"))
+        want = scan_launches(m.cfg, 1)
+        if {k: counts[k] for k in want} != want:
+            fail(f"phase 22: remat {policy!r} launched {counts}, it "
+                 f"predicts {want}")
+        remat[policy] = (loss.detach(), grads, want)
+        del m
+    for policy in ("full", "none"):
+        if not (torch.equal(remat["dots"][0], remat[policy][0])
+                and all(torch.equal(a, b) for a, b in
+                        zip(remat["dots"][1], remat[policy][1]))):
+            fail(f"phase 22: remat 'dots' and {policy!r} give other losses "
+                 f"or gradients")
+    launches = {k: v[2] for k, v in remat.items()}
+    log(f"phase 22: {REMAT_ARCH} (reduced, {rc.n_layers} layers) remat "
+        f"'dots' == 'full' == 'none' bit for bit; scan launches {launches} "
+        f"({card})")
+    return {"card": card, "families": per, "b8_hybrid": b8,
+            "card_vs_cpu": card_cpu, "remat_launches": launches,
+            "remat_loss": remat["dots"][0].item()}
 
 
 def main() -> None:
@@ -3012,12 +3428,26 @@ def run_phases() -> None:
     # -- 21. serving every decoder-only config ---------------------------------
     phases_1_20_s = time.perf_counter() - t_start
     t0 = time.perf_counter()
-    serve_models_rec = serve_models_path(torch, dev, zero_counts, read_counts)
+    kept: dict = {}
+    serve_models_rec = serve_models_path(torch, dev, zero_counts, read_counts,
+                                         kept)
     serve_models_rec.update(phase_s=time.perf_counter() - t0,
                             phases_1_20_s=phases_1_20_s)
     print(json.dumps({"serve_models": serve_models_rec}), flush=True)
     log(f"phase 21: {serve_models_rec['phase_s']:.1f} s (phases 1-20 took "
         f"{phases_1_20_s:.1f} s)")
+
+    # -- 22. training every family -------------------------------------------
+    t0 = time.perf_counter()
+    train_rec = train_families_path(torch, dev, zero_counts, read_counts,
+                                    max_sm_clock_hz(), kept)
+    train_rec["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"train_families": train_rec}), flush=True)
+    log(f"phase 22: {train_rec['phase_s']:.1f} s ({train_rec['card']})")
+    scan_records[1]["at_hybrid_width"] = {
+        k: train_rec["b8_hybrid"][k] for k in (
+            "arch", "shape", "ms", "device_ms", "plain_ms", "bound_ms",
+            "bound_by", "max_abs_err")}
 
     totals = {name: sum(c[name] for c in path_launches.values())
               for name in kernels}

@@ -751,6 +751,10 @@ class ParametricPipeline:
 
         return _pending(self.device, finish)
 
+    def evaluate(self, genomes: np.ndarray) -> GenomeEvalResult:
+        """Blocking wrapper over ``evaluate_async``."""
+        return self.evaluate_async(genomes).result()
+
 
 def make_pipeline(space, device):
     """Pipeline for a search space on ``device``, or None when only the host

@@ -10,10 +10,9 @@ batches on a background thread, trains with AdamW or Adafactor, and
 checkpoints every ``--ckpt-interval`` steps and on SIGTERM (preemption:
 the handler sets a flag, the loop saves after the step in flight and
 exits). The reference's mesh arguments (ROADMAP Queue A 12) are not
-ported. The port's ``Model`` implements the decoder-only families
-(``--reduced`` for the CPU-scale config); what is held on the card is
-falcon-mamba-7b's training (the other families' training comes with ROADMAP
-Queue A 14b, whisper's encoder-decoder after it).
+ported. Every architecture trains (``--reduced`` for the CPU-scale
+config); the data pipeline adds the VLM's patch embeddings and whisper's
+frame embeddings to each batch.
 """
 from __future__ import annotations
 

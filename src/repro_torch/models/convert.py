@@ -4,10 +4,12 @@ The reference keeps its parameters as a nested dict with the blocks stacked
 on a leading layer axis by ``jax.vmap`` (``src/repro/models/model.py``,
 ``init_params``); the port's ``Model`` has one module per layer.
 ``flatten_reference`` maps such a tree (of parameters, or of gradients) to
-the port's parameter names, unstacking the blocks and numbering the list
-of DeepSeek's leading dense blocks (``dense_blocks.<i>.*``), and
-``load_reference_params`` copies it into a model, so a test can hand the
-same parameters to both packages and compare gradients leaf by leaf.
+the port's parameter names, unstacking the blocks (whisper's encoder
+blocks too) and numbering the list of DeepSeek's leading dense blocks
+(``dense_blocks.<i>.*``); top-level leaves (whisper's ``pos_embed``) keep
+their names. ``load_reference_params`` copies it into a model, so a test
+can hand the same parameters to both packages and compare gradients leaf
+by leaf.
 """
 from __future__ import annotations
 
@@ -27,19 +29,19 @@ def _flatten(tree, prefix: str, out: dict) -> None:
 
 
 def flatten_reference(tree: dict) -> dict[str, np.ndarray]:
-    """Reference tree -> {port parameter name: array}: ``blocks`` is
-    unstacked along its leading layer axis into ``blocks.<i>.*``, and a list
-    (``dense_blocks``, or the port's own ``Model.params()`` blocks) is
-    numbered in order."""
+    """Reference tree -> {port parameter name: array}: ``blocks`` and
+    ``enc_blocks`` are unstacked along their leading layer axis into
+    ``blocks.<i>.*`` and ``enc_blocks.<i>.*``, and a list (``dense_blocks``,
+    or the port's own ``Model.params()`` blocks) is numbered in order."""
     out: dict[str, np.ndarray] = {}
     for key, sub in tree.items():
-        if key == "blocks" and isinstance(sub, dict):
+        if key in ("blocks", "enc_blocks") and isinstance(sub, dict):
             stacked: dict[str, np.ndarray] = {}
             _flatten(sub, "", stacked)
             n_layers = len(next(iter(stacked.values())))
             for i in range(n_layers):
                 for name, arr in stacked.items():
-                    out[f"blocks.{i}.{name}"] = arr[i]
+                    out[f"{key}.{i}.{name}"] = arr[i]
         else:
             _flatten(sub, f"{key}.", out)
     return out

@@ -1,10 +1,10 @@
 """Shared layers in PyTorch; port of ``src/repro/models/layers.py``: the
-dense initialiser, RMSNorm, RoPE (full and partial rotary), the embedding
-and the unembedding, the MLPs (swiglu, relu2, gelu), and attention (plain
-grouped-query scores, the online-softmax flash form with its banded
-sliding-window iteration, and the sublayer that picks between them).
-LayerNorm comes with the encoder-decoder family (ROADMAP Queue A 14b), and
-the context-parallel flash form, which needs a mesh, with A12.
+dense initialiser, RMSNorm and LayerNorm, RoPE (full and partial rotary),
+the embedding and the unembedding, the MLPs (swiglu, relu2, gelu), and
+attention (plain grouped-query scores, the online-softmax flash form with
+its banded sliding-window iteration, and the sublayer that picks between
+them). The context-parallel flash form, which needs a mesh, comes with
+ROADMAP Queue A 12.
 
 Functions take a param dict and activations, as the reference's do; the
 reference's logical-axis ``shard`` annotations are dropped (one device).
@@ -47,6 +47,22 @@ def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = torch.mean(torch.square(x32), dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * p["scale"]).to(dt)
+
+
+def init_layernorm(d: int, device=None) -> Params:
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm with its statistics in f32 (the population variance, as
+    ``jnp.var``), a scale and a bias; the result in x's dtype."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x32 - mu), dim=-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * p["scale"] + p["bias"]).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -244,7 +260,15 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool,
     diagonal blocks when the band is longer than the sequence (hymba's 2048
     window at 2048 positions in blocks of 1024: q block 0 sees no valid
     block); the port keeps the whole band and is the reference's wherever
-    the cap does not bind (ROADMAP Queue C)."""
+    the cap does not bind (ROADMAP Queue C).
+
+    Padded keys are always masked. The reference masks them only through
+    their positions, which a causal or windowed mask catches and a
+    non-causal one does not: there, without a ``kv_mask``, its zero keys
+    enter the softmax (whisper's encoder at a frame count at or above the
+    chunk threshold and off a multiple of ``block_kv``); the port is the
+    reference wherever no key is padded or the mask is causal (ROADMAP
+    Queue C)."""
     b, sq, h, dh = q.shape
     hk = k.shape[2]
     g = h // hk                    # grouped GQA: no KV repeat materialised
@@ -261,8 +285,9 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool,
         k = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
         v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
         kv_positions = F.pad(kv_positions, (0, pad_kv), value=KV_PAD_POS)
-        if kv_mask is not None:
-            kv_mask = F.pad(kv_mask, (0, pad_kv), value=False)
+        if kv_mask is None:
+            kv_mask = torch.ones((b, skv), dtype=torch.bool, device=q.device)
+        kv_mask = F.pad(kv_mask, (0, pad_kv), value=False)
     nq = q.shape[1] // block_q
     nkv = k.shape[1] // block_kv
     scale = 1.0 / math.sqrt(dh)
@@ -345,6 +370,7 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 __all__ = ["Params", "_dense_init", "init_rmsnorm", "rmsnorm",
+           "init_layernorm", "layernorm",
            "rope_frequencies", "apply_rope", "init_embedding", "embed",
            "init_unembed", "unembed", "init_mlp", "activate", "mlp",
            "init_attention", "project_heads", "merge_heads", "qkv_project",

@@ -1,23 +1,29 @@
 """Model facade in PyTorch; port of ``src/repro/models/model.py`` for every
-decoder-only family (dense and MoE decoders, MLA, Mamba-only, the parallel
-attention + Mamba hybrid, and the VLM backbone with its patch prefix):
-init, forward, the chunked next-token loss, the KV/state caches, the
-one-token decode step and the fused prefill.
+family: dense and MoE decoders, MLA, Mamba-only, the parallel attention +
+Mamba hybrid, the VLM backbone with its patch prefix, and the whisper
+encoder-decoder (LayerNorm blocks, an encoder over stub frame embeddings,
+cross-attention, learned positions): init, forward, the chunked next-token
+loss, the KV/state caches, the one-token decode step and the fused
+prefill.
 
 ``Model`` is an ``nn.Module`` whose parameters carry the reference's tree
 paths as names (``embed.table``, ``dense_blocks.<i>.mlp.wi``,
 ``blocks.<i>.attn.wq``, ``blocks.<i>.mlp.shared.wo``, ``ln_f.scale``,
-``unembed.w``). The reference stacks the blocks on a leading layer axis and
-scans over it; the port keeps one module per layer and loops
-(``models/convert.py`` moves parameters between the two layouts). The
-caches keep the reference's layout (``{"scan": {name: [L, ...]}, "dense":
-[{name: [1, ...]}]}``), and ``decode_step`` writes the new token's entries
-into them in place. ``remat="full"`` wraps each block and each
-cross-entropy chunk in ``torch.utils.checkpoint`` (non-reentrant), where
-the reference used ``jax.checkpoint``.
-
-The encoder-decoder family (whisper) and ``remat="dots"`` wait for the next
-slice (ROADMAP Queue A 14b) and raise.
+``unembed.w``, ``enc_blocks.<i>.attn.wq``, ``pos_embed``). The reference
+stacks the blocks on a leading layer axis and scans over it; the port keeps
+one module per layer and loops (``models/convert.py`` moves parameters
+between the two layouts). The caches keep the reference's layout
+(``{"scan": {name: [L, ...]}, "dense": [{name: [1, ...]}]}``, and whisper's
+``cross_k`` / ``cross_v``), and ``decode_step`` writes the new token's
+entries into them in place. Remat wraps what the reference's ``_remat``
+wraps (each block, each encoder attention half, each cross-entropy chunk)
+in ``torch.utils.checkpoint`` (non-reentrant): ``"full"`` recomputes the
+whole forward in backward, as ``jax.checkpoint``; ``"dots"`` saves the
+outputs of the matrix products and recomputes the rest, as
+``jax.checkpoint_policies.checkpoint_dots``. The selective-scan kernels
+sit behind an autograd function that calls them through ``ctypes``, which
+no dispatch policy sees, so under either policy B7 runs again in backward,
+as the reference recomputes its Pallas call.
 """
 from __future__ import annotations
 
@@ -25,7 +31,8 @@ from typing import Any
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import layers as L
 from . import mla as MLA
@@ -35,21 +42,6 @@ from ..utils.device import resolve_device
 from .config import ModelConfig
 
 Params = dict[str, Any]
-
-_NEXT = "ROADMAP Queue A 14b (whisper's encoder-decoder and remat='dots')"
-
-
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"repro_torch models implement the decoder-only families; "
-            f"{cfg.name} is 'encdec' (layernorm, the encoder, "
-            f"cross-attention, the cross-KV cache): {_NEXT}")
-    if cfg.remat not in ("none", "full"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported (only 'none' and 'full'): "
-            f"{_NEXT}")
-
 
 class _Tree(nn.Module):
     """A nested parameter dict as a module: each tensor becomes a parameter
@@ -77,8 +69,9 @@ class _Tree(nn.Module):
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, moe_layer: bool,
                 device) -> Params:
-    p: Params = {"ln1": L.init_rmsnorm(cfg.d_model, device),
-                 "ln2": L.init_rmsnorm(cfg.d_model, device)}
+    norm = L.init_layernorm if cfg.family == "encdec" else L.init_rmsnorm
+    p: Params = {"ln1": norm(cfg.d_model, device),
+                 "ln2": norm(cfg.d_model, device)}
     if cfg.uses_attention:
         if cfg.attention == "mla":
             p["attn"] = MLA.init_mla(gen, cfg, device)
@@ -93,7 +86,18 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, moe_layer: bool,
             p["mlp"] = MOE.init_moe(gen, cfg, device)
         else:
             p["mlp"] = L.init_mlp(gen, cfg, device=device)
+    if cfg.family == "encdec":
+        p["ln_cross"] = L.init_layernorm(cfg.d_model, device)
+        p["cross"] = L.init_attention(gen, cfg, device)
     return p
+
+
+def _init_encoder_block(gen: torch.Generator, cfg: ModelConfig,
+                        device) -> Params:
+    return {"ln1": L.init_layernorm(cfg.d_model, device),
+            "ln2": L.init_layernorm(cfg.d_model, device),
+            "attn": L.init_attention(gen, cfg, device),
+            "mlp": L.init_mlp(gen, cfg, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -115,15 +119,43 @@ def _mixer(p: Params, cfg: ModelConfig, x, positions, *, causal=True):
     return y
 
 
+def _norm(cfg: ModelConfig):
+    return L.layernorm if cfg.family == "encdec" else L.rmsnorm
+
+
+def _cross_attention(p: Params, cfg: ModelConfig, h: torch.Tensor,
+                    positions: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor) -> torch.Tensor:
+    """The decoder's attention to the encoder: queries from h [B, S, D]
+    (projected as ``qkv_project`` projects them), keys and values k, v
+    [B, T, H, Dh] from the encoder output, no causal mask."""
+    q = L.project_heads(h, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(h.dtype)
+    q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+    b, t = k.shape[:2]
+    enc_pos = torch.arange(t, device=k.device).expand(b, t)
+    o = L.attention_scores(q, k, v, positions, enc_pos, causal=False)
+    return L.merge_heads(o, p["wo"])
+
+
 def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, moe_layer: bool,
-                  causal: bool = True):
-    """Pre-norm residual block. Returns (x, aux_loss)."""
+                  causal: bool = True, enc_out: torch.Tensor | None = None):
+    """Pre-norm residual block. Returns (x, aux_loss). ``enc_out`` [B, T, D]
+    (encoder-decoder) adds cross-attention between the mixer and the
+    MLP."""
+    norm = _norm(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = x + _mixer(p, cfg, L.rmsnorm(p["ln1"], x), positions, causal=causal)
+    x = x + _mixer(p, cfg, norm(p["ln1"], x), positions, causal=causal)
     if cfg.family == "ssm":
         return x, aux
-    h = L.rmsnorm(p["ln2"], x)
+    if cfg.family == "encdec" and enc_out is not None:
+        c = p["cross"]
+        x = x + _cross_attention(c, cfg, norm(p["ln_cross"], x), positions,
+                                 L.project_heads(enc_out, c["wk"]),
+                                 L.project_heads(enc_out, c["wv"]))
+    h = norm(p["ln2"], x)
     if moe_layer:
         y, aux = MOE.moe_ffn(p["mlp"], cfg, h)
     else:
@@ -131,17 +163,36 @@ def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return x + y, aux
 
 
+# the products whose outputs "dots" saves (checkpoint_dots: dot_general)
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+         torch.ops.aten.baddbmm)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op.overloadpacket in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
 def _remat(fn, cfg: ModelConfig):
+    """``fn`` under the config's remat: as it is ("none"), recomputed whole
+    in backward ("full"), or with its matrix products' outputs saved and the
+    rest recomputed ("dots")."""
     if cfg.remat == "none":
         return fn
+    kw = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
 
     def wrapped(*args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
     return wrapped
 
 
 class Model(nn.Module):
-    """Port of the reference's ``Model`` for the decoder-only families.
+    """Port of the reference's ``Model`` for every family.
 
     It is built on ``device``, the card unless the caller passes
     ``device="cpu"`` (``utils/device.resolve_device``). Parameters are made
@@ -155,7 +206,6 @@ class Model(nn.Module):
     def __init__(self, cfg: ModelConfig, seed: int = 0,
                  device: str | torch.device | None = None):
         super().__init__()
-        _check_supported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
         gen = torch.Generator()
@@ -168,9 +218,21 @@ class Model(nn.Module):
         self.blocks = nn.ModuleList(
             _Tree(_init_block(gen, cfg, cfg.is_moe, dev))
             for _ in range(cfg.n_layers - n_dense))
-        self.ln_f = _Tree(L.init_rmsnorm(cfg.d_model, dev))
+        encdec = cfg.family == "encdec"
+        self.ln_f = _Tree((L.init_layernorm if encdec else L.init_rmsnorm)(
+            cfg.d_model, dev))
         self.unembed = _Tree(L.init_unembed(gen, cfg.d_model,
                                             cfg.vocab_size, dev))
+        self.enc_blocks = nn.ModuleList(
+            _Tree(_init_encoder_block(gen, cfg, dev))
+            for _ in range(cfg.n_encoder_layers if encdec else 0))
+        if encdec:
+            self.enc_ln_f = _Tree(L.init_layernorm(cfg.d_model, dev))
+            # learned positions must cover the longest assigned decode
+            # context (32k) plus the encoder frames
+            self.pos_embed = nn.Parameter((torch.randn(
+                (32768 + cfg.n_audio_frames, cfg.d_model), generator=gen,
+                dtype=torch.float32) * 0.01).to(dev))
 
     @property
     def device(self) -> torch.device:
@@ -178,16 +240,55 @@ class Model(nn.Module):
 
     # ---------------- parameter trees ----------------
     def params(self) -> Params:
-        """The parameters as the reference's nested dict, the blocks as a
-        list (one dict per layer) and ``dense_blocks`` where there are
-        any."""
+        """The parameters as the reference's nested dict, the blocks (and
+        the encoder's) as a list (one dict per layer) and ``dense_blocks``
+        where there are any."""
         tree: Params = {"embed": self.embed.tree()}
         if len(self.dense_blocks):
             tree["dense_blocks"] = [b.tree() for b in self.dense_blocks]
         tree["blocks"] = [b.tree() for b in self.blocks]
         tree["ln_f"] = self.ln_f.tree()
         tree["unembed"] = self.unembed.tree()
+        if self.cfg.family == "encdec":
+            tree["enc_blocks"] = [b.tree() for b in self.enc_blocks]
+            tree["enc_ln_f"] = self.enc_ln_f.tree()
+            tree["pos_embed"] = self.pos_embed
         return tree
+
+    def _encode(self, frames: torch.Tensor, params: Params | None = None):
+        """Whisper's encoder over stub frame embeddings [B, T, D] ->
+        (encoder output [B, T, D], positions [B, T]). Positions index
+        ``pos_embed`` from row 0, as the decoder's do (the reference's).
+        Remat wraps each block's attention half only, as the reference's
+        ``_encode`` does."""
+        cfg = self.cfg
+        params = self.params() if params is None else params
+        b, t, _ = frames.shape
+        pos = torch.arange(t, device=frames.device).expand(b, t)
+        x = frames + params["pos_embed"][None, :t].to(frames.dtype)
+        attn_half = _remat(lambda p_, x_: x_ + L.attention(
+            p_["attn"], cfg, L.layernorm(p_["ln1"], x_), pos, causal=False),
+            cfg)
+        for p in params["enc_blocks"]:
+            x = attn_half(p, x)
+            x = x + L.mlp(p["mlp"], cfg, L.layernorm(p["ln2"], x))
+        return L.layernorm(params["enc_ln_f"], x), pos
+
+    def cross_kv(self, enc_out: torch.Tensor,
+                 params: Params | None = None):
+        """Every decoder layer's cross-attention keys and values of an
+        encoder output, stacked as ``init_cache``'s ``cross_k`` /
+        ``cross_v`` [L, B, T, H, Dh]. Nothing in the reference fills its
+        cross-KV cache; its smoke test computes these by hand
+        (``tests/test_models_smoke.py``), as callers of the port do with
+        this."""
+        params = self.params() if params is None else params
+        dt = self.cfg.compute_dtype
+        enc_out = enc_out.to(dt)
+        return (torch.stack([L.project_heads(enc_out, p["cross"]["wk"])
+                             for p in params["blocks"]]),
+                torch.stack([L.project_heads(enc_out, p["cross"]["wv"])
+                             for p in params["blocks"]]))
 
     # ---------------- forward (training / prefill) ----------------
     def forward(self, tokens: torch.Tensor, params: Params | None = None, *,
@@ -195,31 +296,39 @@ class Model(nn.Module):
         """tokens [B, S_text] -> (hidden [B, S_total, D], aux loss).
 
         extra: {"patches": [B, n_img, D]} for the VLM, prepended to the
-        text embeddings."""
+        text embeddings; {"frames": [B, T, D]} for the encoder-decoder,
+        run through the encoder, whose output the decoder blocks attend
+        to."""
         cfg = self.cfg
         params = self.params() if params is None else params
         dt = cfg.compute_dtype
         x = L.embed(params["embed"], tokens, dt)
+        enc_out = None
         if cfg.family == "vlm":
             x = torch.cat([extra["patches"].to(dt), x], dim=1)
+        if cfg.family == "encdec":
+            enc_out, _ = self._encode(extra["frames"].to(dt), params)
+            x = x + params["pos_embed"][None, :x.shape[1]].to(dt)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for moe_layer, stack in ((False, params.get("dense_blocks", [])),
                                  (cfg.is_moe, params["blocks"])):
             fn = _remat(lambda p, x_, moe=moe_layer: block_forward(
-                p, cfg, x_, positions, moe_layer=moe), cfg)
+                p, cfg, x_, positions, moe_layer=moe, enc_out=enc_out), cfg)
             for p in stack:
                 x, aux = fn(p, x)
                 aux_total = aux_total + aux
-        x = L.rmsnorm(params["ln_f"], x)
+        x = _norm(cfg)(params["ln_f"], x)
         return x, aux_total
 
     def loss(self, batch: dict, chunk: int = 512,
              params: Params | None = None) -> tuple[torch.Tensor, dict]:
         """Next-token cross-entropy, computed in sequence chunks so the f32
         logits tensor never exceeds [B, chunk, V]; plus 0.01 x the MoE aux
-        loss. The VLM's image positions carry no labels."""
+        loss. The VLM's image positions carry no labels; the batch's
+        ``patches`` (VLM) or ``frames`` (encoder-decoder) go to the
+        forward."""
         cfg = self.cfg
         params = self.params() if params is None else params
         if cfg.cast_params_bf16:
@@ -228,7 +337,7 @@ class Model(nn.Module):
                                else t, params)
         x, aux = self.forward(batch["tokens"], params,
                               extra={k: v for k, v in batch.items()
-                                     if k == "patches"})
+                                     if k in ("patches", "frames")})
         if cfg.family == "vlm":
             x = x[:, cfg.n_image_tokens:]
         ce, n_valid = self.ce_loss(x, batch["labels"], params, chunk)
@@ -273,7 +382,9 @@ class Model(nn.Module):
         reference stacks them: attention keys and values (MLA: the latent
         and the rope key) of ``min(window, max_len)`` slots when the
         attention is windowed (a ring buffer), else ``max_len``; the SSM
-        layers' conv window and f32 state."""
+        layers' conv window and f32 state; the encoder-decoder's
+        cross-attention keys and values over ``n_audio_frames``, zeros
+        until the caller fills them (``cross_kv``)."""
         cfg = self.cfg
         dt, dev = cfg.compute_dtype, self.device
         n_dense = len(self.dense_blocks)
@@ -304,6 +415,10 @@ class Model(nn.Module):
         if n_dense:
             cache["dense"] = [{**attn_cache(1), **ssm_cache(1)}
                               for _ in range(n_dense)]
+        if cfg.family == "encdec":
+            cache["cross_k"] = zeros(n_scan, batch, cfg.n_audio_frames,
+                                     cfg.n_heads, cfg.d_head)
+            cache["cross_v"] = torch.zeros_like(cache["cross_k"])
         return cache
 
     def _cache_positions(self, b: int, kv_len: int, pos: int, device):
@@ -368,18 +483,30 @@ class Model(nn.Module):
                     params: Params | None = None):
         """One-token serve step at position ``pos`` (a host int). tokens:
         [B, 1] -> (logits [B, 1, V] f32, cache). The cache is updated in
-        place and returned, where the reference returns a new one."""
+        place and returned, where the reference returns a new one. The
+        encoder-decoder adds ``pos_embed``'s row ``pos`` and attends to the
+        cache's cross keys and values."""
         cfg = self.cfg
         params = self.params() if params is None else params
-        x = L.embed(params["embed"], tokens, cfg.compute_dtype)
+        dt = cfg.compute_dtype
+        norm = _norm(cfg)
+        x = L.embed(params["embed"], tokens, dt)
+        if cfg.family == "encdec":
+            x = x + params["pos_embed"][pos][None, None].to(dt)
 
-        def one_layer(p, x, lc, moe_layer):
+        def one_layer(p, x, lc, moe_layer, cross=None):
             kv_len = (lc["k"].shape[1] if "k" in lc else
                       lc["c_kv"].shape[1] if "c_kv" in lc else 0)
-            x = x + self._decode_mixer(p, L.rmsnorm(p["ln1"], x), pos, lc,
+            x = x + self._decode_mixer(p, norm(p["ln1"], x), pos, lc,
                                        kv_len=kv_len)
+            if cross is not None:
+                positions = torch.full((x.shape[0], 1), pos,
+                                       dtype=torch.int64, device=x.device)
+                x = x + _cross_attention(p["cross"], cfg,
+                                         norm(p["ln_cross"], x), positions,
+                                         *cross)
             if cfg.family != "ssm":
-                h2 = L.rmsnorm(p["ln2"], x)
+                h2 = norm(p["ln2"], x)
                 if moe_layer:
                     y2, _ = MOE.moe_ffn(p["mlp"], cfg, h2)
                 else:
@@ -392,8 +519,10 @@ class Model(nn.Module):
             x = one_layer(p, x, lc, False)
         for i, p in enumerate(params["blocks"]):
             lc = {k: v[i] for k, v in cache["scan"].items()}
-            x = one_layer(p, x, lc, cfg.is_moe)
-        x = L.rmsnorm(params["ln_f"], x)
+            cross = ((cache["cross_k"][i], cache["cross_v"][i])
+                     if cfg.family == "encdec" else None)
+            x = one_layer(p, x, lc, cfg.is_moe, cross)
+        x = norm(params["ln_f"], x)
         return L.unembed(params["unembed"], x, cfg.logit_softcap), cache
 
     @torch.no_grad()

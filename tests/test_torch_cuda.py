@@ -820,3 +820,126 @@ def test_hybrid_prefill_on_cuda_runs_the_scan_kernel_once_a_layer(cuda):
     chunked = model.prefill(tokens)
     assert ss.selective_scan_fwd_cuda.launches - before == cfg.n_layers
     assert torch.allclose(kernel, chunked, rtol=1e-4, atol=1e-4)
+
+
+_TRAIN_ARCHS = ("qwen2.5-3b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
+                "hymba-1.5b", "llava-next-34b", "whisper-medium")
+
+
+def _pipeline_batch(cfg, seq: int, seed: int):
+    from repro_torch.data import make_pipeline
+    return make_pipeline(cfg, 2, seq, seed=seed).batch_at(0)
+
+
+@pytest.mark.parametrize("arch", _TRAIN_ARCHS)
+def test_family_loss_and_grads_on_cuda_match_cpu(cuda, arch):
+    """Each trained family at ``reduced(cfg, dtype="float32")``: the loss
+    within rtol 1e-5 and every gradient leaf within rtol 1e-3 / atol 1e-5
+    of the CPU's (the reference's gradient bounds); hymba through B7 and
+    B8, each launched as remat "full" predicts."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import Model, reduced
+
+    cfg = reduced(get_config(arch), dtype="float32")
+    if cfg.uses_ssm:
+        cfg = cfg.replace(ssm_kernel=True)
+    host = _pipeline_batch(cfg, 128 if cfg.uses_ssm else 64, seed=1)
+    out = {}
+    launches = {}
+    for d in ("cpu", cuda):
+        f0 = ss.selective_scan_fwd_cuda.launches
+        b0 = ss.selective_scan_bwd_cuda.launches
+        model = Model(cfg, seed=0, device=d)
+        loss, _ = model.loss(to_device(host, torch.device(d)))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[str(d)] = (loss.detach().cpu(), [g.cpu() for g in grads])
+        launches[str(d)] = (ss.selective_scan_fwd_cuda.launches - f0,
+                            ss.selective_scan_bwd_cuda.launches - b0)
+    layers = cfg.n_layers if cfg.uses_ssm else 0
+    assert launches[str(cuda)] == (2 * layers, layers)
+    assert launches["cpu"] == (0, 0)
+    (lc, gc), (lg, gg) = out["cpu"], out[str(cuda)]
+    assert float(lg) == pytest.approx(float(lc), rel=1e-5)
+    for a, b in zip(gg, gc):
+        assert torch.allclose(a, b, rtol=1e-3, atol=1e-5)
+
+
+def test_whisper_on_cuda_matches_cpu(cuda):
+    """whisper-medium at ``reduced(cfg, dtype="float32")``: the encoder,
+    the forward, the loss, the prefill and 8 decode steps with the cross-KV
+    cache filled from the encoder, within rtol 1e-5 / atol 1e-5 of the
+    CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model, reduced
+
+    cfg = reduced(get_config("whisper-medium"), dtype="float32")
+    rng = np.random.default_rng(4)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 65)))
+    frames = torch.from_numpy(rng.normal(
+        0, 1, (2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+    out = {}
+    for d in ("cpu", cuda):
+        model = Model(cfg, seed=0, device=d)
+        fr = frames.to(d)
+        batch = {"tokens": tok[:, :-1].to(d), "labels": tok[:, 1:].to(d),
+                 "frames": fr}
+        with torch.no_grad():
+            enc, _ = model._encode(fr)
+            x, _ = model(batch["tokens"], extra={"frames": fr})
+            loss, _ = model.loss(batch)
+        cache = model.init_cache(2, 8)
+        cache["cross_k"], cache["cross_v"] = model.cross_kv(enc)
+        steps = [model.decode_step(cache, batch["tokens"][:, t:t + 1], t)[0]
+                 for t in range(8)]
+        out[str(d)] = [t.cpu() for t in (
+            enc, x, loss, model.prefill(batch["tokens"], extra={"frames": fr}),
+            torch.cat(steps, 1))]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        assert torch.allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_remat_dots_on_cuda_equals_full_and_none(cuda):
+    """hymba at reduced widths on the card: remat "dots", "full" and "none"
+    give bit-equal losses and gradients; "dots" and "full" run B7 twice a
+    Mamba layer (the policy never sees the ctypes call, so it is
+    recomputed), "none" once; B8 once a layer under each."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.train import to_device
+    from repro_torch.models import Model, reduced
+
+    cfg = reduced(get_config("hymba-1.5b"), ssm_kernel=True)
+    batch = to_device(_pipeline_batch(cfg, 128, seed=2), cuda)
+    out = {}
+    for remat in ("dots", "full", "none"):
+        f0 = ss.selective_scan_fwd_cuda.launches
+        b0 = ss.selective_scan_bwd_cuda.launches
+        model = Model(cfg.replace(remat=remat), seed=0, device=cuda)
+        loss, _ = model.loss(batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[remat] = (loss.detach(), grads)
+        passes = 1 if remat == "none" else 2
+        assert (ss.selective_scan_fwd_cuda.launches - f0,
+                ss.selective_scan_bwd_cuda.launches - b0) == (
+            passes * cfg.n_layers, cfg.n_layers)
+    for remat in ("full", "none"):
+        assert torch.equal(out["dots"][0], out[remat][0])
+        for a, b in zip(out["dots"][1], out[remat][1]):
+            assert torch.equal(a, b)
+
+
+def test_make_inputs_on_cuda_equal_the_cpu_ones(cuda):
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.models import ShapeSpec, make_inputs, reduced
+
+    spec = ShapeSpec("smoke_train", 72, 2, "train")
+    for arch in ARCH_IDS:
+        cfg = reduced(get_config(arch))
+        on_card = make_inputs(cfg, spec, seed=3)
+        on_cpu = make_inputs(cfg, spec, seed=3, device="cpu")
+        assert on_card.keys() == on_cpu.keys()
+        for k, v in on_card.items():
+            assert v.device.type == "cuda" and torch.equal(v.cpu(),
+                                                           on_cpu[k]), k

@@ -105,6 +105,29 @@ def test_parametric_metrics_match_reference():
 
 
 @pytest.mark.parametrize("kind", ["adjacency", "parametric"])
+def test_pipeline_evaluate_matches_reference(kind):
+    """``make_pipeline(space, device).evaluate(genomes)`` on either kind of
+    space against the reference's pipeline ``evaluate`` (ROADMAP Queue C:
+    the parametric pipeline had only ``evaluate_async``)."""
+    if kind == "adjacency":
+        kw = dict(n_chiplets=12, max_degree=4)
+        space, ref_space = AdjacencySpace(**kw), RefAdjacencySpace(**kw)
+    else:
+        kw = dict(topologies=("mesh", "torus", "shg", "kite"),
+                  chiplet_counts=(16, 20))
+        space, ref_space = ParametricSpace(**kw), RefParametricSpace(**kw)
+    pop = ref_space.sample(np.random.default_rng(11), 9)
+    want = RefEngine()._genome_pipeline(ref_space).evaluate(pop)
+    pipeline = genomes.make_pipeline(space, "cpu")
+    got = pipeline.evaluate(pop)
+    _assert_matches(got, want)
+    assert got.latency.dtype == np.float32 and len(got.latency) == len(pop)
+    pending = pipeline.evaluate_async(pop).result()
+    np.testing.assert_array_equal(got.latency, pending.latency)
+    np.testing.assert_array_equal(got.throughput, pending.throughput)
+
+
+@pytest.mark.parametrize("kind", ["adjacency", "parametric"])
 def test_genome_alone_equals_it_in_its_population(kind):
     if kind == "adjacency":
         space = AdjacencySpace(n_chiplets=14, max_degree=4)

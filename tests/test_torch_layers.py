@@ -54,6 +54,55 @@ def _positions(b, s, start=0):
     return np.broadcast_to(np.arange(start, start + s), (b, s)).copy()
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layernorm_matches_reference(dtype):
+    """LayerNorm with f32 statistics, eps 1e-5, a scale and a bias, in the
+    input's dtype (bf16 results equal up to one rounding of the f32
+    value)."""
+    rng = np.random.default_rng(11)
+    x = _normal(rng, 3, 5, 64) * 3 + 1.5
+    p = {"scale": _normal(rng, 64), "bias": _normal(rng, 64)}
+    init = L.init_layernorm(64)
+    ref_init = RL.init_layernorm(64)
+    for k in ("scale", "bias"):
+        np.testing.assert_array_equal(init[k].numpy(), np.asarray(ref_init[k]))
+    want = RL.layernorm({k: jnp.asarray(v) for k, v in p.items()},
+                        jnp.asarray(x, dtype))
+    got = L.layernorm(_torch_tree(p),
+                      torch.from_numpy(x).to(getattr(torch, dtype)))
+    assert str(got.dtype).split(".")[-1] == dtype
+    tol = TOL if dtype == "float32" else dict(rtol=1e-2, atol=1e-2)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **tol)
+
+
+def test_non_causal_flash_masks_padded_keys_the_reference_counts():
+    """ROADMAP Queue C: with keys off a multiple of ``block_kv``, no
+    ``kv_mask`` and no causal or window mask, the reference's flash
+    attention lets its zero-padded keys into the softmax (their positions
+    mask nothing here); the port masks them and equals plain attention, and
+    equals the reference given a ``kv_mask`` that marks every real key."""
+    rng = np.random.default_rng(12)
+    b, s, h, dh = 2, 40, 4, 16          # 40 keys in blocks of 16: 8 padded
+    q, k, v = (_normal(rng, b, s, h, dh) for _ in range(3))
+    pos = _positions(b, s)
+    kw = dict(causal=False, block_q=16, block_kv=16)
+    got = L.flash_attention(*map(torch.from_numpy, (q, k, v, pos, pos)),
+                            **kw)
+    plain = L.attention_scores(*map(torch.from_numpy, (q, k, v, pos, pos)),
+                               causal=False)
+    _close(got, plain.numpy(), "port flash vs plain")
+    jargs = tuple(map(jnp.asarray, (q, k, v, pos, pos)))
+    masked = RL.flash_attention(*jargs, kv_mask=jnp.ones((b, s), bool), **kw)
+    _close(got, masked, "port vs reference with every real key marked")
+    ref = np.asarray(RL.flash_attention(*jargs, **kw))
+    assert np.abs(ref - plain.numpy()).max() > 1e-2   # the padded keys count
+    # with no key padded the two agree
+    full = RL.flash_attention(*(a[:, :32] for a in jargs), **kw)
+    _close(L.flash_attention(*(torch.from_numpy(a[:, :32]) for a in
+                               (q, k, v, pos, pos)), **kw), full)
+
+
 @pytest.mark.parametrize("rotary_pct", [1.0, 0.5, 0.3])
 def test_apply_rope_matches_reference(rotary_pct):
     """Full rotary (qwen) and the partial rotary of glm4 / nemotron (0.5);

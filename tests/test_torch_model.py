@@ -3,7 +3,8 @@ against the reference on the CPU: the config registry field by field, and
 falcon-mamba-7b reduced to CPU size (``ssm_chunk=8``, float32) with the
 reference's randomly initialised parameters carried across, through both
 scan routes (``ssm_kernel`` False: chunked associative scan; True: the
-selective-scan autograd function, plain versions on the CPU).
+selective-scan autograd function, plain versions on the CPU); and the
+three remat policies ("none", "full", "dots") on every family.
 
 Tolerances: hidden states within rtol 1e-5 / atol 1e-5, the loss within
 rtol 1e-5, every gradient leaf within rtol 1e-3 / atol 1e-5 of
@@ -162,22 +163,83 @@ def test_bf16_remat_and_no_remat_agree():
         assert torch.equal(g_full, g_none)
 
 
-@pytest.mark.parametrize("arch", ["qwen2.5-3b", "hymba-1.5b",
-                                  "whisper-medium"])
-def test_other_families_raise(arch):
-    """What the port does not implement yet raises and names the next slice
-    (ROADMAP Queue A 14b): the encoder-decoder family, and remat="dots" on
-    the decoder-only families it does implement."""
-    cfg = reduced(get_config(arch))
-    if cfg.family != "encdec":
-        cfg = cfg.replace(remat="dots")
-    with pytest.raises(NotImplementedError, match="Queue A 14b"):
-        Model(cfg, device="cpu")
+def _family_batch(cfg, s: int = 64, seed: int = 0) -> dict:
+    """Tokens and labels over s positions in all, with the VLM's patches
+    or the encoder-decoder's frames."""
+    rng = np.random.default_rng(seed)
+    n_img = cfg.n_image_tokens if cfg.family == "vlm" else 0
+    tok = rng.integers(0, cfg.vocab_size, (2, s - n_img + 1))
+    batch = {"tokens": torch.from_numpy(tok[:, :-1]),
+             "labels": torch.from_numpy(tok[:, 1:])}
+    if n_img:
+        batch["patches"] = torch.from_numpy(rng.normal(
+            0, 1, (2, n_img, cfg.d_model)).astype(np.float32))
+    if cfg.family == "encdec":
+        batch["frames"] = torch.from_numpy(rng.normal(
+            0, 1, (2, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
+    return batch
 
 
-def test_remat_dots_raises():
-    with pytest.raises(NotImplementedError, match="dots.*Queue A 14b"):
-        Model(reduced(get_config(ARCH), remat="dots"))
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_remat_dots_full_and_none_agree_bit_for_bit(arch):
+    """Every family at its default dtypes (bf16 compute, f32 parameters):
+    remat "dots" (matrix products saved, the rest recomputed), "full" and
+    "none" give the same loss and gradients, bit for bit."""
+    cfg = reduced(get_config(arch), ssm_chunk=8)
+    batch = _family_batch(cfg, seed=4)
+    out = {}
+    for remat in ("dots", "full", "none"):
+        model = Model(dataclasses.replace(cfg, remat=remat), seed=3,
+                      device="cpu")
+        loss, _ = model.loss(batch)
+        out[remat] = (loss.detach(), torch.autograd.grad(
+            loss, list(model.parameters())))
+    assert torch.isfinite(out["dots"][0])
+    for remat in ("full", "none"):
+        assert torch.equal(out["dots"][0], out[remat][0]), remat
+        for g_dots, g in zip(out["dots"][1], out[remat][1]):
+            assert torch.equal(g_dots, g), remat
+
+
+class _CountProducts(torch.utils._python_dispatch.TorchDispatchMode):
+    """Counts the matrix products dispatched while it is active."""
+
+    PRODUCTS = (torch.ops.aten.mm, torch.ops.aten.bmm, torch.ops.aten.addmm,
+                torch.ops.aten.baddbmm)
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func.overloadpacket in self.PRODUCTS:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "whisper-medium"])
+def test_remat_dots_saves_the_products_and_recomputes_no_forward_one(arch):
+    """The products dispatched in the forward and in the backward under each
+    policy: "dots" runs as many in its backward as "none" (every forward
+    product is saved, none recomputed), "full" runs the forward's again.
+    The hybrid's Mamba chunks and whisper's encoder attention halves are
+    nested in or beside the blocks' checkpoints."""
+    cfg = reduced(get_config(arch), ssm_chunk=8, dtype="float32")
+    batch = _family_batch(cfg, seed=5)
+    counts = {}
+    for remat in ("none", "dots", "full"):
+        model = Model(dataclasses.replace(cfg, remat=remat), seed=3,
+                      device="cpu")
+        with _CountProducts() as fwd:
+            loss, _ = model.loss(batch)
+        with _CountProducts() as bwd:
+            torch.autograd.grad(loss, list(model.parameters()))
+        counts[remat] = (fwd.n, bwd.n)
+    (f_none, b_none), (f_dots, b_dots), (f_full, b_full) = (
+        counts["none"], counts["dots"], counts["full"])
+    assert f_none == f_dots == f_full > 0
+    assert b_dots == b_none
+    assert b_full > b_none + f_none // 2, counts
 
 
 def test_reference_argument_order_raises():

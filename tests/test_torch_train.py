@@ -160,3 +160,39 @@ def test_port_train_descends_and_is_deterministic(capsys):
     main(["--arch", ARCH, "--reduced", "--steps", "2", "--batch", "2",
           "--seq-len", "16", "--device", "cpu"])
     assert "[train] done: 2 steps" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llava-next-34b"])
+def test_stub_frontend_train_steps_match_reference(arch, capsys):
+    """Three AdamW steps of the two families whose batches carry stub
+    embeddings (whisper's frames, llava's patches, from the data
+    pipeline) against the reference's train step: loss and grad norm
+    within rtol 1e-4; then ``python -m repro_torch.launch.train --arch
+    <arch> --reduced --device cpu`` trains."""
+    lr = 1e-3
+    ref_model = RefModel(ref_reduced(ref_get_config(arch), dtype="float32"))
+    params = ref_model.init_params(jax.random.PRNGKey(2))
+    ref_state = {"params": params, "opt": ref_adamw_init(params),
+                 "step": jnp.zeros((), jnp.int32)}
+    model = Model(reduced(get_config(arch), dtype="float32"), device="cpu")
+    load_reference_params(model, jax.tree.map(np.asarray, params))
+    state = build_state(model, "adamw")
+    ocfg = opt.OptConfig(learning_rate=lr, warmup_steps=1, decay_steps=10)
+    ref_step = jax.jit(ref_make_train_step(ref_model, ref_opt.OptConfig(
+        learning_rate=lr, warmup_steps=1, decay_steps=10)))
+    step = make_train_step(model, ocfg)
+    source = make_pipeline(model.cfg, 2, 40, seed=3)
+    extra = "frames" if arch == "whisper-medium" else "patches"
+    for i in range(3):
+        batch = source.batch_at(i)
+        assert extra in batch
+        ref_state, jm = ref_step(ref_state, {k: jnp.asarray(v)
+                                             for k, v in batch.items()})
+        state, tm = step(state, to_device(batch, torch.device("cpu")))
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
+                                                  rel=1e-4), i
+        assert float(tm["grad_norm"]) == pytest.approx(
+            float(jm["grad_norm"]), rel=1e-4), i
+    main(["--arch", arch, "--reduced", "--steps", "2", "--batch", "2",
+          "--seq-len", "24", "--device", "cpu"])
+    assert "[train] done: 2 steps" in capsys.readouterr().out
