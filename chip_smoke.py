@@ -194,8 +194,28 @@ Phases, each fatal on error (exit code 1, no result line):
     gradient norm within rtol 1e-4); (d) hymba at reduced widths under
     remat "dots", "full" and "none": losses and gradients bit-equal, the
     scan launches each policy predicts.
+23. the dry-run and sharding stack: (a) ``core.ici_model
+    .estimate_collective`` for every collective kind over both axes of the
+    16 x 16 pod, torus and mesh (load propagation at n = 256, B2's tier),
+    and of the 4 x 4 pods (B1's), one launch per estimate, every field
+    within rtol 1e-5 of the host's, the torus ring all-gather's proxy
+    within 1e-6 of its analytic time; B2 timed at the pod's [1, 256, 256];
+    ms per estimate on the card and on the host; (b)
+    ``sharding.autoshard.rank_layouts`` for every arch at train_4k on
+    {data: 16, model: 16}: rankings equal to the host's, totals within
+    rtol 1e-5; (c) ``quantize_int8`` bit-equal to the host's at 57 x 33
+    and 4096 x 4096, ``make_compressed_allreduce`` over an NCCL world of 1
+    within half a quantisation step of its input, a 1-stage
+    ``pipeline_apply`` equal to the direct stack; (d) a qwen2.5-3b train
+    step at published widths cut to 2 layers, 2 x 2048 tokens, under
+    ``FlopCounterMode``: exactly the FLOPs of ``launch.dryrun``'s meta
+    trace, its step ms and TFLOP/s, and its peak memory beside the
+    dry-run's argument and temp bytes on one device; (e) the dry-run cells
+    of ``dryrun_tasks`` on host worker processes during (a)-(d), each
+    record sane, seconds per cell.
 
-Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20, 21, 22)
+Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20, 21, 22,
+23)
 is driven with every kernel's launch count set to 0 just before it and read
 just after; a path whose kernels were not launched fails the run. Launches
 made to compare a kernel with its plain version are not counted. The
@@ -330,6 +350,25 @@ FAMILY_ARCHS = ("qwen2.5-3b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
 FAMILY_STEPS = 4
 CARD_CPU_GRAD_RTOL = 1e-4
 REMAT_ARCH = "hymba-1.5b"
+# the dry-run and sharding stack (phase 23): the pod interconnect model at
+# 16 x 16 (B2, n = 256) and 4 x 4 (B1), every estimate held against the CPU
+# at ICI_RTOL and the torus ring all-gather's proxy against its analytic
+# time at RING_ALLGATHER_REL (tests/test_ici_model.py); the dry-run cells
+# below run on DRYRUN_WORKERS host processes while the card works; the FLOP
+# check trains FLOP_ARCH at published widths cut to FLOP_LAYERS
+ICI_BYTES, ICI_RTOL, RING_ALLGATHER_REL = 4e9, 1e-5, 1e-6
+ICI_KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all")
+RANK_SHAPE = {"data": 16, "model": 16}
+DRYRUN_WORKERS = 6
+# the cells (dryrun_tasks): every arch at decode_32k (and long_500k where
+# it runs) on 16x16; train_4k on 16x16 for the archs whose trace fits the
+# phase (falcon-mamba-7b, hymba-1.5b, llava-next-34b and nemotron-4-15b
+# take 60-150 s of host each); qwen2.5-3b through every shape on both
+# meshes; each variant where it changes the step
+DRYRUN_ARCH = "qwen2.5-3b"
+DRYRUN_TRAIN = ("qwen2.5-3b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
+                "glm4-9b", "codeqwen1.5-7b", "whisper-medium")
+FLOP_ARCH, FLOP_LAYERS = "qwen2.5-3b", 2
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
@@ -3067,6 +3106,337 @@ def train_families_path(torch, dev, zero_counts, read_counts, clock_hz,
             "remat_loss": remat["dots"][0].item()}
 
 
+def dryrun_tasks() -> list:
+    """Phase 23's host work, longest first: dry-run cells as ("dryrun",
+    arch, shape, variant, meshes) and the CPU side of the card's
+    interconnect checks."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch.dryrun import VARIANTS
+
+    both, single = (False, True), (False,)
+    tasks = [("dryrun", DRYRUN_ARCH, "prefill_32k", "baseline", both)]
+    tasks += [("dryrun", a, "train_4k", "baseline",
+               both if a == DRYRUN_ARCH else single) for a in DRYRUN_TRAIN]
+    # each variant where it changes the step: the accumulation buffer's
+    # layout and the bf16 gather at train_4k, the fused scan on the SSM
+    # arch's train step; every variant at decode_32k (serve_tp's rules)
+    tasks += [("dryrun", DRYRUN_ARCH, "train_4k", v, single)
+              for v in ("accum_rs", "bf16_gather")]
+    tasks += [("dryrun", "falcon-mamba-7b", "train_4k", "ssm_fused", single)]
+    tasks += [("dryrun", DRYRUN_ARCH, "decode_32k", v, both)
+              for v in VARIANTS]
+    tasks += [("dryrun", DRYRUN_ARCH, "long_500k", "baseline", both)]
+    tasks += [("dryrun", a, s, "baseline", single) for a in ARCH_IDS
+              if a != DRYRUN_ARCH for s in ("decode_32k", "long_500k")]
+    tasks += [("rank", a) for a in ARCH_IDS]
+    tasks += [("estimates", rows, wrap) for rows in (16, 4)
+              for wrap in (True, False)]
+    return tasks
+
+
+def host_task(task):
+    """One unit of phase 23's host work, in a worker process (one thread):
+    a dry-run task's records, each with its wall seconds, or the CPU's
+    ``rank_layouts`` / ``estimate_collective`` results."""
+    if os.path.join(ROOT, "src") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(1)
+    import repro_torch.core  # noqa: F401  (the routing package's order)
+    from repro_torch.configs import get_config
+    from repro_torch.core.ici_model import estimate_collective
+    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.sharding.autoshard import rank_layouts
+
+    t0 = time.perf_counter()
+    if task[0] == "dryrun":
+        _, arch, shape, variant, meshes = task
+        traces, out = {}, []
+        for multi in meshes:
+            t1 = time.perf_counter()
+            rec = lower_cell(arch, shape, multi, variant=variant,
+                             traces=traces)
+            out.append(dict(rec, cell_s=time.perf_counter() - t1))
+    elif task[0] == "rank":
+        out = rank_layouts(get_config(task[1]), 256, 4096, RANK_SHAPE,
+                           device="cpu")
+    else:
+        _, rows, wrap = task
+        out = {f"{k}/{ax}": dataclasses.asdict(estimate_collective(
+            k, ax, ICI_BYTES, rows=rows, cols=rows, wrap=wrap, device="cpu"))
+            for k in ICI_KINDS for ax in ("data", "model")}
+    return task, out, time.perf_counter() - t0
+
+
+def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
+                         kernel_record) -> dict:
+    """Phase 23: the dry-run and sharding stack. The host work of
+    ``dryrun_tasks`` runs on ``DRYRUN_WORKERS`` spawned processes while the
+    card (a) prices every collective kind over both axes of the 16 x 16
+    pod, torus and mesh (B2), and the 4 x 4 ones (B1), (b) ranks every
+    arch's layouts at train_4k, (c) quantizes and all-reduces over an NCCL
+    world of 1 and runs a 1-stage pipeline, and (d) trains ``FLOP_ARCH``
+    cut to ``FLOP_LAYERS`` at 2 x 2048 under FlopCounterMode, whose count
+    must equal the meta trace's. Then every estimate and ranking is held
+    against the CPU's, and the dry-run records are checked. Returns the
+    phase's record."""
+    import multiprocessing
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ARCH_IDS, get_config
+    from repro_torch.core.ici_model import (NVLINK4_LINK_BW, _pod_structure,
+                                            collective_traffic,
+                                            estimate_collective)
+    from repro_torch.core.throughput import _dest_major_load0
+    from repro_torch.kernels import load_prop as lp
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import Model, ShapeSpec, make_inputs
+    from repro_torch.sharding import MeshShape
+    from repro_torch.sharding.autoshard import rank_layouts
+    from repro_torch.sharding.compression import (make_compressed_allreduce,
+                                                  quantize_int8)
+    from repro_torch.sharding.pipeline import pipeline_apply
+    from repro_torch.train import adamw_init, make_train_step
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.state import init_train_state
+
+    card = card_line()
+    rec: dict = {"card": card}
+    tasks = dryrun_tasks()
+    pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
+    try:
+        pending = pool.map_async(host_task, tasks, chunksize=1)
+
+        # (a) the pod's interconnect on the card
+        estimates, calls = {}, {}
+        for rows, path in ((16, "ici_model_16x16"), (4, "ici_model_4x4")):
+            zero_counts()
+            n_calls = 0
+            for wrap in (True, False):
+                for k in ICI_KINDS:
+                    for ax in ("data", "model"):
+                        est = estimate_collective(k, ax, ICI_BYTES, rows=rows,
+                                                  cols=rows, wrap=wrap,
+                                                  device=dev)
+                        estimates[(rows, wrap, f"{k}/{ax}")] = \
+                            dataclasses.asdict(est)
+                        n_calls += 1
+            counts = read_counts(path, ("load_propagate",))
+            if counts["load_propagate"] != n_calls:
+                fail(f"phase 23: {n_calls} estimates at {rows}x{rows} "
+                     f"launched load propagation "
+                     f"{counts['load_propagate']} times")
+            calls[path] = n_calls
+            ring = estimates[(rows, True, "all_gather/data")]
+            if abs(ring["proxy_s"] / ring["analytic_s"] - 1) > \
+                    RING_ALLGATHER_REL:
+                fail(f"phase 23: the {rows}x{rows} torus ring all-gather's "
+                     f"proxy {ring['proxy_s']} is not its analytic time "
+                     f"{ring['analytic_s']}")
+        one = lambda: estimate_collective("all_reduce", "model", ICI_BYTES,
+                                          device=dev)
+        t0 = time.perf_counter()
+        for _ in range(10):
+            one()
+        rec["estimate_ms_card"] = (time.perf_counter() - t0) / 10 * 1e3
+        t0 = time.perf_counter()
+        for _ in range(3):
+            estimate_collective("all_reduce", "model", ICI_BYTES,
+                                device="cpu")
+        rec["estimate_ms_host"] = (time.perf_counter() - t0) / 3 * 1e3
+        _, hops, on_dev = _pod_structure(16, 16, True, NVLINK4_LINK_BW, dev)
+        nh = on_dev["next_hop"][None].contiguous()
+        traffic = torch.from_numpy(collective_traffic(
+            "all_to_all", 16, 16, "data", ICI_BYTES).astype(np.float32)).to(dev)
+        rec["b2_at_pod"] = kernel_record(
+            nh, _dest_major_load0(nh, traffic[None]).contiguous(), hops)
+        rec["pod_routed_diameter"] = hops
+        log(f"phase 23: 16x16 pod routed diameter {hops} hops; "
+            f"estimate_collective {rec['estimate_ms_card']:.3f} ms on the "
+            f"card, {rec['estimate_ms_host']:.3f} ms on the host; B2 at "
+            f"[1,256,256] {rec['b2_at_pod']['ms']:.5f} ms (bound "
+            f"{rec['b2_at_pod']['bound_ms']:.5f}) ({card})")
+
+        # (b) layout ranking on the card
+        zero_counts()
+        ranked = {a: rank_layouts(get_config(a), 256, 4096, RANK_SHAPE,
+                                  device=dev) for a in ARCH_IDS}
+        calls["autoshard"] = read_counts("autoshard", ("load_propagate",))[
+            "load_propagate"]
+
+        # (c) compression and the pipeline over an NCCL world of 1
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(23)
+        for shape in ((57, 33), (4096, 4096)):
+            x = torch.randn(shape, generator=gen, device=dev)
+            qc, sc = quantize_int8(x)
+            qh, sh = quantize_int8(x.cpu())
+            if not (torch.equal(qc.cpu(), qh) and torch.equal(sc.cpu(), sh)):
+                fail(f"phase 23: quantize_int8 on the card differs from the "
+                     f"host's at {shape}")
+        torch.cuda.set_device(dev)
+        dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                                world_size=1)
+        try:
+            mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+            grads = {"w": torch.randn((4096, 4096), generator=gen,
+                                      device=dev),
+                     "b": torch.randn((1000,), generator=gen, device=dev)}
+            out = make_compressed_allreduce(mesh, axes=("data",))(grads)
+            rec["compressed_allreduce_max_err"] = 0.0
+            for k, g in grads.items():
+                _, scale = quantize_int8(g)
+                err = (out[k] - g).abs().max().item()
+                step = scale.max().item()
+                if not err <= 0.5 * step * (1 + 1e-6):
+                    fail(f"phase 23: the compressed all-reduce of {k} is "
+                         f"{err} from its input, past half the quantisation "
+                         f"step {step}")
+                rec["compressed_allreduce_max_err"] = max(
+                    err, rec["compressed_allreduce_max_err"])
+            stages = init_device_mesh("cuda", (1,),
+                                      mesh_dim_names=("stage",))
+            w = torch.randn((1, 256, 256), generator=gen, device=dev) * 0.05
+            xs = torch.randn((6, 8, 256), generator=gen, device=dev)
+            piped = pipeline_apply(lambda p, x: torch.tanh(x @ p),
+                                   stages)(w, xs)
+            direct = torch.stack([torch.tanh(x @ w[0]) for x in xs])
+            if not torch.equal(piped, direct):
+                fail("phase 23: the 1-stage pipeline differs from the "
+                     "direct stack")
+        finally:
+            dist.destroy_process_group()
+
+        # (d) the meta trace's FLOPs against a real step on the card
+        full = get_config(FLOP_ARCH)
+        cfg = D.cut_depth(full, FLOP_LAYERS)
+        spec = ShapeSpec("flop_check", TRAIN_SEQ, TRAIN_BATCH, "train")
+        meta = D.count_step(cfg, spec)
+        one_dev = D.dry_run_cell(cfg, spec, MeshShape(("data", "model"),
+                                                      (1, 1)))
+        model = Model(cfg, device="meta").to_empty(device=dev)
+        torch.manual_seed(0)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith("scale"):
+                    p.fill_(1.0)
+                else:
+                    p.normal_(0.0, 0.02)
+        state = init_train_state(model, adamw_init)
+        step = make_train_step(model, OptConfig(learning_rate=TRAIN_LR))
+        batch = make_inputs(cfg, spec, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with FlopCounterMode(display=False) as fc:
+            state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        card_flops = fc.get_total_flops()
+        if card_flops != meta["flops"]:
+            fail(f"phase 23: a {FLOP_ARCH} step on the card counts "
+                 f"{card_flops} FLOPs, its meta trace {meta['flops']}")
+        step_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.isfinite(float(metrics["loss"])):
+            fail(f"phase 23: {FLOP_ARCH}'s loss is {float(metrics['loss'])}")
+        ms = statistics.median(step_ms)
+        rec["flop_check"] = {
+            "arch": FLOP_ARCH, "layers": FLOP_LAYERS,
+            "shape": [TRAIN_BATCH, TRAIN_SEQ], "flops": card_flops,
+            "meta_flops": meta["flops"], "step_ms": ms,
+            "tflops_per_s": card_flops / (ms / 1e3) / 1e12,
+            "max_memory_allocated": peak,
+            "dryrun_argument_bytes": one_dev["memory"]["argument_bytes"],
+            "dryrun_temp_bytes": one_dev["memory"]["temp_bytes"],
+            "meta_trace_s": meta["trace_s"]}
+        log(f"phase 23: {FLOP_ARCH} x{FLOP_LAYERS} layers at "
+            f"{TRAIN_BATCH}x{TRAIN_SEQ}: {card_flops:.6g} FLOPs on the card "
+            f"= the meta trace's; step {ms:.2f} ms, "
+            f"{rec['flop_check']['tflops_per_s']:.2f} TFLOP/s; peak "
+            f"{peak / 2**30:.3f} GiB against the dry-run's arguments "
+            f"{one_dev['memory']['argument_bytes'] / 2**30:.3f} GiB + temp "
+            f"{one_dev['memory']['temp_bytes'] / 2**30:.3f} GiB ({card})")
+        del model, state, batch
+
+        # the host's results, and the CPU's side of (a) and (b)
+        t0 = time.perf_counter()
+        results = pending.get(timeout=600)
+        rec["host_wait_s"] = time.perf_counter() - t0
+    finally:
+        pool.terminate()
+        pool.join()
+
+    worst = 0.0
+    records, task_s = [], {}
+    for task, out, secs in results:
+        task_s["/".join(str(t) for t in task)] = secs
+        if task[0] == "estimates":
+            _, rows, wrap = task
+            for key, want in out.items():
+                got = estimates[(rows, wrap, key)]
+                for f, w in want.items():
+                    if isinstance(w, str):
+                        ok = got[f] == w
+                    else:
+                        ok = abs(got[f] - w) <= ICI_RTOL * abs(w)
+                        if w:
+                            worst = max(worst, abs(got[f] / w - 1))
+                    if not ok:
+                        fail(f"phase 23: {rows}x{rows} wrap={wrap} {key} "
+                             f"{f} is {got[f]} on the card, {w} on the host")
+        elif task[0] == "rank":
+            got = ranked[task[1]]
+            if [r["rules"] for r in got] != [r["rules"] for r in out]:
+                fail(f"phase 23: {task[1]}'s layouts rank "
+                     f"{[r['rules'] for r in got]} on the card, "
+                     f"{[r['rules'] for r in out]} on the host")
+            for g, w in zip(got, out):
+                if abs(g["total_s"] / w["total_s"] - 1) > ICI_RTOL:
+                    fail(f"phase 23: {task[1]} {g['rules']} totals "
+                         f"{g['total_s']} on the card, {w['total_s']} on "
+                         f"the host")
+                worst = max(worst, abs(g["total_s"] / w["total_s"] - 1))
+        else:
+            records += out
+    for r in records:
+        if r["skipped"]:
+            if "full-attention" not in r["reason"]:
+                fail(f"phase 23: {r['arch']} {r['shape']} skipped: "
+                     f"{r['reason']}")
+            continue
+        vals = [r["flops_per_device"], r["bytes_per_device"],
+                r["collective_bytes_per_device"],
+                r["memory"]["argument_bytes"], r["memory"]["temp_bytes"]]
+        if not all(np.isfinite(v) and v > 0 for v in vals):
+            fail(f"phase 23: the dry-run record of {r['arch']} {r['shape']} "
+                 f"{r['mesh']} {r['variant']} is not sane: {vals}")
+    rec.update(
+        estimates_on_card=calls, max_rel_err_vs_host=worst,
+        rankings={a: [r["rules"] for r in v] for a, v in ranked.items()},
+        dryrun_cells={f"{r['arch']}/{r['shape']}/{r['mesh']}/"
+                      f"{r.get('variant', 'baseline')}":
+                      (None if r["skipped"] else
+                       {"cell_s": r["cell_s"], "lower_s": r["lower_s"],
+                        "flops_per_device": r["flops_per_device"],
+                        "temp_bytes": r["memory"]["temp_bytes"]})
+                      for r in records},
+        host_task_s=task_s)
+    log(f"phase 23: {len(records)} dry-run records on {DRYRUN_WORKERS} host "
+        f"workers ({sum(task_s.values()):.1f} s of host work, "
+        f"{rec['host_wait_s']:.1f} s waited after the card's part); every "
+        f"estimate and ranking within {worst:.3g} of the host's; rankings "
+        f"{rec['rankings']} ({card})")
+    return rec
+
+
 def main() -> None:
     try:
         run_phases()
@@ -3449,6 +3819,14 @@ def run_phases() -> None:
             "arch", "shape", "ms", "device_ms", "plain_ms", "bound_ms",
             "bound_by", "max_abs_err")}
 
+    # -- 23. the dry-run and sharding stack ------------------------------------
+    t0 = time.perf_counter()
+    dryrun_rec = dryrun_sharding_path(torch, dev, zero_counts, read_counts,
+                                      kernel_record)
+    dryrun_rec["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"dryrun_sharding": dryrun_rec}), flush=True)
+    log(f"phase 23: {dryrun_rec['phase_s']:.1f} s ({dryrun_rec['card']})")
+
     totals = {name: sum(c[name] for c in path_launches.values())
               for name in kernels}
     print(json.dumps({"path_launches": path_launches}), flush=True)
@@ -3475,6 +3853,9 @@ def run_phases() -> None:
                 for p in ("large_n", "genomes_adjacency_256"))
     tiled += analysis_rec["contracts"]["ops.load_propagate[slab,n=256,B=2]"][
         "launches"].get("load_prop_cuda", 0)
+    # the 16 x 16 pod's estimates and the layout rankings (n = 256)
+    tiled += sum(path_launches[p]["load_propagate"]
+                 for p in ("ici_model_16x16", "autoshard"))
     fused_rec = dict(head, max_abs_err=max(
         [max_err] + [r["max_abs_err"] for r in chunk_recs]))
     records = [

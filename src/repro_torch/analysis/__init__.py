@@ -24,7 +24,8 @@ suppressions (``# repro-lint: allow[rule-id] reason``) and the port's own
 baseline (``src/repro_torch/analysis/baseline.json``).
 """
 from .findings import Finding, format_findings, load_baseline
-from .graph_audit import Contract, audit_contract, program_key, record
+from .graph_audit import (Contract, audit_all, audit_contract, program_key,
+                          record)
 
 __all__ = ["Finding", "format_findings", "load_baseline",
-           "Contract", "audit_contract", "program_key", "record"]
+           "Contract", "audit_all", "audit_contract", "program_key", "record"]

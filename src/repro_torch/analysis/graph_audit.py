@@ -64,6 +64,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from ..utils.device import resolve_device
 from .findings import Finding
 
 REGISTRY_PATH = "src/repro_torch/analysis/registry.py"
@@ -289,16 +290,19 @@ def _resolve_shape(pattern: tuple, dims: dict | None) -> tuple:
                  for d in pattern) if dims else tuple(pattern)
 
 
-def audit_contract(c: Contract, device="cpu",
+def audit_contract(c: Contract, device=None,
                    info: dict | None = None) -> list[Finding]:
-    """Run every declared check of one contract on ``device``; findings
+    """Run every declared check of one contract on ``device`` (None ->
+    cuda, which raises without a GPU; ``"cpu"`` for the host); findings
     carry the contract name and anchor at the registry (the audit is a
     property of the recorded program, not of one source line). When
     ``info`` is a dict it receives ``runs``, every recorded :class:`Trace`
     (the contract's own run, then the ladder's), and on a CUDA device with
     a ``parity`` check ``cpu_max_abs_err``, the largest difference from
     the CPU's runs."""
-    dev = torch.device(device)
+    # only the default is resolved: a caller's explicit device is taken as
+    # given (the audit's own tests read the card's counters on the host)
+    dev = resolve_device(None) if device is None else torch.device(device)
     findings: list[Finding] = []
 
     def add(rule: str, message: str) -> None:
@@ -423,10 +427,12 @@ def audit_contract(c: Contract, device="cpu",
     return findings
 
 
-def audit_all(contracts: list[Contract], device="cpu") -> list[Finding]:
+def audit_all(contracts: list[Contract], device=None) -> list[Finding]:
+    """Every contract's audit on ``device`` (None -> cuda)."""
+    dev = resolve_device(None) if device is None else torch.device(device)
     findings: list[Finding] = []
     for c in contracts:
-        findings += audit_contract(c, device)
+        findings += audit_contract(c, dev)
     return findings
 
 

@@ -7,7 +7,9 @@ The route follows the tensor's device and nothing else: a CUDA tensor
 launches the hand-written kernel or raises, and only a CPU tensor takes the
 plain PyTorch version. There is no fallback from one to the other, and no
 backend knob: the reference's ``REPRO_APSP_BACKEND`` and its fallback
-ladder are not ported.
+ladder are not ported. The scan alone also takes a meta tensor (the
+dry-run's shape-only trace): it returns outputs of the kernel's shapes and
+does no work, as the reference's Pallas call lowers to one opaque op.
 """
 from __future__ import annotations
 
@@ -181,6 +183,11 @@ def selective_scan_fwd(xc, dt, bm, cm, a, h0, *, chunk: int = 256):
     """Forward pass, routed by device. xc, dt: [B, S, Di]; bm, cm:
     [B, S, N]; a: [Di, N]; h0: [B, Di, N], all float32. Returns (y
     [B, S, Di], h_ckpt [B, S/chunk, Di, N], hT [B, Di, N])."""
+    if xc.device.type == "meta":
+        b, s, di = xc.shape
+        out = lambda *shape: torch.empty(shape, device="meta")
+        return (out(b, s, di), out(b, s // chunk, di, a.shape[1]),
+                out(b, di, a.shape[1]))
     args = [t.contiguous() for t in (xc, dt, bm, cm, a, h0)]
     if _device_type(*args) == "cuda":
         return _ss.selective_scan_fwd_cuda(*args, chunk=chunk)
@@ -190,6 +197,12 @@ def selective_scan_fwd(xc, dt, bm, cm, a, h0, *, chunk: int = 256):
 def selective_scan_bwd(xc, dt, bm, cm, a, h_ckpt, dy, *, chunk: int = 256):
     """Backward pass, routed by device. Returns (dxc, ddt, dbm, dcm, da,
     dh0); da is summed over the batch."""
+    if xc.device.type == "meta":
+        b, _, di = xc.shape
+        return (torch.empty_like(xc), torch.empty_like(dt),
+                torch.empty_like(bm), torch.empty_like(cm),
+                torch.empty_like(a), torch.empty((b, di, a.shape[1]),
+                                                 device="meta"))
     args = [t.contiguous() for t in (xc, dt, bm, cm, a, h_ckpt, dy)]
     if _device_type(*args) == "cuda":
         return _ss.selective_scan_bwd_cuda(*args, chunk=chunk)

@@ -28,7 +28,8 @@ from ..data import Prefetcher, make_pipeline
 from ..models import Model, reduced
 from ..models.config import ModelConfig
 from ..obs.log import get_logger
-from ..train import adafactor_init, adamw_init, make_train_step
+from ..train import (adafactor_init, adamw_init, init_train_state,
+                     make_train_step)
 from ..train.optimizer import OptConfig
 from ..utils.device import resolve_device
 
@@ -36,10 +37,8 @@ _LOG = get_logger("launch.train")
 
 
 def build_state(model: Model, optimizer: str) -> dict:
-    params = dict(model.named_parameters())
-    opt = (adamw_init if optimizer == "adamw" else adafactor_init)(
-        {k: p.detach() for k, p in params.items()})
-    return {"params": params, "opt": opt, "step": 0}
+    return init_train_state(
+        model, adamw_init if optimizer == "adamw" else adafactor_init)
 
 
 def to_device(batch: dict, device: torch.device) -> dict:

@@ -200,7 +200,9 @@ class Model(nn.Module):
     moved to ``device``, so a seed gives the same weights on every device
     (the reference draws its own from a ``jax.random`` key; the two give
     different numbers, so tests carry the reference's parameters across
-    with ``convert.load_reference_params``).
+    with ``convert.load_reference_params``). On ``device="meta"`` the
+    parameters have their shapes and dtypes and no storage, and no number
+    is drawn (the port's ``jax.eval_shape``, for the dry-run).
     """
 
     def __init__(self, cfg: ModelConfig, seed: int = 0,
@@ -210,6 +212,16 @@ class Model(nn.Module):
         dev = resolve_device(device)
         gen = torch.Generator()
         gen.manual_seed(seed)
+        if dev.type == "meta":
+            # shapes only (the dry-run): every factory call makes a meta
+            # tensor, so nothing is allocated and the generator draws nothing
+            with torch.device("meta"):
+                self._build(cfg, gen, dev)
+        else:
+            self._build(cfg, gen, dev)
+
+    def _build(self, cfg: ModelConfig, gen: torch.Generator,
+               dev: torch.device) -> None:
         self.embed = _Tree(L.init_embedding(gen, cfg.vocab_size,
                                             cfg.d_model, dev))
         n_dense = cfg.first_dense_layers if cfg.is_moe else 0

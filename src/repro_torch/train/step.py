@@ -1,11 +1,13 @@
 """Train-step builder: loss + grad + clip + optimizer update, with optional
 microbatch gradient accumulation; port of ``src/repro/train/step.py``.
 
-The reference's sharding constraints (FSDP gradient layouts) are dropped:
-the port runs on one device. The state is {"params": {name: Parameter},
-"opt": optimizer state, "step": int}; the step writes the new parameters
-into the model's own tensors in place (the reference returns new arrays),
-so the model and the state stay one set of weights.
+``constrain_accum`` pins the accumulation buffer to the parameters' layout
+where the reference does (``_constrain_like_params``). On one device that
+is the identity, so the step is the same with it or without it. The state
+is {"params": {name: Parameter}, "opt": optimizer state, "step": int}; the
+step writes the new parameters into the model's own tensors in place (the
+reference returns new arrays), so the model and the state stay one set of
+weights.
 """
 from __future__ import annotations
 
@@ -14,12 +16,22 @@ import torch
 from .optimizer import OptConfig, adafactor_update, adamw_update
 
 
+def _constrain_like_params(tree: dict) -> dict:
+    """Pin a grad-shaped dict to the parameter layout (FSDP), so a
+    partitioner reduce-scatters per-microbatch gradients into shards (the
+    reference's ``with_sharding_constraint``, variant ``accum_rs``). Eager
+    PyTorch on one device has no partitioner and every tensor is whole, so
+    this returns ``tree`` as it is."""
+    return tree
+
+
 def make_train_step(model, opt_cfg: OptConfig, optimizer: str = "adamw",
-                    accum_steps: int = 1):
+                    accum_steps: int = 1, constrain_accum: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
     ``accum_steps > 1`` splits the batch's leading dim into microbatches and
     accumulates gradients in f32 before one optimizer update.
+    ``constrain_accum`` shards the accumulation buffer like the parameters.
     """
     update_fn = adamw_update if optimizer == "adamw" else adafactor_update
 
@@ -46,11 +58,17 @@ def make_train_step(model, opt_cfg: OptConfig, optimizer: str = "adamw",
             grads = {k: torch.zeros(p.shape, dtype=torch.float32,
                                     device=p.device)
                      for k, p in params.items()}
+            if constrain_accum:
+                grads = _constrain_like_params(grads)
             for i in range(accum_steps):
                 mb_loss, _, mb_grads = grads_of(
                     params, {k: v[i] for k, v in micro.items()})
+                if constrain_accum:
+                    mb_grads = _constrain_like_params(mb_grads)
                 grads = {k: grads[k] + mb_grads[k].to(torch.float32)
                          / accum_steps for k in grads}
+                if constrain_accum:
+                    grads = _constrain_like_params(grads)
                 loss = loss + mb_loss / accum_steps
             metrics = {}
 

@@ -9,7 +9,10 @@ analysis contract recorded on the card, a trace through
 ``evaluate_design`` against the f64 oracle (rtol 1e-5),
 ``latency_vs_load``'s torch rows (equal to numpy's), and serving every
 decoder-only config at reduced widths against the CPU (greedy tokens equal,
-logits within 1e-5) with the hybrid's prefill on the scan kernel. Every test here needs an NVIDIA
+logits within 1e-5) with the hybrid's prefill on the scan kernel, the pod
+interconnect model's estimates against the CPU (rtol 1e-5), compression
+over an NCCL world of one, and the dry-run's meta-trace FLOPs against a
+train step on the card (exactly equal). Every test here needs an NVIDIA
 Hopper GPU and skips without one; run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -943,3 +946,94 @@ def test_make_inputs_on_cuda_equal_the_cpu_ones(cuda):
         for k, v in on_card.items():
             assert v.device.type == "cuda" and torch.equal(v.cpu(),
                                                            on_cpu[k]), k
+
+
+@pytest.mark.parametrize("rows", [4, 16])
+def test_ici_estimates_on_cuda_match_cpu(cuda, rows):
+    """Every collective kind over both axes of the pod, torus and mesh: one
+    load-propagation launch per estimate (B1 at 4 x 4, B2 at 16 x 16),
+    every field within rtol 1e-5 of the CPU's."""
+    import dataclasses
+
+    from repro_torch.core.ici_model import estimate_collective
+    from repro_torch.kernels import load_prop as lp
+
+    before = lp.load_prop_cuda.launches
+    calls = 0
+    for wrap in (True, False):
+        for kind in ("all_gather", "reduce_scatter", "all_reduce",
+                     "all_to_all"):
+            for axis in ("data", "model"):
+                got = estimate_collective(kind, axis, 4e9, rows=rows,
+                                          cols=rows, wrap=wrap, device=cuda)
+                calls += 1
+                want = estimate_collective(kind, axis, 4e9, rows=rows,
+                                           cols=rows, wrap=wrap,
+                                           device="cpu")
+                for f in dataclasses.fields(want):
+                    g, w = getattr(got, f.name), getattr(want, f.name)
+                    if isinstance(w, str):
+                        assert g == w
+                    else:
+                        assert g == pytest.approx(w, rel=1e-5), f.name
+    assert lp.load_prop_cuda.launches - before == calls
+
+
+def test_compression_over_an_nccl_world_of_one(cuda):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.sharding import MeshShape
+    from repro_torch.sharding.compression import (make_compressed_allreduce,
+                                                  quantize_int8)
+    from repro_torch.sharding.pipeline import pipeline_apply
+
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    x = torch.randn((4096, 4096), generator=gen, device=cuda)
+    for a, b in zip(quantize_int8(x), quantize_int8(x.cpu())):
+        assert torch.equal(a.cpu(), b)
+    torch.cuda.set_device(cuda.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("data",))
+        out = make_compressed_allreduce(mesh, axes=("data",))({"x": x})["x"]
+        _, scale = quantize_int8(x)
+        assert (out - x).abs().max().item() <= 0.5 * scale.max().item() * \
+            (1 + 1e-6)
+    finally:
+        dist.destroy_process_group()
+    w = torch.randn((1, 64, 64), generator=gen, device=cuda) * 0.1
+    xs = torch.randn((5, 4, 64), generator=gen, device=cuda)
+    fn = pipeline_apply(lambda p, v: torch.tanh(v @ p),
+                        MeshShape(("stage",), (1,)))
+    assert torch.equal(fn(w, xs),
+                       torch.stack([torch.tanh(x @ w[0]) for x in xs]))
+
+
+def test_meta_trace_flops_equal_a_train_step_on_cuda(cuda):
+    """The dry-run's meta trace of qwen2.5-3b at published widths cut to 2
+    layers counts exactly the FLOPs of the same train step on the card."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import Model, ShapeSpec, make_inputs
+    from repro_torch.train import OptConfig, adamw_init, make_train_step
+    from repro_torch.train.state import init_train_state
+
+    cfg = D.cut_depth(get_config("qwen2.5-3b"), 2)
+    spec = ShapeSpec("flop_check", 2048, 2, "train")
+    meta = D.count_step(cfg, spec)
+    model = Model(cfg, device="meta").to_empty(device=cuda)
+    torch.manual_seed(0)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            p.fill_(1.0) if name.endswith("scale") else p.normal_(0, 0.02)
+    step = make_train_step(model, OptConfig())
+    with FlopCounterMode(display=False) as fc:
+        _, metrics = step(init_train_state(model, adamw_init),
+                          make_inputs(cfg, spec, device=cuda))
+    assert fc.get_total_flops() == meta["flops"] > 0
+    assert torch.isfinite(metrics["loss"])

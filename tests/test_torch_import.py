@@ -99,7 +99,8 @@ def test_evaluate_design_defaults_to_cuda_and_raises_without_it(no_gpu):
                                    "run_batch_torch", "fastsim_torch",
                                    "latency_vs_load_torch",
                                    "analysis_audit_cli", "launch_serve_cli",
-                                   "serve_generate"])
+                                   "serve_generate", "audit_contract",
+                                   "audit_all"])
 def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     import numpy as np
     from repro_torch.core.latency import routed_diameter_batch
@@ -121,6 +122,8 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     from repro_torch.core.visualize import latency_vs_load
     from repro_torch.analysis.__main__ import main as analysis_main
     from repro_torch.launch.serve import generate, main as launch_serve_main
+    from repro_torch.analysis import audit_all, audit_contract
+    from repro_torch.analysis.registry import contracts
 
     nh = np.tile(np.arange(4, dtype=np.int32)[None, :, None], (1, 1, 4))
     sim = fast_sim_from_design(make_design("mesh", 4),
@@ -163,6 +166,8 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
         "serve_generate": lambda: generate(
             Model(reduced(get_config("hymba-1.5b"))),
             np.zeros((1, 4), np.int64), 2),
+        "audit_contract": lambda: audit_contract(contracts()[0]),
+        "audit_all": lambda: audit_all(list(contracts())),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()
