@@ -213,9 +213,26 @@ Phases, each fatal on error (exit code 1, no result line):
     dry-run's argument and temp bytes on one device; (e) the dry-run cells
     of ``dryrun_tasks`` on host worker processes during (a)-(d), each
     record sane, seconds per cell.
+24. population sharding: engines over ``["cuda:0"] * k`` for k in {2, 4}
+    (and over every visible card where there are several), each shard its
+    own dispatch, adaptive loops and kernel launches: ``evaluate_genomes``
+    on ``AdjacencySpace(12, 4)`` at population 10, ``(32, 8)`` at 24,
+    ``(256, 8)`` at 8 (B2; 2-row shards at k = 4) and ``ParametricSpace``
+    over mesh and torus at 9 and 16 chiplets at 10, and
+    ``evaluate_genomes_faults_async`` at phase 15's configuration (i.i.d.
+    faults at F = 8, and every single-chiplet fault): latency, throughput,
+    reachable fraction and reports bit-equal to the one-shard engine on
+    the card, latency and throughput within rtol 1e-5 of the CPU; phase 3's
+    120-point sweep through ``DseEngine.run`` at k = 4 bit-equal to k = 1;
+    NSGA-II through ``PopulationEvaluator`` (``AdjacencySpace(16, 5)``,
+    population 16, 5 generations) on 4 shards with one shard's front and
+    state; a ``SearchService`` round of 4 co-batched jobs over 4 shards,
+    each job bit-identical to its solo run; B1, B2 and B5 launches; evals/s
+    and the device idle share at k = 1, 2 and 4 on ``AdjacencySpace(32,
+    8)`` at population 24.
 
 Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20, 21, 22,
-23)
+23, 24)
 is driven with every kernel's launch count set to 0 just before it and read
 just after; a path whose kernels were not launched fails the run. Launches
 made to compare a kernel with its plain version are not counted. The
@@ -369,6 +386,16 @@ DRYRUN_ARCH = "qwen2.5-3b"
 DRYRUN_TRAIN = ("qwen2.5-3b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
                 "glm4-9b", "codeqwen1.5-7b", "whisper-medium")
 FLOP_ARCH, FLOP_LAYERS = "qwen2.5-3b", 2
+# population sharding: shard lists ["cuda:0"] * k, the genome spaces
+# (name, n_chiplets or None for the parametric space, population), the
+# NSGA-II run and the service round, and the timed calls per shard count
+SHARD_COUNTS = (2, 4)
+SHARD_GENOMES = (("adjacency_12", 12, 10), ("adjacency_32", 32, 24),
+                 ("adjacency_256", 256, 8), ("parametric", None, 10))
+SHARD_OPT = {"n_chiplets": 16, "max_degree": 5, "pop_size": 16,
+             "generations": 5, "seed": 7}
+SHARD_JOBS = 4
+SHARD_RATE_REPS = 5
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
@@ -3437,6 +3464,178 @@ def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
     return rec
 
 
+def population_sharding_path(torch, dev, zero_counts, read_counts,
+                             points) -> dict:
+    """Phase 24: population sharding. Engines over ``[dev] * k`` (and over
+    every visible card where there are several) run every genome path,
+    the fault grid, the sweep, NSGA-II and a co-batched service round, each
+    held bit-equal to the one-shard engine on the card and, for the genome
+    metrics, within rtol 1e-5 of the CPU. Returns the phase's record."""
+    from repro_torch.dse import DseEngine
+    from repro_torch.faults.model import iid_link_faults, single_chiplet_faults
+    from repro_torch.opt import (AdjacencySpace, Budgets, ParametricSpace,
+                                 PopulationEvaluator)
+    from repro_torch.opt.runner import make_optimizer
+    from repro_torch.serve import (JobSpec, SearchService, front_json_bytes,
+                                   run_spec_solo)
+
+    lists = {f"{k}x{dev}": [dev] * k for k in SHARD_COUNTS}
+    if torch.cuda.device_count() > 1:
+        lists["every_card"] = [torch.device("cuda", i)
+                               for i in range(torch.cuda.device_count())]
+    one, cpu = DseEngine(devices=[dev]), DseEngine(device="cpu")
+    engines = {key: DseEngine(devices=ds) for key, ds in lists.items()}
+    reports = ("total_chiplet_area", "interposer_area", "power", "cost",
+               "reachable_fraction")
+
+    def same(what, got, want, fields):
+        for f in fields:
+            if not np.array_equal(getattr(got, f), getattr(want, f)):
+                fail(f"phase 24: {what}: {f} differs from one shard")
+        for f in reports:
+            if not np.array_equal(getattr(got.reports, f),
+                                  getattr(want.reports, f)):
+                fail(f"phase 24: {what}: report {f} differs from one shard")
+
+    def near_cpu(what, got, want, fields):
+        for f in fields:
+            g, w = getattr(got, f), getattr(want, f)
+            if not np.all(np.isfinite(g)):
+                fail(f"phase 24: {what}: non-finite {f}")
+            if not np.allclose(g, w, rtol=RTOL, atol=0.0):
+                fail(f"phase 24: {what}: {f} differs from the CPU run by "
+                     f"{np.max(np.abs(g - w))}")
+
+    # the inputs, and the one-shard and CPU runs they are held against
+    genome_runs = {}
+    for key, n, size in SHARD_GENOMES:
+        if n is None:
+            space = ParametricSpace(topologies=("mesh", "torus"),
+                                    chiplet_counts=(9, 16))
+            pop = space.repair(np.random.default_rng(1).integers(
+                0, 8, (size, 4)))
+        else:
+            space = AdjacencySpace(n_chiplets=n,
+                                   max_degree=4 if n == 12 else 8)
+            pop = space.sample(np.random.default_rng(n), size)
+        want = one.evaluate_genomes(space, pop)
+        near_cpu(key, want, cpu.evaluate_genomes(space, pop),
+                 ("latency", "throughput"))
+        genome_runs[key] = (space, pop, want)
+    n, degree = FAULT_SPACE
+    fspace = AdjacencySpace(n_chiplets=n, max_degree=degree)
+    fpop = fspace.sample(np.random.default_rng(11), FAULT_POP)
+    scen = {"F=8": iid_link_faults(fspace, p=0.05, n_scenarios=7, seed=0),
+            "chiplets": single_chiplet_faults(fspace)}
+
+    def grid(engine, sc):
+        return engine.evaluate_genomes_faults_async(
+            fspace, fpop, sc.link_fail, sc.node_fail).result()
+
+    grid_fields = ("latency", "throughput", "reachable_fraction")
+    fault_runs = {}
+    for key, sc in scen.items():
+        fault_runs[key] = grid(one, sc)
+        near_cpu(f"faults {key}", fault_runs[key], grid(cpu, sc),
+                 grid_fields)
+    sweep_one = DseEngine(devices=[dev], chunk_size=60).run(points)
+
+    ospace = AdjacencySpace(n_chiplets=SHARD_OPT["n_chiplets"],
+                            max_degree=SHARD_OPT["max_degree"])
+
+    def nsga(engine):
+        ev = PopulationEvaluator(ospace, engine=engine,
+                                 budgets=Budgets(max_interposer_area=2500.0))
+        opt = make_optimizer("nsga2", ospace, ev, seed=SHARD_OPT["seed"],
+                             pop_size=SHARD_OPT["pop_size"])
+        for _ in range(SHARD_OPT["generations"]):
+            opt.step()
+        return opt.archive.to_dicts(), opt.state(), ev.n_evals
+
+    nsga_one = nsga(one)
+    specs = [_serve_spec(JobSpec, 500 + i, SERVE_SPACE, 4)
+             for i in range(SHARD_JOBS)]
+    solos = [run_spec_solo(spec, devices=[dev]) for spec in specs]
+
+    # the main path, counted: n = 256 on its own (B2's tier), the rest
+    sharded = {}
+    zero_counts()
+    for key, engine in engines.items():
+        space, pop, _ = genome_runs["adjacency_256"]
+        sharded[(key, "adjacency_256")] = engine.evaluate_genomes(space, pop)
+    counts_256 = read_counts("sharding_adjacency_256",
+                             ("load_propagate", "minplus"))
+    zero_counts()
+    t0 = time.perf_counter()
+    for key, engine in engines.items():
+        for gkey, (space, pop, _) in genome_runs.items():
+            if gkey != "adjacency_256":
+                sharded[(key, gkey)] = engine.evaluate_genomes(space, pop)
+        for skey, sc in scen.items():
+            sharded[(key, f"faults {skey}")] = grid(engine, sc)
+    sweep_four = DseEngine(devices=[dev] * 4, chunk_size=60).run(points)
+    nsga_four = nsga(engines[f"4x{dev}"])
+    with SearchService(devices=[dev] * 4) as svc:
+        for spec in specs:
+            svc.submit(spec)
+        jobs = [svc.wait(spec.job_id, 600) for spec in specs]
+    counts = read_counts("sharding", ("load_propagate", "minplus"))
+    main_s = time.perf_counter() - t0
+
+    for (key, what), got in sharded.items():
+        if what.startswith("faults"):
+            same(f"{key} {what}", got, fault_runs[what.split()[1]],
+                 grid_fields)
+        else:
+            same(f"{key} {what}", got, genome_runs[what][2],
+                 ("latency", "throughput"))
+    if not (np.array_equal(sweep_four.latency, sweep_one.latency)
+            and np.array_equal(sweep_four.throughput, sweep_one.throughput)):
+        fail("phase 24: the sweep on 4 shards differs from one shard")
+    if nsga_four != nsga_one:
+        fail("phase 24: NSGA-II on 4 shards differs from one shard")
+    for job, (opt, rows) in zip(jobs, solos):
+        if not (job.status == "done"
+                and front_json_bytes(job.result_rows)
+                == front_json_bytes(rows)
+                and job.n_evals == opt.evaluator.n_evals
+                and job.optimizer.state() == opt.state()):
+            fail(f"phase 24: {job.job_id} co-batched over 4 shards differs "
+                 f"from its solo run")
+
+    # evals/s and the device idle share at 1, 2 and 4 shards
+    space, pop, _ = genome_runs["adjacency_32"]
+    rates = {}
+    for k, engine in ((1, one), *((k, engines[f"{k}x{dev}"])
+                                  for k in SHARD_COUNTS)):
+        engine.evaluate_genomes(space, pop)
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(SHARD_RATE_REPS):
+            t1 = time.perf_counter()
+            engine.evaluate_genomes(space, pop)
+            times.append(time.perf_counter() - t1)
+        wall_s, busy_s, _ = profile_device(
+            torch, lambda e=engine: e.evaluate_genomes(space, pop))
+        rates[k] = {"s_per_call": statistics.median(times),
+                    "evals_per_s": len(pop) / statistics.median(times),
+                    "profiled_wall_s": wall_s, "device_busy_s": busy_s,
+                    "device_idle_share": 1.0 - busy_s / wall_s}
+    b1 = counts["load_propagate"]
+    log(f"phase 24: shard lists {list(lists)}: every genome path, the fault "
+        f"grid, the sweep, NSGA-II and a 4-job service round bit-equal to "
+        f"one shard, genome metrics within rtol {RTOL} of the CPU; launches "
+        f"B1 {b1}, B2 {counts_256['load_propagate']}, B5 "
+        f"{counts['minplus'] + counts_256['minplus']}; AdjacencySpace(32, 8) "
+        f"at 24: " + ", ".join(f"k={k} {r['evals_per_s']:.1f} evals/s idle "
+                               f"{r['device_idle_share']:.4f}"
+                               for k, r in rates.items()))
+    return {"shard_lists": {k: [str(d) for d in v] for k, v in lists.items()},
+            "launches": {"B1": b1, "B2": counts_256["load_propagate"],
+                         "B5": counts["minplus"] + counts_256["minplus"]},
+            "main_path_s": main_s, "adjacency_32_pop_24": rates}
+
+
 def main() -> None:
     try:
         run_phases()
@@ -3827,6 +4026,14 @@ def run_phases() -> None:
     print(json.dumps({"dryrun_sharding": dryrun_rec}), flush=True)
     log(f"phase 23: {dryrun_rec['phase_s']:.1f} s ({dryrun_rec['card']})")
 
+    # -- 24. population sharding -----------------------------------------------
+    t0 = time.perf_counter()
+    sharding_rec = population_sharding_path(torch, dev, zero_counts,
+                                            read_counts, points)
+    sharding_rec.update(phase_s=time.perf_counter() - t0, card=card_line())
+    print(json.dumps({"population_sharding": sharding_rec}), flush=True)
+    log(f"phase 24: {sharding_rec['phase_s']:.1f} s ({sharding_rec['card']})")
+
     totals = {name: sum(c[name] for c in path_launches.values())
               for name in kernels}
     print(json.dumps({"path_launches": path_launches}), flush=True)
@@ -3850,7 +4057,8 @@ def run_phases() -> None:
     # the paths whose load propagation runs above 160 nodes, where the
     # reference ran its tiled kernel: the 256-chiplet points and genomes
     tiled = sum(path_launches[p]["load_propagate"]
-                for p in ("large_n", "genomes_adjacency_256"))
+                for p in ("large_n", "genomes_adjacency_256",
+                          "sharding_adjacency_256"))
     tiled += analysis_rec["contracts"]["ops.load_propagate[slab,n=256,B=2]"][
         "launches"].get("load_prop_cuda", 0)
     # the 16 x 16 pod's estimates and the layout rankings (n = 256)

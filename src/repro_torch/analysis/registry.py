@@ -136,7 +136,8 @@ def _trace_adjacency(dev, n_chiplets: int, pop: int):
     from ..dse import genomes
 
     pipe = _adjacency_pipeline(n_chiplets, dev)
-    _, bits = pipe._bits(pipe.space.sample(np.random.default_rng(pop), pop))
+    pop_genomes = pipe.space.sample(np.random.default_rng(pop), pop)
+    _, (bits,) = pipe._bits(pop_genomes)
 
     def run(b):
         return genomes._adjacency_eval(
@@ -155,7 +156,7 @@ def _trace_adjacency_faults(dev, n_chiplets: int, pop: int, n_faults: int):
 
     pipe = _adjacency_pipeline(n_chiplets, dev)
     rng = np.random.default_rng(pop * n_faults)
-    _, bits = pipe._bits(pipe.space.sample(rng, pop))
+    _, (bits,) = pipe._bits(pipe.space.sample(rng, pop))
     G = pipe.space.genome_length
     link_alive = rng.random((n_faults, G)) > 0.1
     link_alive[0] = True                       # the pristine scenario

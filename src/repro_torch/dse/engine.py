@@ -1,4 +1,4 @@
-"""Batched DSE evaluation engine on one device; port of
+"""Batched DSE evaluation engine, sharded over a list of devices; port of
 ``src/repro/dse/engine.py``.
 
 The engine is:
@@ -11,10 +11,15 @@ The engine is:
   construction, structure-cache lookups) runs on a worker thread while the
   device evaluates chunk i.
 
-It runs on one explicit ``device`` (None -> cuda, which raises without a
-GPU). ``evaluate_genomes`` is the optimizer's cost function
-(``dse.genomes``), ``evaluate_genomes_faults_async`` its [P, F] fault grid.
-The reference's mesh sharding is not ported yet.
+It shards every batch's design axis over ``devices``, the port's
+counterpart of the reference's ``mesh``: ``devices=None`` is every visible
+card (raises without a GPU), as the reference's default mesh is every
+device, so the engine stays elastic; ``device=x`` means ``devices=[x]``. A
+list may repeat a device. The shards are equal and contiguous, dispatched
+in shard order from one host thread and collected in shard order, and each
+runs its own adaptive loops. ``evaluate_genomes`` is the optimizer's cost
+function (``dse.genomes``), ``evaluate_genomes_faults_async`` its [P, F]
+fault grid.
 """
 from __future__ import annotations
 
@@ -31,7 +36,7 @@ from ..core.latency import latency_proxy, num_doubling_steps, path_cost_doubling
 from ..core.throughput import throughput_proxy
 from ..obs.log import get_logger
 from ..obs.trace import span as _span
-from ..utils.device import resolve_device
+from ..utils.device import gather_rows, on_device, resolve_devices
 from .batch import DesignBatch, encode_designs
 from .sweep import DesignPoint
 
@@ -74,9 +79,12 @@ def batched_evaluate(next_hop: torch.Tensor, step_cost: torch.Tensor,
 
 
 class DseEngine:
-    def __init__(self, chunk_size: int = 256, device=None,
+    def __init__(self, chunk_size: int = 256, device=None, devices=None,
                  checkpoint_path: str | None = None, prefetch: bool = True):
-        self.device = resolve_device(device)
+        if device is not None and devices is not None:
+            raise ValueError("pass device= or devices=, not both")
+        self.devices = resolve_devices(devices if device is None else device)
+        self.device = self.devices[0]
         self.chunk_size = chunk_size
         self.checkpoint_path = checkpoint_path
         self.prefetch = prefetch
@@ -89,6 +97,10 @@ class DseEngine:
                     rec = json.loads(line)
                     self._done[rec["index"]] = (rec["latency"], rec["throughput"])
 
+    @property
+    def n_devices(self) -> int:
+        return len(self.devices)
+
     # -- genome path (dse.genomes) ------------------------------------------
     def _genome_pipeline(self, space):
         """Per-space pipeline, built once and cached for the engine's
@@ -100,7 +112,7 @@ class DseEngine:
             cached = self._genome_pipelines.get(id(space))
             if cached is not None and cached[0] is space:
                 return cached[1]
-            pipeline = make_pipeline(space, self.device)
+            pipeline = make_pipeline(space, self.devices)
             self._genome_pipelines[id(space)] = (space, pipeline)
             return pipeline
 
@@ -148,14 +160,44 @@ class DseEngine:
         return self._genome_pipeline(space).evaluate_faults_async(
             genomes, link_fail, node_fail)
 
+    def _pad_chunk(self, batch: DesignBatch) -> tuple[DesignBatch, int]:
+        """Pad the chunk's design axis to a device-count multiple with
+        copies of its last design (elastic)."""
+        b = batch.size
+        mult = self.n_devices
+        pad = -b % mult
+        if pad == 0:
+            return batch, b
+
+        def padb(x):
+            return torch.cat([x, x[-1:].expand(pad, *x.shape[1:])])
+
+        return DesignBatch(
+            next_hop=padb(batch.next_hop), step_cost=padb(batch.step_cost),
+            node_weight=padb(batch.node_weight), adj_bw=padb(batch.adj_bw),
+            traffic=padb(batch.traffic), max_hops=batch.max_hops,
+            points=batch.points), b
+
     def evaluate_batch(self, batch: DesignBatch) -> DseResult:
-        with _span("dse.evaluate_batch", b=batch.size, n=batch.n):
-            b = batch.to(self.device)
-            lat, thr = batched_evaluate(
-                b.next_hop, b.step_cost, b.node_weight, b.adj_bw, b.traffic,
-                n_steps=num_doubling_steps(b.n), max_hops=b.max_hops)
-            return DseResult(latency=lat.cpu().numpy(),
-                             throughput=thr.cpu().numpy(),
+        """Both proxies over the chunk, one equal contiguous shard of its
+        design axis on each device."""
+        with _span("dse.evaluate_batch", b=batch.size, n=batch.n,
+                   shards=self.n_devices):
+            padded, b_real = self._pad_chunk(batch)
+            s = padded.size // self.n_devices
+            n_steps = num_doubling_steps(padded.n)
+            outs = []
+            for i, dev in enumerate(self.devices):
+                rows = slice(i * s, (i + 1) * s)
+                args = [x[rows].to(dev) for x in (
+                    padded.next_hop, padded.step_cost, padded.node_weight,
+                    padded.adj_bw, padded.traffic)]
+                with on_device(dev):
+                    outs.append(batched_evaluate(
+                        *args, n_steps=n_steps, max_hops=padded.max_hops))
+            lat, thr = zip(*outs)
+            return DseResult(latency=gather_rows(lat, b_real),
+                             throughput=gather_rows(thr, b_real),
                              points=batch.points)
 
     def evaluate_points(self, points: list[DesignPoint],

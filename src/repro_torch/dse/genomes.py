@@ -1,6 +1,5 @@
-"""Genome -> metrics pipelines on one device: the optimizer's cost function.
-Port of ``src/repro/dse/genomes.py`` (the multi-device population sharding
-is not ported yet).
+"""Genome -> metrics pipelines: the optimizer's cost function. Port of
+``src/repro/dse/genomes.py``.
 
 * ``AdjacencyPipeline`` — from a bit-genome population of
   ``opt.space.AdjacencySpace`` to (latency, throughput) on the device: the
@@ -19,12 +18,23 @@ is not ported yet).
   shared structure cache, stacked, and each population is one gather plus
   the sweep engine's batched proxies.
 
+Both pipelines shard the population over a list of devices, the port's
+counterpart of the reference's ``shard_map`` over the mesh's ``"data"``
+axis: the padded population is cut into equal contiguous shards, each shard
+is dispatched on its own device (in shard order, from one host thread) and
+the results are collected in shard order. The tables are replicated once
+per distinct device, and there is no communication between shards. Each
+shard runs its own adaptive loops, so each stops at its own routed
+diameter. The list may repeat a device (``["cpu"] * 4``, ``["cuda:0"] *
+4``), as XLA's forced host device count repeats the host.
+
 PyTorch runs eagerly, so there are no compiled programs to cache; the
-population is still padded to the reference's power-of-two buckets
-(``bucket_population``) and node counts to ``node_bucket``, so the port
-evaluates the same shapes. Every reduction over a design runs in an order
-fixed by the design's own shape (``core.latency.pairwise_sum``, min, the
-kernels), so a genome gives the same bits alone as in any population.
+population is still padded to the reference's power-of-two buckets rounded
+up to a multiple of the shard count (``bucket_population``) and node counts
+to ``node_bucket``, so the port evaluates the same shapes. Every reduction
+over a design runs in an order fixed by the design's own shape
+(``core.latency.pairwise_sum``, min, the kernels), so a genome gives the
+same bits alone as in any population, and k shards the same bits as one.
 
 Reports (area, power, cost for the constraint masks) stay on the host in
 float64, exact against ``core.reports``.
@@ -43,6 +53,8 @@ from ..kernels.ops import load_propagate
 from ..kernels.ref import BIG
 from ..obs.trace import span as _span
 from ..routing.device import hops_next_hop_batch
+from ..utils.device import (gather_rows, on_device, resolve_devices,
+                            shard_rows)
 from .engine import batched_evaluate
 
 
@@ -69,18 +81,19 @@ def node_bucket(n: int) -> int:
 
 class PendingGenomeEval:
     """Handle for an evaluation whose device work may still be running.
-    ``result()`` waits on the CUDA event recorded after the last launch,
-    then builds the host-side reports; it is idempotent."""
+    ``result()`` waits on the CUDA event recorded after each shard's last
+    launch, then collects the shards and builds the host-side reports; it
+    is idempotent."""
 
-    def __init__(self, finisher, event: torch.cuda.Event | None = None):
+    def __init__(self, finisher, events: list | None = None):
         self._finisher = finisher
-        self._event = event
+        self._events = events or []
         self._result: GenomeEvalResult | None = None
 
     def result(self) -> "GenomeEvalResult":
         if self._finisher is not None:
-            if self._event is not None:
-                self._event.synchronize()
+            for event in self._events:
+                event.synchronize()
             self._result = self._finisher()
             self._finisher = None
         return self._result
@@ -106,12 +119,16 @@ class FaultGridResult:
     reports: ReportArrays            # [P] pristine constraint columns
 
 
-def _pending(device: torch.device, finisher) -> PendingGenomeEval:
-    event = None
-    if device.type == "cuda":
-        event = torch.cuda.Event()
-        event.record(torch.cuda.current_stream(device))
-    return PendingGenomeEval(finisher, event)
+def _pending(devices: list[torch.device], finisher) -> PendingGenomeEval:
+    """One CUDA event per shard, recorded on its device's current stream
+    after the shard's launches."""
+    events = []
+    for dev in devices:
+        if dev.type == "cuda":
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(dev))
+            events.append(event)
+    return PendingGenomeEval(finisher, events)
 
 
 # ---------------------------------------------------------------------------
@@ -383,9 +400,10 @@ def _adjacency_eval_faults(bits, link_alive, node_alive, t, *, n: int,
 
 
 class AdjacencyPipeline:
-    """Device path for ``opt.space.AdjacencySpace`` populations."""
+    """Device path for ``opt.space.AdjacencySpace`` populations, sharded
+    over ``devices`` (one device or a sequence, repeats allowed)."""
 
-    def __init__(self, space, device):
+    def __init__(self, space, devices):
         from ..core.graph import link_bandwidth
         from ..core.reports import _interposer_tech_default as _itech
         from ..core.reports import die_cost
@@ -398,7 +416,8 @@ class AdjacencyPipeline:
                 f"device path supports dijkstra_lowest_id routing only "
                 f"(space routing: {space.routing!r}); use the host path")
         self.space = space
-        self.device = torch.device(device)
+        self.devices = resolve_devices(devices)
+        self.device = self.devices[0]
         n = space.n_chiplets
         self.n = n
         pkg = space.packaging
@@ -475,32 +494,36 @@ class AdjacencyPipeline:
         pair_id[pv, pu] = np.arange(G)
         traffic = make_traffic(space.traffic_pattern, n, seed=space.seed)
 
-        def put(x, dtype):
-            return torch.as_tensor(np.asarray(x), dtype=dtype,
-                                   device=self.device)
-
         i64, f32 = torch.int64, torch.float32
-        self._tables = {
-            "pair_u": put(pu, i64), "pair_v": put(pv, i64),
-            "pair_id": put(pair_id, i64), "chain_slot": put(chain_slot, i64),
-            "chain_eslot": put(chain_eslot, i64), "inv_j": put(inv_j, i64),
-            "inv_c": put(inv_c, i64), "col": put(col_of, f32),
-            "row": put(row_of, f32), "side": put(side, f32),
-            "phyx": put(phyx, f32), "phyy": put(phyy, f32),
-            "cphyx": put(cphyx, f32), "cphyy": put(cphyy, f32),
-            "bw": put(bw, f32), "traffic": put(traffic, f32),
-            "consts": put([1.0, pkg.link_latency_const,
-                           pkg.link_latency_per_mm,
-                           2.0 * make_chiplet(1).phy_latency,
-                           make_chiplet(1).internal_latency], f32),
+        host = {
+            "pair_u": (pu, i64), "pair_v": (pv, i64),
+            "pair_id": (pair_id, i64), "chain_slot": (chain_slot, i64),
+            "chain_eslot": (chain_eslot, i64), "inv_j": (inv_j, i64),
+            "inv_c": (inv_c, i64), "col": (col_of, f32),
+            "row": (row_of, f32), "side": (side, f32),
+            "phyx": (phyx, f32), "phyy": (phyy, f32),
+            "cphyx": (cphyx, f32), "cphyy": (cphyy, f32),
+            "bw": (bw, f32), "traffic": (traffic, f32),
+            "consts": ([1.0, pkg.link_latency_const,
+                        pkg.link_latency_per_mm,
+                        2.0 * make_chiplet(1).phy_latency,
+                        make_chiplet(1).internal_latency], f32),
         }
+        # replicated once per distinct device, not once per shard
+        self._tables_on = {
+            dev: {k: torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
+                  for k, (x, dt) in host.items()}
+            for dev in dict.fromkeys(self.devices)}
+        self._tables = self._tables_on[self.device]
         self._euclid = pkg.link_routing == "euclidean"
         self.max_hops = max(n - 1, 1)
 
-    def _bits(self, genomes: np.ndarray) -> tuple[np.ndarray, torch.Tensor]:
+    def _bits(self, genomes: np.ndarray
+              ) -> tuple[np.ndarray, list[torch.Tensor]]:
         """Degrees [P, n] of a repaired population (checked against the
-        PHY bound) and its bits on the device, padded to the population
-        bucket with copies of the last genome."""
+        PHY bound) and its bits, padded to the population bucket (a
+        multiple of the shard count) with copies of the last genome and cut
+        into one shard per device."""
         deg = self.space.degrees(genomes)
         if deg.max(initial=0) > self.k_phys:
             raise ValueError(
@@ -508,13 +531,12 @@ class AdjacencyPipeline:
                 f"({int(deg.max())} > {self.k_phys}); repair genomes "
                 f"before evaluate_genomes")
         Pn = len(genomes)
-        bp = bucket_population(Pn)
+        bp = bucket_population(Pn, len(self.devices))
         padded = genomes
         if bp != Pn:
             padded = np.concatenate(
                 [genomes, np.repeat(genomes[-1:], bp - Pn, axis=0)], axis=0)
-        return deg, torch.as_tensor(padded % 2, dtype=torch.int32,
-                                    device=self.device)
+        return deg, shard_rows(padded % 2, self.devices, torch.int32)
 
     def evaluate_async(self, genomes: np.ndarray) -> PendingGenomeEval:
         """Launch the whole population's evaluation and return without
@@ -522,22 +544,27 @@ class AdjacencyPipeline:
         reports."""
         genomes = np.asarray(genomes, np.int64)
         Pn = len(genomes)
-        with _span("genomes.dispatch", space="adjacency", pop=Pn, n=self.n):
+        with _span("genomes.dispatch", space="adjacency", pop=Pn, n=self.n,
+                   shards=len(self.devices)):
             deg, bits = self._bits(genomes)
-            with torch.no_grad():
-                lat, thr, len_sum = _adjacency_eval(
-                    bits, self._tables, n=self.n, k_phys=self.k_phys,
-                    euclid=self._euclid, max_hops=self.max_hops)
+            outs = []
+            for dev, b in zip(self.devices, bits):
+                with on_device(dev), torch.no_grad():
+                    outs.append(_adjacency_eval(
+                        b, self._tables_on[dev], n=self.n,
+                        k_phys=self.k_phys, euclid=self._euclid,
+                        max_hops=self.max_hops))
+        lat, thr, len_sum = zip(*outs)
 
         def finish() -> GenomeEvalResult:
             with _span("genomes.finish", space="adjacency", pop=Pn):
-                reports = self._report_arrays(
-                    genomes, deg, len_sum.cpu().numpy()[:Pn])
-                return GenomeEvalResult(latency=lat.cpu().numpy()[:Pn],
-                                        throughput=thr.cpu().numpy()[:Pn],
+                reports = self._report_arrays(genomes, deg,
+                                              gather_rows(len_sum, Pn))
+                return GenomeEvalResult(latency=gather_rows(lat, Pn),
+                                        throughput=gather_rows(thr, Pn),
                                         reports=reports)
 
-        return _pending(self.device, finish)
+        return _pending(self.devices, finish)
 
     def evaluate(self, genomes: np.ndarray) -> GenomeEvalResult:
         """Blocking wrapper over ``evaluate_async``."""
@@ -565,27 +592,32 @@ class AdjacencyPipeline:
             raise ValueError(
                 f"node_fail shape {node_fail.shape} != ({F}, {self.n})")
         with _span("genomes.dispatch_faults", space="adjacency", pop=Pn,
-                   n=self.n, faults=F):
+                   n=self.n, faults=F, shards=len(self.devices)):
             deg, bits = self._bits(genomes)
-            link_alive = torch.as_tensor(~link_fail, device=self.device)
-            node_alive = torch.as_tensor(~node_fail, device=self.device)
-            with torch.no_grad():
-                lat, thr, reach, len_sum = _adjacency_eval_faults(
-                    bits, link_alive, node_alive, self._tables, n=self.n,
-                    k_phys=self.k_phys, euclid=self._euclid,
-                    max_hops=self.max_hops)
+            # the fault masks, replicated to every device
+            masks = {dev: (torch.as_tensor(~link_fail, device=dev),
+                           torch.as_tensor(~node_fail, device=dev))
+                     for dev in dict.fromkeys(self.devices)}
+            outs = []
+            for dev, b in zip(self.devices, bits):
+                with on_device(dev), torch.no_grad():
+                    outs.append(_adjacency_eval_faults(
+                        b, *masks[dev], self._tables_on[dev], n=self.n,
+                        k_phys=self.k_phys, euclid=self._euclid,
+                        max_hops=self.max_hops))
+        lat, thr, reach, len_sum = zip(*outs)
 
         def finish() -> FaultGridResult:
             with _span("genomes.finish_faults", space="adjacency", pop=Pn):
-                reports = self._report_arrays(
-                    genomes, deg, len_sum.cpu().numpy()[:Pn])
+                reports = self._report_arrays(genomes, deg,
+                                              gather_rows(len_sum, Pn))
                 return FaultGridResult(
-                    latency=lat.cpu().numpy()[:Pn],
-                    throughput=thr.cpu().numpy()[:Pn],
-                    reachable_fraction=reach.cpu().numpy()[:Pn],
+                    latency=gather_rows(lat, Pn),
+                    throughput=gather_rows(thr, Pn),
+                    reachable_fraction=gather_rows(reach, Pn),
                     reports=reports)
 
-        return _pending(self.device, finish)
+        return _pending(self.devices, finish)
 
     def evaluate_faults(self, genomes: np.ndarray, link_fail: np.ndarray,
                         node_fail: np.ndarray) -> FaultGridResult:
@@ -623,11 +655,14 @@ class ParametricPipeline:
     finite set of decodable structures is built lazily on the host (through
     the shared structure cache, so sweeps and optimizers reuse each other's
     builds) and stacked; each population is an index gather plus the sweep
-    engine's batched proxies."""
+    engine's batched proxies. The population is sharded over ``devices``
+    (one device or a sequence, repeats allowed); the structure stack is
+    replicated once per distinct device."""
 
-    def __init__(self, space, device):
+    def __init__(self, space, devices):
         self.space = space
-        self.device = torch.device(device)
+        self.devices = resolve_devices(devices)
+        self.device = self.devices[0]
         self.n = node_bucket(space.max_nodes)
         self.n_steps = num_doubling_steps(self.n)
         # the safety bound; the flow loop stops at the routed diameter
@@ -640,7 +675,8 @@ class ParametricPipeline:
             k: [] for k in ("next_hop", "step_cost", "node_weight", "adj_bw",
                             "traffic")}
         self._reports: list[tuple] = []
-        self._stacked: dict[str, torch.Tensor] | None = None
+        # device -> name -> stacked tables; emptied when structures grow
+        self._stacked: dict[torch.device, dict[str, torch.Tensor]] = {}
 
     def _point_for(self, key: tuple):
         from .sweep import DesignPoint
@@ -704,7 +740,7 @@ class ParametricPipeline:
             self._reports.append((rep.total_chiplet_area[i],
                                   rep.interposer_area[i],
                                   rep.power[i], rep.cost[i]))
-        self._stacked = None
+        self._stacked = {}
 
     def evaluate_async(self, genomes: np.ndarray) -> PendingGenomeEval:
         """Gather the population's structures (built on the host first) and
@@ -712,7 +748,7 @@ class ParametricPipeline:
         genomes = self.space.repair(np.asarray(genomes, np.int64))
         Pn = len(genomes)
         with _span("genomes.dispatch", space="parametric", pop=Pn,
-                   n=self.n) as sp:
+                   n=self.n, shards=len(self.devices)) as sp:
             keys = [self._key_of(g) for g in genomes]
             with self._lock:
                 n_known = len(self._sid)
@@ -720,22 +756,27 @@ class ParametricPipeline:
                     self._ensure(keys)
                 sp.set(new_structures=len(self._sid) - n_known)
                 sids = np.asarray([self._sid[k] for k in keys], np.int64)
-                if self._stacked is None:
+                if not self._stacked:
+                    host = {k: np.stack(v) for k, v in self._rows.items()}
                     self._stacked = {
-                        k: torch.as_tensor(np.stack(v), device=self.device)
-                        for k, v in self._rows.items()}
+                        dev: {k: torch.as_tensor(v, device=dev)
+                              for k, v in host.items()}
+                        for dev in dict.fromkeys(self.devices)}
                 stacked = self._stacked
-            bp = bucket_population(Pn)
+            bp = bucket_population(Pn, len(self.devices))
             gsids = sids
             if bp != Pn:
                 gsids = np.concatenate([sids, np.repeat(sids[-1:], bp - Pn)])
-            idx = torch.as_tensor(gsids, device=self.device)
-            args = [stacked[k][idx] for k in ("next_hop", "step_cost",
-                                              "node_weight", "adj_bw",
-                                              "traffic")]
-            with torch.no_grad():
-                lat, thr = batched_evaluate(*args, n_steps=self.n_steps,
-                                            max_hops=self.max_hops)
+            outs = []
+            for dev, idx in zip(self.devices, shard_rows(
+                    gsids, self.devices, torch.int64)):
+                args = [stacked[dev][k][idx]
+                        for k in ("next_hop", "step_cost", "node_weight",
+                                  "adj_bw", "traffic")]
+                with on_device(dev), torch.no_grad():
+                    outs.append(batched_evaluate(
+                        *args, n_steps=self.n_steps, max_hops=self.max_hops))
+        lat, thr = zip(*outs)
 
         def finish() -> GenomeEvalResult:
             with _span("genomes.finish", space="parametric", pop=Pn):
@@ -745,29 +786,29 @@ class ParametricPipeline:
                 reports = ReportArrays(total_chiplet_area=cols[:, 0],
                                        interposer_area=cols[:, 1],
                                        power=cols[:, 2], cost=cols[:, 3])
-                return GenomeEvalResult(latency=lat.cpu().numpy()[:Pn],
-                                        throughput=thr.cpu().numpy()[:Pn],
+                return GenomeEvalResult(latency=gather_rows(lat, Pn),
+                                        throughput=gather_rows(thr, Pn),
                                         reports=reports)
 
-        return _pending(self.device, finish)
+        return _pending(self.devices, finish)
 
     def evaluate(self, genomes: np.ndarray) -> GenomeEvalResult:
         """Blocking wrapper over ``evaluate_async``."""
         return self.evaluate_async(genomes).result()
 
 
-def make_pipeline(space, device):
-    """Pipeline for a search space on ``device``, or None when only the host
-    path applies (adjacency spaces routed with the RNG-streamed
-    updown_random)."""
+def make_pipeline(space, devices):
+    """Pipeline for a search space sharded over ``devices`` (one device or
+    a sequence), or None when only the host path applies (adjacency spaces
+    routed with the RNG-streamed updown_random)."""
     from ..opt.space import AdjacencySpace, ParametricSpace
 
     if isinstance(space, AdjacencySpace):
         if space.routing != "dijkstra_lowest_id":
             return None
-        return AdjacencyPipeline(space, device)
+        return AdjacencyPipeline(space, devices)
     if isinstance(space, ParametricSpace):
-        return ParametricPipeline(space, device)
+        return ParametricPipeline(space, devices)
     return None
 
 

@@ -38,6 +38,14 @@ Three forms live here:
   fixed ``FLOW_GROUP``-row terms in d order, so a design's bits do not
   depend on the tile, which ``pick_tile`` picks from the batch.
 
+On the CPU both plain forms run one design at a time
+(``_one_design_at_a_time``): there the one-hot contractions of a lone
+design reduce in another order than the batched ones (for n ≥ 32 a design
+alone got other W and flow bits than in a batch), and they run faster. So
+a design's bits do not depend on the batch size, down to a population
+shard of one row. On a CUDA tensor, where the plain forms only check the
+kernel, they stay batched.
+
 ``kernels.ops.load_propagate`` picks among them by the tensor's device: a
 CUDA tensor launches the kernel or raises; only a CPU tensor takes a plain
 form.
@@ -46,6 +54,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 
 import torch
 
@@ -115,6 +124,22 @@ def _hop_loop(step, load, total, max_hops: int, adaptive: bool):
     return load, total
 
 
+def _one_design_at_a_time(form):
+    """On the CPU, run ``form`` on each design of the batch alone and stack
+    the results: the contractions of one design, whatever the batch
+    size."""
+    @functools.wraps(form)
+    def run(next_hop, load0, *args, **kw):
+        if next_hop.shape[0] <= 1 or next_hop.device.type != "cpu":
+            return form(next_hop, load0, *args, **kw)
+        w, flow = zip(*(form(nh[None], l0[None], *args, **kw)
+                        for nh, l0 in zip(next_hop, load0)))
+        return torch.cat(w), torch.cat(flow)
+
+    return run
+
+
+@_one_design_at_a_time
 def load_prop_plain(next_hop: torch.Tensor, load0: torch.Tensor,
                     max_hops: int, adaptive: bool = True
                     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -141,6 +166,7 @@ def load_prop_plain(next_hop: torch.Tensor, load0: torch.Tensor,
     return total, flow
 
 
+@_one_design_at_a_time
 def load_prop_plain_blocked(next_hop: torch.Tensor, load0: torch.Tensor,
                             max_hops: int, adaptive: bool, tile: int
                             ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -131,9 +131,11 @@ class PopulationEvaluator:
     (``DseEngine.evaluate_genomes``): decode, geometry, routing tables, and
     proxies run on the engine's device, and no ``DesignPoint`` is ever
     materialized — the optimizer inner loop never touches per-design
-    Python. The engine is ``DseEngine(device=device)`` unless one is
-    passed: ``device=None`` means the card, and raises without one;
-    ``device="cpu"`` runs the plain PyTorch path on the host. The classic
+    Python. The engine is ``DseEngine(device=device, devices=devices)``
+    unless one is passed: with neither, the population is sharded over
+    every visible card, and raises without one; ``device="cpu"`` runs the
+    plain PyTorch path on the host, ``devices=["cpu"] * 4`` on four host
+    shards. The classic
     host path
     (``evaluate_points`` through the structure cache) remains for spaces the
     device cannot reproduce (updown_random-routed adjacency spaces), for
@@ -143,10 +145,10 @@ class PopulationEvaluator:
     def __init__(self, space: SearchSpace, engine: DseEngine | None = None,
                  budgets: Budgets | None = None, validate: bool = False,
                  device_path: bool | None = None, faults=None,
-                 device=None):
+                 device=None, devices=None):
         self.space = space
         self.engine = (engine if engine is not None
-                       else DseEngine(device=device))
+                       else DseEngine(device=device, devices=devices))
         self.budgets = budgets or Budgets()
         self.validate = validate
         self.device_path = device_path

@@ -9,8 +9,10 @@ killed mid-search resumes from the checkpoint and reproduces exactly the
 archive an uninterrupted run would have produced (asserted in
 ``tests/test_torch_opt.py``).
 
-CLI (``--device`` picks the engine's device: ``cuda``, the default, or
-``cpu`` for the plain PyTorch path on the host)::
+CLI (``--device`` picks the engine's devices: ``cuda``, the default, shards
+the population over every visible card, as the reference's default mesh
+spans every device (``CUDA_VISIBLE_DEVICES`` chooses which), or ``cpu``
+for the plain PyTorch path on one host device)::
 
     PYTHONPATH=src python -m repro_torch.opt --space adjacency \
         --n-chiplets 32 --algo nsga2 --generations 20 --pop-size 24 \
@@ -31,6 +33,7 @@ from ..faults.harness import (CheckpointCorruptError, graceful_shutdown,
 from ..obs import metrics as _metrics
 from ..obs.log import get_logger
 from ..obs.trace import enable_tracing, span as _span
+from ..utils.device import cli_devices
 from ..utils.version import check_version_stamp, version_stamp
 from .algorithms import ALGORITHMS, Budgets, OptimizerBase, PopulationEvaluator
 from .archive import ParetoArchive
@@ -365,9 +368,9 @@ def main(argv=None) -> int:
     p.add_argument("--max-power", type=float, default=None)
     p.add_argument("--max-cost", type=float, default=None)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="device of the cost function: the GPU (default; "
-                        "raises without one) or the plain PyTorch path on "
-                        "the host")
+                   help="device of the cost function: every visible GPU "
+                        "(default; raises without one) or the plain "
+                        "PyTorch path on the host")
     p.add_argument("--host-path", action="store_true",
                    help="force the classic host evaluation path "
                         "(decode -> DesignPoint -> structure cache) instead "
@@ -461,7 +464,7 @@ def main(argv=None) -> int:
     evaluator = PopulationEvaluator(
         space, budgets=budgets,
         device_path=False if args.host_path else None,
-        faults=faults, device=args.device)
+        faults=faults, devices=cli_devices(args.device))
     size_kw = ({"batch_size": args.pop_size} if args.algo == "random"
                else {"n_chains": args.pop_size} if args.algo == "sa"
                else {"pop_size": args.pop_size})

@@ -12,8 +12,10 @@ drain: the in-flight round finishes, every running job is checkpointed
 resumes every job bit-identically. A SIGKILL is also survivable — jobs
 checkpoint every generation by default (``REPRO_SERVE_CKPT_EVERY``).
 
-``--device`` picks the shared engine's device: ``cuda``, the default, which
-raises without a GPU, or ``cpu`` for the plain PyTorch path on the host.
+``--device`` picks the shared engine's devices: ``cuda``, the default,
+shards every round over every visible card (``CUDA_VISIBLE_DEVICES``
+chooses which) and raises without a GPU, or ``cpu`` for the plain PyTorch
+path on one host device.
 
 HTTP front-end (stdlib only, enabled with ``--http PORT``)::
 
@@ -36,6 +38,7 @@ import time
 
 from ..faults.harness import graceful_shutdown
 from ..obs.log import get_logger
+from ..utils.device import cli_devices
 from .job import TERMINAL, JobSpec
 from .service import AdmissionError, SearchService
 
@@ -136,12 +139,13 @@ def main(argv=None) -> int:
     p.add_argument("--exit-when-idle", action="store_true",
                    help="exit once every submitted job is terminal")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
-                   help="device of the shared engine (default cuda; cpu "
-                        "runs the plain PyTorch path on the host)")
+                   help="devices of the shared engine (default cuda: "
+                        "every visible GPU; cpu runs the plain PyTorch "
+                        "path on the host)")
     args = p.parse_args(argv)
 
     service = SearchService(
-        device=args.device,
+        devices=cli_devices(args.device),
         state_dir=args.state_dir, max_jobs=args.max_jobs,
         max_queued=args.max_queued,
         tenant_budgets=_parse_tenant_budgets(args.tenant_budget))

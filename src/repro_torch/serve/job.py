@@ -163,16 +163,18 @@ class Job:
                 "n_evals": self.n_evals}
 
 
-def run_spec_solo(spec: JobSpec, engine=None, device=None) -> tuple:
+def run_spec_solo(spec: JobSpec, engine=None, device=None,
+                  devices=None) -> tuple:
     """The ground-truth reference: run one spec synchronously to
     completion on a private evaluator and return ``(optimizer, rows)``.
     Every served job's front must be bit-identical to this (asserted in
     tests/test_torch_serve.py). Without an ``engine`` the evaluator builds
-    ``DseEngine(device=device)``: the card unless ``device="cpu"``."""
+    ``DseEngine(device=device, devices=devices)``: every visible card
+    unless ``device``/``devices`` say otherwise."""
     space = make_job_space(spec)
     evaluator = PopulationEvaluator(space, engine=engine,
                                     budgets=Budgets(**spec.budgets),
-                                    device=device)
+                                    device=device, devices=devices)
     opt = make_job_optimizer(spec, space, evaluator)
     while (opt.generation < spec.generations
            and not eval_budget_reached(opt, spec)):

@@ -1,5 +1,6 @@
 # Port of src/repro/serve/service.py: the same scheduler, co-batching round,
-# fault isolation, drain/resume and manifest; SearchService takes device=.
+# fault isolation, drain/resume and manifest; SearchService takes device=
+# and devices=.
 """The search service: many concurrent optimizer jobs, one device.
 
 ``SearchService`` runs a single scheduler thread that drives every
@@ -166,12 +167,15 @@ class SearchService:
 
     ``python -m repro_torch.serve`` wraps this with a jobs file, SIGTERM
     drain, and an optional HTTP front-end. Without an ``engine`` the
-    service builds ``DseEngine(device=device)``: the card unless
-    ``device="cpu"``.
+    service builds ``DseEngine(device=device, devices=devices)``: every
+    visible card unless ``device``/``devices`` say otherwise
+    (``device="cpu"`` is one host device, ``devices=["cpu"] * 4`` four host
+    shards).
     """
 
     def __init__(self, engine: DseEngine | None = None,
                  device=None,
+                 devices=None,
                  state_dir: str | None = None,
                  max_jobs: int | None = None,
                  max_queued: int | None = None,
@@ -180,7 +184,7 @@ class SearchService:
                  default_deadline_s: float | None = None,
                  ckpt_every: int | None = None):
         self.engine = (engine if engine is not None
-                       else DseEngine(device=device))
+                       else DseEngine(device=device, devices=devices))
         self.state_dir = state_dir
         self.max_jobs = (max_jobs if max_jobs is not None
                          else _env.get_int("REPRO_SERVE_MAX_JOBS"))

@@ -11,8 +11,9 @@ analysis contract recorded on the card, a trace through
 decoder-only config at reduced widths against the CPU (greedy tokens equal,
 logits within 1e-5) with the hybrid's prefill on the scan kernel, the pod
 interconnect model's estimates against the CPU (rtol 1e-5), compression
-over an NCCL world of one, and the dry-run's meta-trace FLOPs against a
-train step on the card (exactly equal). Every test here needs an NVIDIA
+over an NCCL world of one, the dry-run's meta-trace FLOPs against a
+train step on the card (exactly equal), and the population sharded over
+``["cuda:0"] * k`` bit-equal to one shard. Every test here needs an NVIDIA
 Hopper GPU and skips without one; run them on the card with
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
@@ -1037,3 +1038,42 @@ def test_meta_trace_flops_equal_a_train_step_on_cuda(cuda):
                           make_inputs(cfg, spec, device=cuda))
     assert fc.get_total_flops() == meta["flops"] > 0
     assert torch.isfinite(metrics["loss"])
+
+
+@pytest.mark.parametrize("k", [2, 4])
+@pytest.mark.parametrize("kind", ["adjacency", "parametric", "faults",
+                                  "points"])
+def test_shards_of_one_card_equal_one_shard(cuda, k, kind):
+    """Population sharding over ``["cuda:0"] * k``: every path bit-equal
+    to one shard on the card (each shard its own dispatch, adaptive loops
+    and kernel launches; 1-row shards at population 4 and k = 4)."""
+    from repro_torch.dse import (DseEngine, ExperimentSpec,
+                                 expand_experiments)
+    from repro_torch.faults.model import make_scenarios
+    from repro_torch.opt import AdjacencySpace, ParametricSpace
+
+    dev = torch.device("cuda", 0)
+    one, many = DseEngine(devices=[dev]), DseEngine(devices=[dev] * k)
+    if kind == "points":
+        pts = expand_experiments(ExperimentSpec(
+            topologies=("mesh", "kite"), chiplet_counts=(16, 36)))[:7]
+        got, want = many.evaluate_points(pts), one.evaluate_points(pts)
+        fields = ("latency", "throughput")
+    elif kind == "faults":
+        space = AdjacencySpace(n_chiplets=32, max_degree=8)
+        pop = space.sample(np.random.default_rng(2), 4)
+        sc = make_scenarios(space, "chiplet")
+        got, want = (e.evaluate_genomes_faults_async(
+            space, pop, sc.link_fail, sc.node_fail).result()
+            for e in (many, one))
+        fields = ("latency", "throughput", "reachable_fraction")
+    else:
+        space = (AdjacencySpace(n_chiplets=32, max_degree=8)
+                 if kind == "adjacency"
+                 else ParametricSpace(chiplet_counts=(16, 36)))
+        pop = space.sample(np.random.default_rng(3), 4)
+        got, want = many.evaluate_genomes(space, pop), one.evaluate_genomes(
+            space, pop)
+        fields = ("latency", "throughput")
+    for f in fields:
+        np.testing.assert_array_equal(getattr(got, f), getattr(want, f))

@@ -100,7 +100,8 @@ def test_evaluate_design_defaults_to_cuda_and_raises_without_it(no_gpu):
                                    "latency_vs_load_torch",
                                    "analysis_audit_cli", "launch_serve_cli",
                                    "serve_generate", "audit_contract",
-                                   "audit_all"])
+                                   "audit_all", "engine_devices",
+                                   "resolve_devices"])
 def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     import numpy as np
     from repro_torch.core.latency import routed_diameter_batch
@@ -124,6 +125,7 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
     from repro_torch.launch.serve import generate, main as launch_serve_main
     from repro_torch.analysis import audit_all, audit_contract
     from repro_torch.analysis.registry import contracts
+    from repro_torch.utils.device import resolve_devices
 
     nh = np.tile(np.arange(4, dtype=np.int32)[None, :, None], (1, 1, 4))
     sim = fast_sim_from_design(make_design("mesh", 4),
@@ -168,6 +170,8 @@ def test_batched_entry_points_raise_without_gpu(no_gpu, entry, tmp_path):
             np.zeros((1, 4), np.int64), 2),
         "audit_contract": lambda: audit_contract(contracts()[0]),
         "audit_all": lambda: audit_all(list(contracts())),
+        "engine_devices": lambda: DseEngine(devices=None),
+        "resolve_devices": lambda: resolve_devices(None),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

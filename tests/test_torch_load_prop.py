@@ -82,6 +82,23 @@ def test_plain_matches_xla(n, batch, adaptive):
     _assert_close(got, want)
 
 
+@pytest.mark.parametrize("n", [32, 64, 128, 160])
+def test_dense_form_rows_alone_equal_rows_in_a_batch(n):
+    """Each row of a B = 7 batch through the dense CPU form is bit-equal to
+    the same row run alone (B = 1), the case of a one-row population shard,
+    and the batch stays within the stated tolerance of the reference."""
+    rng = np.random.default_rng(500 + n)
+    nh, l0 = _batch(rng, 7, n)
+    nh_t, l0_t = torch.from_numpy(nh), torch.from_numpy(l0)
+    w, flow = load_propagate(nh_t, l0_t)
+    for b in range(7):
+        w1, f1 = load_propagate(nh_t[b:b + 1], l0_t[b:b + 1])
+        assert torch.equal(w1[0], w[b]) and torch.equal(f1[0], flow[b]), b
+    want = ref_load_propagate(jnp.asarray(nh), jnp.asarray(l0),
+                              backend="xla")
+    _assert_close((w, flow), want)
+
+
 @pytest.mark.parametrize("n,tile", [(20, 8), (36, 32), (64, 16)])
 def test_slab_form_matches_xla_blocked(n, tile):
     rng = np.random.default_rng(200 + n)
