@@ -230,9 +230,27 @@ Phases, each fatal on error (exit code 1, no result line):
     each job bit-identical to its solo run; B1, B2 and B5 launches; evals/s
     and the device idle share at k = 1, 2 and 4 on ``AdjacencySpace(32,
     8)`` at population 24.
+25. sharded training over a ``torch.distributed`` device mesh: hymba-1.5b
+    at its published widths cut to 2 layers (remat "full", the scan
+    kernels), 2 AdamW steps at lr 1e-4 on 2 x 2048 tokens, (a) under a
+    (1, 1) ("data", "model") mesh of an NCCL world of 1 (parameters,
+    moments and batches placed as DTensors, the meshed step) against the
+    same steps on one device: losses, gradient norms and every parameter
+    within rtol 1e-6 / atol 1e-7 (bit-equal expected), B7 / B8 launched as
+    remat predicts in each; (b) the meshed state saved and restored with
+    ``shardings``, bit-equal; (c) a (2, 2) world, four gloo ranks sharing
+    the card (NCCL ranks a card each where there are several; (1, 2) at
+    two or three cards), whose steps run the context-parallel attention
+    (25 heads on a model axis of 2) and the scan once a shard
+    ([1, 2048, 1600]): losses and gradient norms within rtol 2e-3 of world
+    1's, the largest parameter difference, step ms, tokens/s, each rank's
+    bytes of parameters and optimizer state, the collectives of a step by
+    kind (``CommDebugMode``), and B7 / B8 timed at the shard's shape
+    beside their bounds. ``python3 chip_smoke.py --phase 25`` runs this
+    phase alone.
 
 Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20, 21, 22,
-23, 24)
+23, 24, 25)
 is driven with every kernel's launch count set to 0 just before it and read
 just after; a path whose kernels were not launched fails the run. Launches
 made to compare a kernel with its plain version are not counted. The
@@ -396,6 +414,15 @@ SHARD_OPT = {"n_chiplets": 16, "max_degree": 5, "pop_size": 16,
              "generations": 5, "seed": 7}
 SHARD_JOBS = 4
 SHARD_RATE_REPS = 5
+# meshed training (phase 25): hymba-1.5b at published widths cut to
+# MESH_LAYERS, MESH_STEPS AdamW steps at TRAIN_LR on TRAIN_BATCH x TRAIN_SEQ
+# under a (1, 1) mesh against one device (bit-equal expected, gated at
+# MESH_TOL), and on several cards against world 1 (MESH_CARDS_RTOL on the
+# bf16 loss and gradient norm)
+MESH_ARCH, MESH_LAYERS, MESH_STEPS = "hymba-1.5b", 2, 2
+MESH_TOL = dict(rtol=1e-6, atol=1e-7)
+MESH_CARDS_RTOL = 2e-3
+MESH_WORLD_TIMEOUT = 300
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
@@ -3636,7 +3663,420 @@ def population_sharding_path(torch, dev, zero_counts, read_counts,
             "main_path_s": main_s, "adjacency_32_pop_24": rates}
 
 
+def _mesh_model(torch, dev, mesh, seed: int = 0):
+    """Phase 25's hymba at published widths cut to ``MESH_LAYERS`` (remat
+    "full", the scan kernels), its parameters placed on ``mesh`` (None: one
+    device), its AdamW state and its step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import Model
+    from repro_torch.sharding.rules import distribute_params
+    from repro_torch.train import OptConfig, make_train_step, place_train_state
+
+    cfg = get_config(MESH_ARCH).replace(n_layers=MESH_LAYERS, remat="full",
+                                        ssm_kernel=True)
+    model = Model(cfg, seed=seed, device=dev)
+    if mesh is not None:
+        distribute_params(model, mesh)
+    state = build_state(model, "adamw")
+    if mesh is not None:
+        state = place_train_state(state, mesh)
+    ocfg = OptConfig(learning_rate=TRAIN_LR, warmup_steps=0,
+                     decay_steps=MESH_STEPS)
+    return model, state, make_train_step(model, ocfg, "adamw")
+
+
+def _mesh_batches(torch, dev, cfg) -> list:
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.train import to_device
+    source = make_pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    return [to_device(source.batch_at(i), dev) for i in range(MESH_STEPS)]
+
+
+def _mesh_steps(torch, state, step, batches, mesh, comm_on_last=False):
+    """``MESH_STEPS`` steps; returns (state, [(loss, grad_norm)], step
+    seconds, the collectives of the last step by kind or None)."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.sharding.rules import distribute_batch
+    metrics, secs, comms = [], [], None
+    for i, b in enumerate(batches):
+        if mesh is not None:
+            b = distribute_batch(b, mesh)
+        counting = comm_on_last and i == len(batches) - 1
+        mode = CommDebugMode() if counting else None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode is not None:
+            with mode:
+                state, m = step(state, b)
+            comms = {str(k).rsplit(".", 1)[-1]: v
+                     for k, v in mode.get_comm_counts().items()}
+        else:
+            state, m = step(state, b)
+        metrics.append((m["loss"].item(), m["grad_norm"].item()))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    return state, metrics, secs, comms
+
+
+def _whole(t):
+    from repro_torch.sharding.spmd import full_value
+    return full_value(t)
+
+
+def _local_bytes(tree) -> int:
+    from torch.distributed.tensor import DTensor
+    if isinstance(tree, dict):
+        return sum(_local_bytes(v) for v in tree.values())
+    if isinstance(tree, DTensor):
+        tree = tree.to_local()
+    return tree.numel() * tree.element_size() if hasattr(tree, "numel") \
+        else 0
+
+
+def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
+                   backend: str) -> None:
+    """One rank of phase 25's meshed world (``python3 chip_smoke.py
+    --mesh-rank R --mesh-world W --mesh-port P --mesh-dir D --mesh-backend
+    B``): with NCCL a card each, with gloo every rank on ``cuda:0``; the
+    (2, 2) mesh at four ranks and (1, 2) at two; the world-1 run's steps
+    on its shards, the context-parallel branch and the scan once a shard
+    counted, B7 / B8 timed at the shard's shape; rank 0 writes
+    ``result.json`` under ``workdir``."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable()
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch.models.layers as L
+    import repro_torch.models.ssm as S
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.mesh import make_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            **({"device_id": dev} if backend == "nccl"
+                               else {}))
+    try:
+        sizes = (2, 2) if world == 4 else (1, world)
+        mesh = make_device_mesh(sizes)
+        seen = {"cp": 0, "scan": []}
+        real_cp, real_scan = L._context_parallel_flash, S.selective_scan
+
+        def cp(*a, **k):
+            seen["cp"] += 1
+            return real_cp(*a, **k)
+
+        def scan(*a):
+            seen["scan"].append([list(t.shape) for t in a[:5]])
+            seen["args"] = a
+            return real_scan(*a)
+
+        L._context_parallel_flash, S.selective_scan = cp, scan
+        t0 = time.perf_counter()
+        model, state, step = _mesh_model(torch, dev, mesh)
+        build_s = time.perf_counter() - t0
+        batches = _mesh_batches(torch, dev, model.cfg)
+        ss.selective_scan_fwd_cuda.launches = 0
+        ss.selective_scan_bwd_cuda.launches = 0
+        state, metrics, secs, comms = _mesh_steps(
+            torch, state, step, batches, mesh, comm_on_last=True)
+        launches = {"selective_scan_fwd": ss.selective_scan_fwd_cuda.launches,
+                    "selective_scan_bwd": ss.selective_scan_bwd_cuda.launches}
+        # the world-1 parameters after the same steps, against these
+        ref = torch.load(os.path.join(workdir, "world1.pt"),
+                         map_location=dev) if rank == 0 else None
+        worst = 0.0
+        for k, p in state["params"].items():
+            full = _whole(p)
+            if rank == 0:
+                worst = max(worst, (full.float() - ref[k].float()).abs()
+                            .max().item())
+        del ref
+        param_bytes = _local_bytes(dict(state["params"]))
+        opt_bytes = _local_bytes(state["opt"])
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, {
+            "param_bytes": param_bytes, "opt_bytes": opt_bytes,
+            "device": str(dev),
+            "launches": launches, "cp_calls": seen["cp"],
+            "scan_shapes": seen["scan"][:1]})
+        if rank == 0:
+            # B7 and B8 at this rank's shard of one layer's scan
+            *ops_, chunk = seen["args"]
+            xc, dt, bm, cm, a, h0 = (t.detach().contiguous() for t in ops_)
+            dy = torch.randn_like(xc)
+            fwd = lambda: ss.selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0,
+                                                     chunk=chunk)
+            _, ckpt, _ = fwd()
+            bwd = lambda: ss.selective_scan_bwd_cuda(xc, dt, bm, cm, a, ckpt,
+                                                     dy, chunk=chunk)
+            B, S_, Di = xc.shape
+            fb, bb = scan_bounds(B, S_, Di, a.shape[1], chunk,
+                                 max_sm_clock_hz())
+            shard = {"shape": [B, S_, Di, a.shape[1]], "chunk": chunk,
+                     "fwd_ms": time_cuda(torch, fwd),
+                     "fwd_device_ms": kernel_device_ms(torch, fwd, "ssm_fwd",
+                                                       1),
+                     "fwd_bound_ms": fb["bound_ms"],
+                     "fwd_bound_by": fb["bound_by"],
+                     "bwd_ms": time_cuda(torch, bwd),
+                     "bwd_device_ms": call_device_ms(
+                         torch, bwd, SCAN_BWD_KERNELS)["device_ms"],
+                     "bwd_bound_ms": bb["bound_ms"],
+                     "bwd_bound_by": bb["bound_by"]}
+            step_s = statistics.median(secs[1:]) if len(secs) > 1 \
+                else secs[0]
+            rec = {"world": world, "mesh": list(sizes), "backend": backend,
+                   "cards": len({r["device"] for r in per_rank}),
+                   "card": card_line(),
+                   "build_s": build_s, "metrics": metrics,
+                   "step_ms": [s * 1e3 for s in secs],
+                   "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+                   "comms_last_step": comms, "max_param_diff": worst,
+                   "per_rank": per_rank, "scan_shard": shard}
+            with open(os.path.join(workdir, "result.json"), "w") as f:
+                json.dump(rec, f)
+        # every rank waits for rank 0's timings (a collective on the card:
+        # gloo's barrier picks a device by rank)
+        dist.all_reduce(torch.zeros(1, device=dev))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_training_path(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 25 (``_mesh_training``) in a scratch directory under
+    ``build/``; every rank process it starts is stopped and the directory
+    removed however it ends."""
+    import shutil
+    import tempfile
+
+    work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
+    procs: list = []
+    try:
+        return _mesh_training(torch, dev, zero_counts, read_counts, work,
+                              procs)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
+                   procs: list) -> dict:
+    """Phase 25: sharded training over a ``torch.distributed`` device mesh.
+    (a) An NCCL world of 1 and a (1, 1) ("data", "model") ``DeviceMesh`` on
+    the card: hymba-1.5b at its published widths cut to ``MESH_LAYERS``,
+    ``MESH_STEPS`` AdamW steps at 2 x 2048 under the mesh (parameters by
+    ``distribute_params``, the state by ``place_train_state``, each batch
+    by ``distribute_batch``, the meshed step) against the same steps
+    without one: losses, gradient norms and every parameter within
+    ``MESH_TOL``; B7 / B8 launched exactly as remat predicts in each. (b)
+    The meshed state saved and restored with ``shardings`` into a fresh
+    meshed state, bit-equal. (c) A meshed world: on one card four gloo
+    ranks on ``cuda:0`` in a (2, 2) mesh (gloo takes CUDA tensors in every
+    collective the step uses; NCCL takes one rank a card), on several
+    cards NCCL ranks, a card each ((2, 2) at four, (1, 2) at two or
+    three); the same steps against world 1 within ``MESH_CARDS_RTOL``, the
+    context-parallel branch taken and the scan launched once a shard.
+    Returns the phase's record."""
+    import torch.distributed as dist
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.train import train_state_shardings
+
+    rec = {"card": card_line()}
+    torch.cuda.set_device(dev)
+    # the earlier phases' cached blocks go back to the card, which the
+    # meshed world's ranks share
+    torch.cuda.empty_cache()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_device_mesh((1, 1))
+        runs = {}
+        for path, on in (("mesh_train_one_device", None),
+                         ("mesh_train_world1", mesh)):
+            t0 = time.perf_counter()
+            model, state, step = _mesh_model(torch, dev, on)
+            batches = _mesh_batches(torch, dev, model.cfg)
+            zero_counts()
+            state, metrics, secs, _ = _mesh_steps(torch, state, step,
+                                                  batches, on)
+            counts = read_counts(path, ("selective_scan_fwd",
+                                        "selective_scan_bwd"))
+            want = scan_launches(model.cfg, MESH_STEPS)
+            if {k: counts[k] for k in want} != want:
+                fail(f"phase 25: {path} launched {counts}; remat predicts "
+                     f"{want}")
+            runs[path] = (state, metrics, secs, time.perf_counter() - t0)
+        (s1, m1, t1, w1), (s2, m2, t2, w2) = runs.values()
+        worst = max((_whole(s2["params"][k]).float() - p.detach().float())
+                    .abs().max().item() for k, p in s1["params"].items())
+        close = all(torch.allclose(_whole(s2["params"][k]), p.detach(),
+                                   **MESH_TOL)
+                    for k, p in s1["params"].items())
+        metric_ok = all(abs(a - b) <= MESH_TOL["atol"] +
+                        MESH_TOL["rtol"] * abs(b)
+                        for x, y in zip(m2, m1) for a, b in zip(x, y))
+        rec.update(one_device=m1, world1=m2, max_param_diff=worst,
+                   bit_equal=worst == 0.0 and m1 == m2,
+                   step_ms_one_device=[s * 1e3 for s in t1],
+                   step_ms_world1=[s * 1e3 for s in t2],
+                   launches=scan_launches(model.cfg, MESH_STEPS))
+        log(f"phase 25: world 1 against one device: losses / grad norms "
+            f"{m2} vs {m1}, largest parameter difference {worst}, step ms "
+            f"{[round(s * 1e3, 1) for s in t2]} vs "
+            f"{[round(s * 1e3, 1) for s in t1]}")
+        if not (close and metric_ok):
+            fail(f"phase 25: the (1, 1) mesh's steps differ from one "
+                 f"device's past {MESH_TOL} (largest parameter difference "
+                 f"{worst}; {m2} vs {m1})")
+        torch.save({k: _whole(p) for k, p in s2["params"].items()},
+                   os.path.join(work, "world1.pt"))
+        # (c) runs while (b) saves and restores (the checkpoint is host I/O)
+        world, backend = _start_mesh_world(torch, work, procs)
+        # (b) the checkpoint under the mesh
+        t0 = time.perf_counter()
+        save_checkpoint(work, MESH_STEPS, s2)
+        save_s = time.perf_counter() - t0
+        _, fresh, _ = _mesh_model(torch, dev, mesh, seed=1)
+        t0 = time.perf_counter()
+        back, _ = restore_checkpoint(work, fresh, shardings=
+                                     train_state_shardings(fresh, mesh))
+        restore_s = time.perf_counter() - t0
+        leaves = [(s2["params"], back["params"]),
+                  (s2["opt"]["m"], back["opt"]["m"]),
+                  (s2["opt"]["v"], back["opt"]["v"])]
+        if not all(torch.equal(_whole(a[k]), _whole(b[k]))
+                   for a, b in leaves for k in a) or \
+                back["step"] != s2["step"]:
+            fail("phase 25: the state restored onto the mesh differs from "
+                 "the one saved under it")
+        rec.update(ckpt_save_s=save_s, ckpt_restore_s=restore_s)
+        log(f"phase 25: checkpoint under the mesh saved in {save_s:.1f} s, "
+            f"restored with shardings bit-equal in {restore_s:.1f} s")
+        del runs, s1, s2, back, fresh
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+
+    # (c) the meshed world's results
+    outs = [p.communicate(timeout=MESH_WORLD_TIMEOUT)[0] for p in procs]
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        fail(f"phase 25: the {world}-rank {backend} world failed (exit "
+             f"codes {codes}): " + " | ".join(
+                 f"rank {r}: {out[-1500:]}" for r, out in enumerate(outs)))
+    with open(os.path.join(work, "result.json")) as f:
+        cards = json.load(f)
+    for (l_w, g_w), (l_1, g_1) in zip(cards["metrics"], m2):
+        if not (abs(l_w - l_1) <= MESH_CARDS_RTOL * abs(l_1) and
+                abs(g_w - g_1) <= MESH_CARDS_RTOL * abs(g_1)):
+            fail(f"phase 25: {world} ranks' losses / grad norms "
+                 f"{cards['metrics']} differ from world 1's {m2} past "
+                 f"rtol {MESH_CARDS_RTOL}")
+    if cards["per_rank"][0]["cp_calls"] == 0 or any(
+            r["launches"] != rec["launches"] for r in cards["per_rank"]):
+        fail(f"phase 25: {world} ranks: context-parallel calls or scan "
+             f"launches off: {cards['per_rank']}")
+    rec["world"] = cards
+    log(f"phase 25: {world} ranks ({backend}, {cards['cards']} cards) "
+        f"{cards['mesh']}: step ms "
+        f"{[round(s, 1) for s in cards['step_ms']]}, "
+        f"{cards['tokens_per_s']:.0f} tokens/s, losses / grad norms "
+        f"{cards['metrics']}, largest parameter difference "
+        f"{cards['max_param_diff']}, collectives of a step "
+        f"{cards['comms_last_step']}, bytes a rank "
+        f"{[(r['param_bytes'], r['opt_bytes']) for r in cards['per_rank']]}")
+    return rec
+
+
+def _start_mesh_world(torch, work: str, procs: list):
+    """Start phase 25's meshed world: four gloo ranks on ``cuda:0`` where
+    one card is visible (gloo takes CUDA tensors in every collective the
+    step uses; NCCL takes one rank a card), else NCCL ranks a card each (4
+    at four cards or more, else 2), appended to ``procs``. Returns (world,
+    backend)."""
+    count = torch.cuda.device_count()
+    backend = "nccl" if count >= 2 else "gloo"
+    world = 4 if count >= 4 or count == 1 else 2
+    if count == 1:
+        log("phase 25: one card: the (2, 2) world is four gloo ranks on "
+            "cuda:0 (NCCL takes one rank a card)")
+    port = _free_port()
+    procs.extend(subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         "--mesh-world", str(world), "--mesh-port", str(port),
+         "--mesh-dir", work, "--mesh-backend", backend],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world))
+    return world, backend
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def mesh_phase_only() -> None:
+    """``python3 chip_smoke.py --phase 25``: phase 25 alone (the sources
+    built first), its record, the card line and the result line; on
+    several cards its world is NCCL ranks a card each."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs the GPU")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.kernels import build
+    from repro_torch.kernels import selective_scan as ss
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    build.build_all()
+    scans = {"selective_scan_fwd": ss.selective_scan_fwd_cuda,
+             "selective_scan_bwd": ss.selective_scan_bwd_cuda}
+
+    def zero_counts() -> None:
+        for fn in scans.values():
+            fn.launches = 0
+
+    def read_counts(path: str, needs: tuple) -> dict:
+        counts = {name: fn.launches for name, fn in scans.items()}
+        if any(counts[name] == 0 for name in needs):
+            fail(f"the {path} path launched no {needs} kernel")
+        return counts
+
+    t0 = time.perf_counter()
+    rec = mesh_training_path(torch, torch.device("cuda", 0), zero_counts,
+                             read_counts)
+    rec["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"mesh_training": rec}), flush=True)
+    log(f"phase 25: {rec['phase_s']:.1f} s ({rec['card']})")
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main() -> None:
+    if "--mesh-rank" in sys.argv:
+        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+        mesh_rank_main(int(args["--mesh-rank"]), int(args["--mesh-world"]),
+                       int(args["--mesh-port"]), args["--mesh-dir"],
+                       args["--mesh-backend"])
+        return
+    if sys.argv[1:] == ["--phase", "25"]:
+        mesh_phase_only()
+        return
     try:
         run_phases()
     except ProfilerMiss as e:
@@ -4033,6 +4473,13 @@ def run_phases() -> None:
     sharding_rec.update(phase_s=time.perf_counter() - t0, card=card_line())
     print(json.dumps({"population_sharding": sharding_rec}), flush=True)
     log(f"phase 24: {sharding_rec['phase_s']:.1f} s ({sharding_rec['card']})")
+
+    # -- 25. sharded training over a device mesh ------------------------------
+    t0 = time.perf_counter()
+    mesh_rec = mesh_training_path(torch, dev, zero_counts, read_counts)
+    mesh_rec["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"mesh_training": mesh_rec}), flush=True)
+    log(f"phase 25: {mesh_rec['phase_s']:.1f} s ({mesh_rec['card']})")
 
     totals = {name: sum(c[name] for c in path_launches.values())
               for name in kernels}

@@ -25,8 +25,17 @@ views (npz has no such dtypes) with the true dtype in the manifest.
 ``restore_checkpoint`` copies every tensor leaf in place into the matching
 tensor of ``tree_like``, on that tensor's device and in its dtype, so the
 ``nn.Parameter`` objects a model and its optimizer hold stay the same
-objects. The reference's ``shardings`` argument (re-sharding onto a mesh)
-has no counterpart on one device.
+objects.
+
+Checkpoints are mesh-agnostic, as the reference's (arrays are stored
+unsharded): under a ``DeviceMesh`` every rank gathers each DTensor leaf
+(``sharding.spmd.full_value``, collectives), rank 0 writes the same files
+as on one device, and every rank waits at a barrier until they are
+committed. A restore reads the whole files on every rank and places each
+leaf by ``shardings`` (a tree of ``sharding.NamedSharding`` shaped like
+the tree, ``None`` at a host leaf) or, without them, in the layout of
+``tree_like``'s leaf; each rank keeps its own shard, so a checkpoint saved
+on one device restores onto a mesh and back (the elastic path).
 """
 from __future__ import annotations
 
@@ -36,10 +45,13 @@ import shutil
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..faults.harness import CheckpointCorruptError, file_digest
 from ..obs.log import get_logger
 from ..obs.trace import span as _span
+from ..sharding.spmd import full_value, place
 from ..utils.version import check_version_stamp, version_stamp
 
 _LOG = get_logger("ckpt")
@@ -137,11 +149,29 @@ def _fsync(path: str) -> None:
         os.fsync(f.fileno())
 
 
+def _meshed(leaves) -> bool:
+    return any(isinstance(x, DTensor) for x in leaves)
+
+
 def save_checkpoint(directory: str, step: int, tree, keep_last: int = 3,
                     config_hash: str | None = None) -> str:
+    """Write ``tree`` as step ``step`` under ``directory``; returns the
+    step's directory. A tree with DTensor leaves is saved by every rank of
+    its mesh together: each leaf is gathered, rank 0 writes, and all return
+    once the step is committed."""
     with _span("ckpt.save", step=step):
-        return _save_checkpoint(directory, step, tree, keep_last,
-                                config_hash)
+        leaves, _ = flatten_tree(tree)
+        if not _meshed(leaves):
+            return _save_checkpoint(directory, step, tree, keep_last,
+                                    config_hash)
+        whole = unflatten_tree(tree, [
+            full_value(x) if isinstance(x, DTensor) else x
+            for x in leaves])
+        final = os.path.join(directory, f"step_{step}")
+        if dist.get_rank() == 0:
+            _save_checkpoint(directory, step, whole, keep_last, config_hash)
+        dist.barrier()
+        return final
 
 
 def _save_checkpoint(directory, step, tree, keep_last, config_hash) -> str:
@@ -227,7 +257,7 @@ def latest_step(directory: str) -> int | None:
     return max(steps) if steps else None
 
 
-def _restore_step(directory, step, tree_like, config_hash):
+def _restore_step(directory, step, tree_like, shardings, config_hash):
     d = os.path.join(directory, f"step_{step}")
     with open(os.path.join(d, "manifest.json")) as f:
         manifest = json.load(f)
@@ -236,6 +266,7 @@ def _restore_step(directory, step, tree_like, config_hash):
                                        what=f"checkpoint step_{step}"):
         _LOG.warning(f"[ckpt] restore warning: {problem}")
     leaves, structure = flatten_tree(tree_like)
+    places = _sharding_leaves(tree_like, shardings, len(leaves))
     if manifest["n_leaves"] != len(leaves):
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, expected "
@@ -267,20 +298,64 @@ def _restore_step(directory, step, tree_like, config_hash):
     with torch.no_grad():
         for i, ref in enumerate(leaves):
             got = data.pop(f"leaf_{i}")
-            if isinstance(ref, torch.Tensor):
+            if not isinstance(ref, torch.Tensor):
+                new_leaves.append(type(ref)(got))
+                continue
+            sh = places[i]
+            if sh is None and isinstance(ref, DTensor):
+                sh = _Like(ref)
+            if sh is None:
                 ref.copy_(got)
                 new_leaves.append(ref)
+                continue
+            got = place(got.to(ref.device, ref.dtype), sh)
+            if isinstance(ref, DTensor) and \
+                    tuple(ref.placements) == tuple(got.placements):
+                ref.to_local().copy_(got.to_local())
+                new_leaves.append(ref)
             else:
-                new_leaves.append(type(ref)(got))
+                new_leaves.append(got)
     return unflatten_tree(tree_like, new_leaves), step
 
 
+class _Like:
+    """The layout of a DTensor, as a ``NamedSharding`` is one."""
+
+    def __init__(self, ref: DTensor):
+        self.mesh, self.placements = ref.device_mesh, ref.placements
+
+
+def _sharding_leaves(tree_like, shardings, n: int) -> list:
+    """One sharding (or None) per leaf of ``tree_like``, in
+    ``flatten_tree``'s order."""
+    if shardings is None:
+        return [None] * n
+    out: list = []
+
+    def walk(node, sh):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], None if sh is None else sh[k])
+        elif isinstance(node, (list, tuple)):
+            for i, x in enumerate(node):
+                walk(x, None if sh is None else sh[i])
+        else:
+            out.append(sh)
+
+    walk(tree_like, shardings)
+    return out
+
+
 def restore_checkpoint(directory: str, tree_like, step: int | None = None,
-                       config_hash: str | None = None):
+                       shardings=None, config_hash: str | None = None):
     """Restore into the structure of ``tree_like``: each tensor leaf is
     copied in place into ``tree_like``'s tensor (its device, its dtype);
     int and float leaves come back in the returned tree. Returns (tree,
-    step). A repro/torch/config-hash mismatch against the manifest's
+    step). ``shardings`` (a tree of ``NamedSharding`` like
+    ``train.state.train_state_shardings`` gives, ``None`` at host leaves)
+    places each restored tensor on its mesh; a leaf of ``tree_like`` in
+    that layout keeps its object, any other is replaced by the placed
+    DTensor. A repro/torch/config-hash mismatch against the manifest's
     version stamp warns rather than failing.
 
     Shard payloads are verified against the manifest's per-shard sha256
@@ -288,14 +363,16 @@ def restore_checkpoint(directory: str, tree_like, step: int | None = None,
     step warns and falls back to the next-newest step on disk; an explicit
     ``step`` raises ``CheckpointCorruptError`` instead."""
     with _span("ckpt.restore", step=step):
-        return _restore_checkpoint(directory, tree_like, step, config_hash)
+        return _restore_checkpoint(directory, tree_like, step, shardings,
+                                   config_hash)
 
 
-def _restore_checkpoint(directory, tree_like, step, config_hash):
+def _restore_checkpoint(directory, tree_like, step, shardings, config_hash):
     import zipfile
 
     if step is not None:
-        return _restore_step(directory, step, tree_like, config_hash)
+        return _restore_step(directory, step, tree_like, shardings,
+                             config_hash)
     preferred = latest_step(directory)
     steps = sorted(_list_steps(directory), reverse=True) \
         if os.path.isdir(directory) else []
@@ -307,7 +384,8 @@ def _restore_checkpoint(directory, tree_like, step, config_hash):
     last_err = None
     for s in steps:
         try:
-            return _restore_step(directory, s, tree_like, config_hash)
+            return _restore_step(directory, s, tree_like, shardings,
+                                 config_hash)
         except (CheckpointCorruptError, OSError, KeyError, EOFError,
                 json.JSONDecodeError, zipfile.BadZipFile) as e:
             _LOG.warning(f"[ckpt] step_{s} rejected ({type(e).__name__}: "
@@ -334,9 +412,10 @@ class CheckpointManager:
                                    config_hash=self.config_hash)
         return None
 
-    def restore_or_init(self, tree_like):
+    def restore_or_init(self, tree_like, shardings=None):
         try:
             return restore_checkpoint(self.directory, tree_like,
+                                      shardings=shardings,
                                       config_hash=self.config_hash)
         except FileNotFoundError:
             return tree_like, -1

@@ -3,11 +3,12 @@ dense initialiser, RMSNorm and LayerNorm, RoPE (full and partial rotary),
 the embedding and the unembedding, the MLPs (swiglu, relu2, gelu), and
 attention (plain grouped-query scores, the online-softmax flash form with
 its banded sliding-window iteration, and the sublayer that picks between
-them). The context-parallel flash form, which needs a mesh, comes with
-ROADMAP Queue A 12.
+them), and the context-parallel flash form, which runs under a
+``DeviceMesh`` with a "model" axis.
 
 Functions take a param dict and activations, as the reference's do; the
-reference's logical-axis ``shard`` annotations are dropped (one device).
+reference's logical-axis ``shard`` annotations are dropped. Under a mesh
+(``sharding.spmd``) they run on each rank's rows with the weights whole.
 A product the reference asks in float32 of lower-precision operands
 (``preferred_element_type=float32``) is an f32 product of the operands
 rounded to their dtype here: products of bf16 values are exact in f32, so
@@ -21,6 +22,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..sharding.spmd import gather_over_model, model_axis, sum_grads_over_model
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -104,7 +106,13 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
 
 
 def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p["table"].to(dtype)[tokens]
+    """The rows of ``tokens``, gathered in the table's float32 and then
+    cast (the reference casts the table first: the same values, but its
+    gradient then sums each token's rows in the compute dtype, and a bf16
+    sum over a batch's repeats of a token loses bits that a sum over half
+    of them keeps, so a step on a mesh would not match one on one
+    device)."""
+    return p["table"][tokens].to(dtype)
 
 
 def init_unembed(gen: torch.Generator, d: int, vocab: int,
@@ -350,16 +358,50 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool,
     return out[:, :sq]
 
 
+def _context_parallel_flash(cfg: ModelConfig, q, k, v, q_positions,
+                            kv_positions, *, causal: bool) -> torch.Tensor:
+    """Context-parallel flash attention (the reference's ``shard_map``):
+    each rank of the "model" axis attends with its own run of ``S / tp``
+    query positions to every key (K, V and their positions whole on each
+    rank), its blocks numbered from ``rank_on_model * blocks_per_shard`` so
+    it visits the band of its own positions; the ranks' outputs are
+    gathered along the sequence. Used when the head count does not divide
+    the model axis (hymba's 25, llava's 56), where every model rank would
+    otherwise attend with all heads over the whole sequence."""
+    _, rank, tp = model_axis()
+    s_local = q.shape[1] // tp
+    blocks_per_shard = max(s_local // cfg.attn_chunk_q, 1)
+    q, k, v = (sum_grads_over_model(t) for t in (q, k, v))
+    rows = slice(rank * s_local, (rank + 1) * s_local)
+    out = flash_attention(
+        q[:, rows], k, v, q_positions[:, rows], kv_positions, causal=causal,
+        window=cfg.window, block_q=min(cfg.attn_chunk_q, s_local),
+        block_kv=cfg.attn_chunk_kv,
+        q_block_start=rank * blocks_per_shard)
+    return gather_over_model(out, 1)
+
+
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True) -> torch.Tensor:
     """Full self-attention sublayer: project, attend (flash for long
-    sequences), output-project. The reference's context-parallel branch
-    runs only under a mesh with a "model" axis; on one device these are its
-    two other branches. Its ``kv_override`` / ``kv_positions`` /
-    ``kv_mask`` arguments have no caller in either package (decode attends
-    to the cache through ``attention_scores``) and are not ported."""
+    sequences), output-project. Under a mesh with a "model" axis the
+    reference's condition picks the context-parallel form: flash,
+    windowed, the heads not a multiple of the model axis, and the sequence
+    one, at 128 positions or more a shard (a model axis of 1 divides every
+    head count). The reference's ``kv_override``
+    / ``kv_positions`` / ``kv_mask`` arguments have no caller in either
+    package (decode attends to the cache through ``attention_scores``) and
+    are not ported."""
     q, k, v = qkv_project(p, cfg, x, positions)
-    if cfg.attn_chunk_q > 0 and k.shape[1] >= cfg.attn_chunk_threshold:
+    use_flash = cfg.attn_chunk_q > 0 and \
+        k.shape[1] >= cfg.attn_chunk_threshold
+    axis = model_axis()
+    tp = axis[2] if axis is not None else 1
+    if use_flash and tp > 1 and cfg.window > 0 and cfg.n_heads % tp and \
+            q.shape[1] % tp == 0 and q.shape[1] // tp >= 128:
+        out = _context_parallel_flash(cfg, q, k, v, positions, positions,
+                                      causal=causal)
+    elif use_flash:
         out = flash_attention(q, k, v, positions, positions, causal=causal,
                               window=cfg.window, block_q=cfg.attn_chunk_q,
                               block_kv=cfg.attn_chunk_kv)

@@ -24,6 +24,15 @@ outputs of the matrix products and recomputes the rest, as
 sit behind an autograd function that calls them through ``ctypes``, which
 no dispatch policy sees, so under either policy B7 runs again in backward,
 as the reference recomputes its Pallas call.
+
+Under a ``DeviceMesh`` (parameters placed by
+``sharding.rules.distribute_params``, a batch by ``distribute_batch``)
+``forward`` and ``loss`` run once a rank (``sharding.spmd``): each rank
+takes its rows of the batch, gathers each block's parameters whole just
+before the block runs (inside its remat, so backward gathers them again),
+and returns DTensors: the hidden states split by rows, and the loss as the
+sum of the ranks' parts (each rank's cross-entropy over the whole batch's
+label count, its share of the aux loss).
 """
 from __future__ import annotations
 
@@ -31,6 +40,7 @@ from typing import Any
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -38,6 +48,7 @@ from . import layers as L
 from . import mla as MLA
 from . import moe as MOE
 from . import ssm as SSM
+from ..sharding import spmd as SP
 from ..utils.device import resolve_device
 from .config import ModelConfig
 
@@ -181,13 +192,19 @@ def _dots_context():
 def _remat(fn, cfg: ModelConfig):
     """``fn`` under the config's remat: as it is ("none"), recomputed whole
     in backward ("full"), or with its matrix products' outputs saved and the
-    rest recomputed ("dots")."""
+    rest recomputed ("dots"). A recomputation runs in its forward's mesh
+    context (``sharding.spmd``)."""
     if cfg.remat == "none":
         return fn
     kw = {"context_fn": _dots_context} if cfg.remat == "dots" else {}
 
     def wrapped(*args):
-        return checkpoint(fn, *args, use_reentrant=False, **kw)
+        ctx = SP.current()
+
+        def run(*a):
+            with SP.within(ctx):
+                return fn(*a)
+        return checkpoint(run, *args, use_reentrant=False, **kw)
     return wrapped
 
 
@@ -267,6 +284,10 @@ class Model(nn.Module):
             tree["pos_embed"] = self.pos_embed
         return tree
 
+    def _mesh(self):
+        table = self.embed.table
+        return table.device_mesh if isinstance(table, DTensor) else None
+
     def _encode(self, frames: torch.Tensor, params: Params | None = None):
         """Whisper's encoder over stub frame embeddings [B, T, D] ->
         (encoder output [B, T, D], positions [B, T]). Positions index
@@ -277,14 +298,21 @@ class Model(nn.Module):
         params = self.params() if params is None else params
         b, t, _ = frames.shape
         pos = torch.arange(t, device=frames.device).expand(b, t)
-        x = frames + params["pos_embed"][None, :t].to(frames.dtype)
-        attn_half = _remat(lambda p_, x_: x_ + L.attention(
-            p_["attn"], cfg, L.layernorm(p_["ln1"], x_), pos, causal=False),
-            cfg)
+        whole = SP.whole_params
+        x = frames + whole(params["pos_embed"])[None, :t].to(frames.dtype)
+
+        def attn(p_, x_):
+            p_ = whole(p_)
+            return x_ + L.attention(p_["attn"], cfg,
+                                    L.layernorm(p_["ln1"], x_), pos,
+                                    causal=False)
+
+        attn_half = _remat(attn, cfg)
         for p in params["enc_blocks"]:
-            x = attn_half(p, x)
-            x = x + L.mlp(p["mlp"], cfg, L.layernorm(p["ln2"], x))
-        return L.layernorm(params["enc_ln_f"], x), pos
+            x = attn_half({"attn": p["attn"], "ln1": p["ln1"]}, x)
+            x = x + L.mlp(whole(p["mlp"]), cfg,
+                          L.layernorm(whole(p["ln2"]), x))
+        return L.layernorm(whole(params["enc_ln_f"]), x), pos
 
     def cross_kv(self, enc_out: torch.Tensor,
                  params: Params | None = None):
@@ -305,6 +333,21 @@ class Model(nn.Module):
     # ---------------- forward (training / prefill) ----------------
     def forward(self, tokens: torch.Tensor, params: Params | None = None, *,
                 extra: dict | None = None):
+        """tokens [B, S_text] -> (hidden [B, S_total, D], aux loss); under
+        a mesh the hidden states as a DTensor split by rows and the aux
+        loss as the sum of the ranks' parts (see ``_forward``)."""
+        mesh = self._mesh()
+        if mesh is None or SP.current() is not None:
+            return self._forward(tokens, params, extra=extra)
+        with SP.spmd(mesh, tokens.shape[0]):
+            x, aux = self._forward(
+                SP.local_batch(tokens), params,
+                extra={k: SP.local_batch(v) for k, v in (extra or {}).items()})
+            return (SP.as_batch_rows(x),
+                    SP.as_batch_partial(aux / SP.batch_shards()))
+
+    def _forward(self, tokens: torch.Tensor, params: Params | None = None, *,
+                 extra: dict | None = None):
         """tokens [B, S_text] -> (hidden [B, S_total, D], aux loss).
 
         extra: {"patches": [B, n_img, D]} for the VLM, prepended to the
@@ -314,28 +357,47 @@ class Model(nn.Module):
         cfg = self.cfg
         params = self.params() if params is None else params
         dt = cfg.compute_dtype
-        x = L.embed(params["embed"], tokens, dt)
+        whole = SP.whole_params
+        x = L.embed(whole(params["embed"]), tokens, dt)
         enc_out = None
         if cfg.family == "vlm":
             x = torch.cat([extra["patches"].to(dt), x], dim=1)
         if cfg.family == "encdec":
             enc_out, _ = self._encode(extra["frames"].to(dt), params)
-            x = x + params["pos_embed"][None, :x.shape[1]].to(dt)
+            x = x + whole(params["pos_embed"])[None, :x.shape[1]].to(dt)
         b, s, _ = x.shape
         positions = torch.arange(s, device=x.device).expand(b, s)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for moe_layer, stack in ((False, params.get("dense_blocks", [])),
                                  (cfg.is_moe, params["blocks"])):
             fn = _remat(lambda p, x_, moe=moe_layer: block_forward(
-                p, cfg, x_, positions, moe_layer=moe, enc_out=enc_out), cfg)
+                whole(p), cfg, x_, positions, moe_layer=moe,
+                enc_out=enc_out), cfg)
             for p in stack:
                 x, aux = fn(p, x)
                 aux_total = aux_total + aux
-        x = _norm(cfg)(params["ln_f"], x)
+        x = _norm(cfg)(whole(params["ln_f"]), x)
         return x, aux_total
 
     def loss(self, batch: dict, chunk: int = 512,
              params: Params | None = None) -> tuple[torch.Tensor, dict]:
+        """The loss of ``_loss``; under a mesh each rank computes its part
+        on its rows, and the loss, ``ce`` and ``aux`` come back as DTensors
+        of the sum of the parts (``sharding.spmd.full_value`` gives the
+        value; the gradient of a rank's part, ``to_local``, is that
+        rank's)."""
+        mesh = self._mesh()
+        if mesh is None:
+            return self._loss(batch, chunk, params)
+        with SP.spmd(mesh, batch["tokens"].shape[0]):
+            total, m = self._loss({k: SP.local_batch(v)
+                                   for k, v in batch.items()}, chunk, params)
+            return SP.as_batch_partial(total), {
+                "ce": SP.as_batch_partial(m["ce"]),
+                "aux": SP.as_batch_partial(m["aux"]), "tokens": m["tokens"]}
+
+    def _loss(self, batch: dict, chunk: int = 512,
+              params: Params | None = None) -> tuple[torch.Tensor, dict]:
         """Next-token cross-entropy, computed in sequence chunks so the f32
         logits tensor never exceeds [B, chunk, V]; plus 0.01 x the MoE aux
         loss. The VLM's image positions carry no labels; the batch's
@@ -353,6 +415,7 @@ class Model(nn.Module):
         if cfg.family == "vlm":
             x = x[:, cfg.n_image_tokens:]
         ce, n_valid = self.ce_loss(x, batch["labels"], params, chunk)
+        aux = aux / SP.batch_shards()       # a rank's part of the mean
         total = ce + 0.01 * aux
         return total, {"ce": ce, "aux": aux, "tokens": n_valid}
 
@@ -368,7 +431,8 @@ class Model(nn.Module):
         if pad:
             x = torch.nn.functional.pad(x, (0, 0, 0, pad))
             labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
-        unembed_c = {"w": params["unembed"]["w"].to(cfg.compute_dtype)}
+        unembed_c = {"w": SP.whole_params(params["unembed"]["w"]).to(
+            cfg.compute_dtype)}
 
         def ce_chunk(xi, li):
             logits = L.unembed(unembed_c, xi, cfg.logit_softcap)
@@ -386,6 +450,8 @@ class Model(nn.Module):
             ce_c, nv = fn(x[:, c0:c0 + chunk], labels[:, c0:c0 + chunk])
             ce_sum = ce_sum + ce_c
             n_valid = n_valid + nv
+        # under a mesh: this rank's rows over the whole batch's count
+        n_valid = SP.batch_sum(n_valid)
         return ce_sum / torch.clamp_min(n_valid, 1), n_valid
 
     # ---------------- serving ----------------

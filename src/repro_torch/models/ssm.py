@@ -13,10 +13,12 @@ Two routes through the scan, as in the reference:
   ``torch.utils.checkpoint`` when remat is on. This is the default config's
   path and the model-level plain version of the kernel route.
 
-The reference runs the kernel per shard through ``shard_map`` under a mesh;
-the port runs on one device. Decode is the O(1) recurrence step on a
-carried (conv window, f32 state) cache: ``init_mamba_cache`` and
-``mamba_decode_step``, plain PyTorch as in the reference (no kernel).
+Under a mesh (``sharding.spmd``) the scan runs once a shard, as the
+reference's ``shard_map`` runs its kernel: each rank scans its own batch
+rows and channels, with no collective inside. Decode is the O(1)
+recurrence step on a carried (conv window, f32 state) cache:
+``init_mamba_cache`` and ``mamba_decode_step``, plain PyTorch as in the
+reference (no kernel).
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import selective_scan
+from ..sharding.spmd import gather_over_model, model_axis, sum_grads_over_model
 from .config import ModelConfig
 from .layers import Params, _dense_init
 
@@ -110,7 +113,7 @@ def _largest_divisor(n: int, cap: int) -> int:
 
 
 def _fused_selective_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a):
-    """Kernel route: the fused scan (B7/B8 on CUDA), one device."""
+    """Kernel route: the fused scan (B7/B8 on CUDA)."""
     bb, ss, dd = xc32.shape
     h0 = torch.zeros((bb, dd, cfg.ssm_state), dtype=torch.float32,
                      device=xc32.device)
@@ -118,13 +121,63 @@ def _fused_selective_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a):
     return selective_scan(xc32, dt, b_mat, c_mat, a, h0, chunk)
 
 
+def _chunked_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a):
+    """The chunked associative scan, each chunk under remat."""
+    b, s, di = xc32.shape
+    chunk = min(cfg.ssm_chunk, s)
+
+    def chunk_step(h0, dt_c, b_c, c_c, x_c):
+        a_bar = torch.exp(dt_c[..., None] * a)                   # [B,T,Di,N]
+        bx = dt_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
+        # fold the carried state into the first step
+        bx = torch.cat([bx[:, :1] + a_bar[:, :1] * h0[:, None], bx[:, 1:]],
+                       dim=1)
+        h = _scan_chunk(a_bar, bx)                               # [B,T,Di,N]
+        y_c = torch.einsum("btin,btn->bti", h, c_c)
+        return h[:, -1], y_c
+
+    h = torch.zeros((b, di, cfg.ssm_state), dtype=torch.float32,
+                    device=xc32.device)
+    ys = []
+    for idx in range(s // chunk):
+        sl = slice(idx * chunk, (idx + 1) * chunk)
+        args = (h, dt[:, sl], b_mat[:, sl], c_mat[:, sl], xc32[:, sl])
+        if cfg.remat != "none":
+            h, y_c = checkpoint(chunk_step, *args, use_reentrant=False)
+        else:
+            h, y_c = chunk_step(*args)
+        ys.append(y_c)
+    return torch.cat(ys, dim=1)                                   # [B,S,Di]
+
+
+def _selective_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a):
+    """The scan by the config's route. Under a mesh (``sharding.spmd``) it
+    runs once a shard, as the reference's ``shard_map`` runs its kernel: on
+    this rank's rows, xc and dt as [B/dp, S, Di/tp] (its run of channels on
+    "model"), B and C as [B/dp, S, N] whole, A as [Di/tp, N], no collective
+    inside; the ranks' outputs are gathered along the channels, and the
+    gradients of B and C (each model rank's part of their sum) are summed
+    over "model"."""
+    route = _fused_selective_scan if cfg.ssm_kernel else _chunked_scan
+    axis = model_axis()
+    di = xc32.shape[-1]
+    if axis is None or di % axis[2]:
+        return route(cfg, xc32, dt, b_mat, c_mat, a)
+    _, rank, tp = axis
+    xc32, dt, b_mat, c_mat, a = (sum_grads_over_model(t) for t in
+                                 (xc32, dt, b_mat, c_mat, a))
+    ch = slice(rank * (di // tp), (rank + 1) * (di // tp))
+    y = route(cfg, xc32[..., ch], dt[..., ch], b_mat, c_mat, a[ch])
+    return gather_over_model(y, -1)
+
+
 def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
                   ) -> torch.Tensor:
     """Training/prefill path. x: [B, S, D] -> [B, S, D].
 
     S must be divisible by cfg.ssm_chunk (callers pad)."""
-    b, s, d = x.shape
-    di, n, kc = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    s = x.shape[1]
+    di, kc = cfg.d_inner, cfg.ssm_conv
     dt_ = x.dtype
     xz = torch.matmul(x, p["in_proj"].to(dt_))
     xin, z = torch.split(xz, di, dim=-1)
@@ -143,34 +196,9 @@ def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
     chunk = min(cfg.ssm_chunk, s)
     if s % chunk:
         raise ValueError(f"seq {s} not divisible by ssm_chunk {chunk}")
-    n_chunks = s // chunk
 
     xc32 = xc.to(torch.float32)
-
-    if cfg.ssm_kernel:
-        y = _fused_selective_scan(cfg, xc32, dt, b_mat, c_mat, a)
-    else:
-        def chunk_step(h0, dt_c, b_c, c_c, x_c):
-            a_bar = torch.exp(dt_c[..., None] * a)               # [B,T,Di,N]
-            bx = dt_c[..., None] * b_c[:, :, None, :] * x_c[..., None]
-            # fold the carried state into the first step
-            bx = torch.cat([bx[:, :1] + a_bar[:, :1] * h0[:, None], bx[:, 1:]],
-                           dim=1)
-            h = _scan_chunk(a_bar, bx)                           # [B,T,Di,N]
-            y_c = torch.einsum("btin,btn->bti", h, c_c)
-            return h[:, -1], y_c
-
-        h = torch.zeros((b, di, n), dtype=torch.float32, device=x.device)
-        ys = []
-        for idx in range(n_chunks):
-            sl = slice(idx * chunk, (idx + 1) * chunk)
-            args = (h, dt[:, sl], b_mat[:, sl], c_mat[:, sl], xc32[:, sl])
-            if cfg.remat != "none":
-                h, y_c = checkpoint(chunk_step, *args, use_reentrant=False)
-            else:
-                h, y_c = chunk_step(*args)
-            ys.append(y_c)
-        y = torch.cat(ys, dim=1)                                  # [B,S,Di]
+    y = _selective_scan(cfg, xc32, dt, b_mat, c_mat, a)
     y = y + xc32 * p["d_skip"]
     y = y.to(dt_) * F.silu(z)
     return torch.matmul(y, p["out_proj"].to(dt_))
@@ -214,5 +242,5 @@ def mamba_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 __all__ = ["init_mamba", "mamba_forward", "softplus", "_ssm_params_from_x",
-           "_fused_selective_scan", "_scan_chunk", "_largest_divisor",
+           "_fused_selective_scan", "_chunked_scan", "_selective_scan", "_scan_chunk", "_largest_divisor",
            "init_mamba_cache", "mamba_decode_step"]

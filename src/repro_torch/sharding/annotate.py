@@ -17,6 +17,9 @@ What a spec and a mesh are here, where the reference has JAX's types:
   mapping): the port's ``MeshShape`` (names and sizes, no devices, so the
   256- and 512-way production meshes exist on one card), or a
   ``torch.distributed`` ``DeviceMesh`` through ``as_mesh_shape``.
+* On a ``DeviceMesh`` a spec becomes DTensor placements (``placements``),
+  and ``NamedSharding`` pairs the two, as JAX's does: the layout a tensor
+  of the meshed train state is placed in.
 """
 from __future__ import annotations
 
@@ -24,6 +27,8 @@ import contextlib
 import math
 import threading
 from dataclasses import dataclass
+
+from torch.distributed.tensor import Replicate, Shard
 
 _state = threading.local()
 
@@ -209,8 +214,50 @@ def shard(x, *logical):
     """Tag an intermediate with logical axis names. It returns ``x``
     unchanged, with or without a binding: eager PyTorch has no GSPMD
     partitioner to hand a layout constraint to, so the port's models do not
-    call it (the reference's ``with_sharding_constraint``)."""
+    call it (the reference's ``with_sharding_constraint``). Under a
+    ``DeviceMesh`` the model runs once a rank (``sharding/spmd.py``): an
+    activation is the rank's rows, whole over "model" outside the
+    context-parallel attention and the scan (ROADMAP Queue C)."""
     return x
+
+
+def placements(spec, device_mesh) -> list:
+    """``spec`` as DTensor placements on ``device_mesh``: a mesh dim that
+    entry ``i`` names gets ``Shard(i)``, one that no entry names
+    ``Replicate()``. An entry that names several mesh dims (``("pod",
+    "data")``) shards its tensor dim over them in mesh order, which is
+    DTensor's order; JAX takes the tuple's, so the tuple must be in mesh
+    order (every rule set's is)."""
+    names = tuple(device_mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for i, entry in enumerate(spec):
+        axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+        dims = [names.index(a) for a in axes]
+        if dims != sorted(dims):
+            raise ValueError(f"spec entry {entry} is not in the mesh's "
+                             f"order {names}")
+        for d in dims:
+            out[d] = Shard(i)
+    return out
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A ``DeviceMesh`` and a spec: the layout of one tensor of the meshed
+    train state (``jax.sharding.NamedSharding``)."""
+    mesh: object
+    spec: PartitionSpec
+
+    @property
+    def placements(self) -> list:
+        return placements(self.spec, self.mesh)
+
+
+def is_device_mesh(mesh) -> bool:
+    """Whether ``mesh`` is a ``torch.distributed`` ``DeviceMesh`` (and not
+    a ``MeshShape``, which has no devices)."""
+    return getattr(mesh, "mesh_dim_names", None) is not None \
+        and hasattr(mesh, "get_group")
 
 
 def spec_ways(spec, mesh) -> int:
@@ -227,4 +274,5 @@ def spec_ways(spec, mesh) -> int:
 __all__ = ["DEFAULT_RULES", "SERVING_RULES", "LONG_CONTEXT_RULES",
            "PartitionSpec", "P", "MeshShape", "as_mesh_shape",
            "logical_axis_rules", "current_mesh", "current_rules",
-           "resolve_spec", "shard", "spec_ways"]
+           "resolve_spec", "shard", "spec_ways", "placements",
+           "NamedSharding", "is_device_mesh"]

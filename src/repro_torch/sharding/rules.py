@@ -20,13 +20,22 @@ The reference's rank test (``ndim >= 3``) also takes a dense MLP weight
 stacked over layers for an expert tensor (ROADMAP Queue C); here the dense
 MLP keeps the documented ("fsdp", "mlp") / ("mlp", "fsdp") layout.
 
-There is no ``NamedSharding``: ``param_shardings`` is the spec tree itself.
+On a ``MeshShape`` ``param_shardings`` is the spec tree itself; on a
+``DeviceMesh`` it maps each name to a ``NamedSharding``, whose
+``placements`` are DTensor's. ``distribute_params`` and ``distribute_batch``
+place a model's parameters and a host batch on a ``DeviceMesh`` by these
+specs.
 """
 from __future__ import annotations
 
 import re
 
-from .annotate import DEFAULT_RULES, resolve_spec
+import torch
+from torch import nn
+
+from .annotate import (DEFAULT_RULES, NamedSharding, is_device_mesh,
+                       resolve_spec)
+from .spmd import place
 
 # (path regex, logical axes per dim, without a layer-stack axis)
 _PARAM_RULES: tuple[tuple[str, tuple], ...] = (
@@ -122,8 +131,36 @@ def param_specs(params: dict, mesh, rules=DEFAULT_RULES, cfg=None) -> dict:
 
 def param_shardings(params: dict, mesh, rules=DEFAULT_RULES,
                     cfg=None) -> dict:
-    """The reference's ``NamedSharding`` tree; in the port, the spec tree."""
-    return param_specs(params, mesh, rules, cfg)
+    """The reference's ``NamedSharding`` tree: {name: NamedSharding} on a
+    ``DeviceMesh``, the spec tree itself on a ``MeshShape``."""
+    specs = param_specs(params, mesh, rules, cfg)
+    if not is_device_mesh(mesh):
+        return specs
+    return {k: NamedSharding(mesh, s) for k, s in specs.items()}
+
+
+def distribute_params(model: nn.Module, mesh, rules=DEFAULT_RULES):
+    """Replace every parameter of ``model`` with a DTensor parameter placed
+    on ``mesh`` by ``param_specs``. Every rank holds the same full weights
+    (``Model`` draws them from its seed on the host) and keeps its own
+    shard of each, so nothing is sent. Returns ``model``."""
+    shardings = param_shardings(dict(model.named_parameters()), mesh, rules)
+    for name, sh in shardings.items():
+        owner, _, leaf = name.rpartition(".")
+        module = model.get_submodule(owner)
+        old = getattr(module, leaf)
+        module.register_parameter(leaf, nn.Parameter(
+            place(old.detach(), sh), requires_grad=old.requires_grad))
+    return model
+
+
+def distribute_batch(batch: dict, mesh, rules=DEFAULT_RULES) -> dict:
+    """A batch that every rank holds whole (the same host batch of the
+    step-keyed pipeline), as DTensors placed on ``mesh`` by
+    ``batch_specs``: each rank keeps its own rows."""
+    specs = batch_specs(batch, mesh, rules)
+    return {k: place(torch.as_tensor(v), NamedSharding(mesh, specs[k]))
+            for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -187,4 +224,5 @@ def cache_specs(cache, mesh, rules=DEFAULT_RULES):
 
 
 __all__ = ["param_specs", "param_shardings", "batch_specs", "cache_specs",
+           "distribute_params", "distribute_batch",
            "logical_axes_for", "is_expert_leaf", "path_of"]

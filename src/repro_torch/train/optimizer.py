@@ -19,6 +19,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, Shard
 
 
 @dataclass(frozen=True)
@@ -54,11 +56,29 @@ def adamw_init(params: dict) -> dict:
             "v": {k: torch.zeros_like(p) for k, p in params.items()}}
 
 
+def _replicas(x: DTensor) -> int:
+    """How many ranks of its mesh hold each element of ``x``."""
+    split = 1
+    for p, n in zip(x.placements, x.device_mesh.shape):
+        split *= n if isinstance(p, Shard) else 1
+    return x.device_mesh.size() // split
+
+
 def global_norm(tree: dict) -> torch.Tensor:
-    total = None
+    """The L2 norm of every leaf together, in float32. Over DTensors it is
+    a full reduction: each rank sums its shards' squares (a replicated
+    leaf's share once), and one all-reduce over the mesh adds them up."""
+    total, mesh = None, None
     for x in tree.values():
-        s = torch.sum(torch.square(x.to(torch.float32)))
+        if isinstance(x, DTensor):
+            mesh = x.device_mesh
+            s = torch.sum(torch.square(x.to_local().to(torch.float32)))
+            s = s / _replicas(x)
+        else:
+            s = torch.sum(torch.square(x.to(torch.float32)))
         total = s if total is None else total + s
+    for d in range(mesh.ndim if mesh is not None else 0):
+        dist.all_reduce(total, group=mesh.get_group(d))
     return torch.sqrt(total)
 
 

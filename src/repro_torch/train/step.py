@@ -1,87 +1,143 @@
 """Train-step builder: loss + grad + clip + optimizer update, with optional
 microbatch gradient accumulation; port of ``src/repro/train/step.py``.
 
-``constrain_accum`` pins the accumulation buffer to the parameters' layout
-where the reference does (``_constrain_like_params``). On one device that
-is the identity, so the step is the same with it or without it. The state
-is {"params": {name: Parameter}, "opt": optimizer state, "step": int}; the
-step writes the new parameters into the model's own tensors in place (the
-reference returns new arrays), so the model and the state stay one set of
-weights.
+The state is {"params": {name: Parameter}, "opt": optimizer state, "step":
+int}; the step writes the new parameters into the model's own tensors in
+place (the reference returns new arrays), so the model and the state stay
+one set of weights.
+
+Under a ``DeviceMesh`` the parameters, the optimizer state and the batch
+are DTensors (``sharding.rules.distribute_params``,
+``train.state.place_train_state``, ``sharding.rules.distribute_batch``);
+the model runs once a rank (``Model.loss``) and its loss is the sum of the
+ranks' parts, each rank differentiating its own. A gradient comes back as
+each rank's part of a sum over the data axes (a ``Partial``), so the step
+puts every gradient into its parameter's layout (``_constrain_like_params``:
+a reduce-scatter, the reference's ``accum_rs``) before the optimizer sees
+it, and each new optimizer leaf back into its old layout (the reference's
+``out_shardings``). On one device both are the identity, so
+``constrain_accum`` changes nothing there.
 """
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..sharding.annotate import NamedSharding
+from ..sharding.rules import batch_specs
+from ..sharding.spmd import full_value, place
 from .optimizer import OptConfig, adafactor_update, adamw_update
 
 
-def _constrain_like_params(tree: dict) -> dict:
-    """Pin a grad-shaped dict to the parameter layout (FSDP), so a
-    partitioner reduce-scatters per-microbatch gradients into shards (the
-    reference's ``with_sharding_constraint``, variant ``accum_rs``). Eager
-    PyTorch on one device has no partitioner and every tensor is whole, so
-    this returns ``tree`` as it is."""
-    return tree
+def _constrain_like_params(tree: dict, like: dict) -> dict:
+    """Pin a grad-shaped dict to the layout of ``like`` (the parameters),
+    so per-microbatch gradients are reduce-scattered into shards (the
+    reference's ``with_sharding_constraint``, variant ``accum_rs``). A
+    leaf that is not a DTensor (one device) is returned as it is."""
+    return {k: _like(g, like[k]) for k, g in tree.items()}
+
+
+def _like(x, ref):
+    """``x`` in the layout of ``ref`` (a DTensor not yet in it is
+    redistributed)."""
+    if isinstance(x, DTensor) and tuple(x.placements) != tuple(
+            ref.placements):
+        return x.redistribute(ref.device_mesh, ref.placements)
+    return x
+
+
+def _like_leaves(new, old):
+    """``new`` (an optimizer state) with each DTensor leaf in the layout of
+    ``old``'s leaf at the same place."""
+    if isinstance(new, dict):
+        return {k: _like_leaves(v, old[k]) for k, v in new.items()}
+    return _like(new, old)
+
+
+def _rows(batch: dict, lo: int, hi: int) -> dict:
+    """Rows [lo, hi) of every leaf of ``batch``: a microbatch. A DTensor
+    batch is gathered, cut, and each microbatch placed again by
+    ``batch_specs`` on its own shape (its rows split over the data axes
+    where they divide them)."""
+    meshes = [v.device_mesh for v in batch.values()
+              if isinstance(v, DTensor)]
+    out = {k: _whole(v)[lo:hi] for k, v in batch.items()}
+    if not meshes:
+        return out
+    specs = batch_specs(out, meshes[0])
+    return {k: place(v, NamedSharding(meshes[0], specs[k]))
+            for k, v in out.items()}
+
+
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor: a DTensor's full value (collectives
+    every rank takes part in), else ``t``."""
+    return full_value(t)
 
 
 def make_train_step(model, opt_cfg: OptConfig, optimizer: str = "adamw",
                     accum_steps: int = 1, constrain_accum: bool = False):
     """Returns train_step(state, batch) -> (state, metrics).
 
-    ``accum_steps > 1`` splits the batch's leading dim into microbatches and
-    accumulates gradients in f32 before one optimizer update.
-    ``constrain_accum`` shards the accumulation buffer like the parameters.
+    ``accum_steps > 1`` splits the batch's leading dim into microbatches
+    (contiguous rows, as the reference's reshape) and accumulates gradients
+    in f32 before one optimizer update. ``constrain_accum`` shards the
+    accumulation buffer like the parameters (under a mesh every gradient is
+    put in its parameter's layout anyway).
     """
     update_fn = adamw_update if optimizer == "adamw" else adafactor_update
 
     def grads_of(params: dict, batch: dict):
         loss, metrics = model.loss(batch)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return loss.detach(), metrics, dict(zip(params, grads))
+        # under a mesh each rank differentiates its own part of the loss
+        own = loss.to_local() if isinstance(loss, DTensor) else loss
+        grads = torch.autograd.grad(own, list(params.values()))
+        return _whole(loss), metrics, _constrain_like_params(
+            dict(zip(params, grads)), params)
 
     def train_step(state: dict, batch: dict):
         params = state["params"]
         if accum_steps == 1:
             loss, metrics, grads = grads_of(params, batch)
         else:
-            def split(x):
-                b = x.shape[0]
-                if b % accum_steps:
-                    raise ValueError(f"batch {b} is not a multiple of "
-                                     f"accum_steps {accum_steps}")
-                return x.reshape(accum_steps, b // accum_steps, *x.shape[1:])
-
-            micro = {k: split(v) for k, v in batch.items()}
+            b = next(iter(batch.values())).shape[0]
+            if b % accum_steps:
+                raise ValueError(f"batch {b} is not a multiple of "
+                                 f"accum_steps {accum_steps}")
+            mb = b // accum_steps
             loss = torch.zeros((), dtype=torch.float32,
                                device=next(iter(params.values())).device)
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            grads = {k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in params.items()}
             if constrain_accum:
-                grads = _constrain_like_params(grads)
+                grads = _constrain_like_params(grads, params)
             for i in range(accum_steps):
                 mb_loss, _, mb_grads = grads_of(
-                    params, {k: v[i] for k, v in micro.items()})
-                if constrain_accum:
-                    mb_grads = _constrain_like_params(mb_grads)
+                    params, _rows(batch, i * mb, (i + 1) * mb))
                 grads = {k: grads[k] + mb_grads[k].to(torch.float32)
                          / accum_steps for k in grads}
                 if constrain_accum:
-                    grads = _constrain_like_params(grads)
+                    grads = _constrain_like_params(grads, params)
                 loss = loss + mb_loss / accum_steps
             metrics = {}
 
         with torch.no_grad():
             new_params, new_opt, opt_metrics = update_fn(
-                opt_cfg, {k: p.detach() for k, p in params.items()}, grads,
-                state["opt"], state["step"])
+                opt_cfg, {k: p.detach() for k, p in params.items()},
+                _constrain_like_params(grads, params), state["opt"],
+                state["step"])
+            new_params = _constrain_like_params(new_params, params)
             for k, p in params.items():
-                p.copy_(new_params[k])
-        new_state = {"params": params, "opt": new_opt,
+                new = new_params[k]
+                if isinstance(p, DTensor):   # the shards, in place
+                    p, new = p.to_local(), new.to_local()
+                p.copy_(new)
+        new_state = {"params": params,
+                     "opt": _like_leaves(new_opt, state["opt"]),
                      "step": state["step"] + 1}
-        out_metrics = {"loss": loss, **opt_metrics}
-        out_metrics.update({k: v.detach() for k, v in metrics.items()
+        out_metrics = {"loss": _whole(loss),
+                       **{k: _whole(v) for k, v in opt_metrics.items()}}
+        out_metrics.update({k: _whole(v) for k, v in metrics.items()
                             if torch.is_tensor(v) and v.dim() == 0})
         return new_state, out_metrics
 

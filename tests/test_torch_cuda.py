@@ -1077,3 +1077,90 @@ def test_shards_of_one_card_equal_one_shard(cuda, k, kind):
         fields = ("latency", "throughput")
     for f in fields:
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
+
+
+def _world_of_one(cuda):
+    import torch.distributed as dist
+    torch.cuda.set_device(cuda.index or 0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    return dist
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "falcon-mamba-7b",
+                                  "qwen2.5-3b"])
+def test_world_of_one_mesh_steps_equal_one_device_on_cuda(cuda, arch):
+    """Two AdamW steps of ``reduced(cfg, float32)`` under a (1, 1)
+    ("data", "model") mesh of an NCCL world of 1, against the same steps
+    without a mesh: bit-equal, and the scan kernels launched as often."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import Model, ShapeSpec, make_inputs, reduced
+    from repro_torch.sharding.rules import distribute_batch, distribute_params
+    from repro_torch.train import OptConfig, make_train_step, place_train_state
+
+    cfg = reduced(get_config(arch), dtype="float32", ssm_kernel=True)
+    batch = make_inputs(cfg, ShapeSpec("t", 64, 2, "train"), seed=3,
+                        device=cuda)
+    ocfg = OptConfig(learning_rate=1e-4, warmup_steps=1, decay_steps=10)
+    dist = _world_of_one(cuda)
+    try:
+        mesh = make_device_mesh((1, 1))
+        runs = []
+        for meshed in (False, True):
+            model = Model(cfg, seed=0, device=cuda)
+            if meshed:
+                distribute_params(model, mesh)
+            state = build_state(model, "adamw")
+            if meshed:
+                state = place_train_state(state, mesh)
+            step = make_train_step(model, ocfg)
+            b = distribute_batch(batch, mesh) if meshed else batch
+            ss.selective_scan_fwd_cuda.launches = 0
+            metrics = []
+            for _ in range(2):
+                state, m = step(state, b)
+                metrics.append((m["loss"].item(), m["grad_norm"].item()))
+            params = {k: (p.full_tensor() if meshed else p).detach()
+                      for k, p in state["params"].items()}
+            runs.append((metrics, params,
+                         ss.selective_scan_fwd_cuda.launches))
+    finally:
+        dist.destroy_process_group()
+    (m0, p0, n0), (m1, p1, n1) = runs
+    assert m1 == m0 and n1 == n0
+    assert n0 == (2 * 2 * cfg.n_layers if cfg.uses_ssm else 0)
+    assert all(torch.equal(p1[k], p0[k]) for k in p0)
+
+
+def test_meshed_checkpoint_on_cuda_restores_bit_for_bit(cuda, tmp_path):
+    """A meshed train state on the card saved (gathered, rank 0 writes) and
+    restored with ``shardings`` into another meshed state, bit-equal."""
+    from repro_torch.ckpt import restore_checkpoint, save_checkpoint
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.train import build_state
+    from repro_torch.models import Model, reduced
+    from repro_torch.sharding.rules import distribute_params
+    from repro_torch.train import place_train_state, train_state_shardings
+
+    cfg = reduced(get_config("hymba-1.5b"), dtype="float32")
+    dist = _world_of_one(cuda)
+    try:
+        mesh = make_device_mesh((1, 1))
+        states = [place_train_state(build_state(distribute_params(
+            Model(cfg, seed=s, device=cuda), mesh), "adamw"), mesh)
+            for s in (0, 1)]
+        save_checkpoint(str(tmp_path), 5, states[0])
+        back, step = restore_checkpoint(
+            str(tmp_path), states[1],
+            shardings=train_state_shardings(states[1], mesh))
+        assert step == 5
+        for k, p in states[0]["params"].items():
+            assert back["params"][k] is states[1]["params"][k]
+            assert torch.equal(back["params"][k].full_tensor(),
+                               p.full_tensor())
+    finally:
+        dist.destroy_process_group()
