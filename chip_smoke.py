@@ -418,10 +418,15 @@ SHARD_RATE_REPS = 5
 # MESH_LAYERS, MESH_STEPS AdamW steps at TRAIN_LR on TRAIN_BATCH x TRAIN_SEQ
 # under a (1, 1) mesh against one device (bit-equal expected, gated at
 # MESH_TOL), and on several cards against world 1 (MESH_CARDS_RTOL on the
-# bf16 loss and gradient norm)
+# bf16 loss and gradient norm; on each leaf of AdamW's first moment, a sum
+# of the leaf's clipped gradients, MESH_MOMENT_RTOL on the relative L2
+# difference and MESH_MOMENT_NORM_RTOL on the relative difference of the
+# norms, which a gradient off by a factor moves and bf16 noise barely
+# does), B7 / B8 there held against their plain versions on a shard
 MESH_ARCH, MESH_LAYERS, MESH_STEPS = "hymba-1.5b", 2, 2
 MESH_TOL = dict(rtol=1e-6, atol=1e-7)
-MESH_CARDS_RTOL = 2e-3
+MESH_CARDS_RTOL = 5e-4
+MESH_MOMENT_RTOL, MESH_MOMENT_NORM_RTOL = 5e-2, 3e-3
 MESH_WORLD_TIMEOUT = 300
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
@@ -3675,7 +3680,9 @@ def _mesh_model(torch, dev, mesh, seed: int = 0):
 
     cfg = get_config(MESH_ARCH).replace(n_layers=MESH_LAYERS, remat="full",
                                         ssm_kernel=True)
-    model = Model(cfg, seed=seed, device=dev)
+    # under a mesh drawn on the host, as the launcher does: each rank moves
+    # only its shards to the card
+    model = Model(cfg, seed=seed, device=dev if mesh is None else "cpu")
     if mesh is not None:
         distribute_params(model, mesh)
     state = build_state(model, "adamw")
@@ -3719,11 +3726,6 @@ def _mesh_steps(torch, state, step, batches, mesh, comm_on_last=False):
     return state, metrics, secs, comms
 
 
-def _whole(t):
-    from repro_torch.sharding.spmd import full_value
-    return full_value(t)
-
-
 def _local_bytes(tree) -> int:
     from torch.distributed.tensor import DTensor
     if isinstance(tree, dict):
@@ -3740,9 +3742,11 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
     --mesh-rank R --mesh-world W --mesh-port P --mesh-dir D --mesh-backend
     B``): with NCCL a card each, with gloo every rank on ``cuda:0``; the
     (2, 2) mesh at four ranks and (1, 2) at two; the world-1 run's steps
-    on its shards, the context-parallel branch and the scan once a shard
-    counted, B7 / B8 timed at the shard's shape; rank 0 writes
-    ``result.json`` under ``workdir``."""
+    on its shards once world 1's results are in ``workdir``, the
+    context-parallel branch and the scan once a shard counted, the
+    parameters and first moments held against world 1's shard by shard,
+    B7 / B8 held against their plain versions and timed at the shard's
+    shape; rank 0 writes ``result.json`` under ``workdir``."""
     import faulthandler
 
     import torch
@@ -3753,6 +3757,7 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
     import repro_torch.models.ssm as S
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.sharding.spmd import local_shard, replicas
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3782,21 +3787,40 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
         model, state, step = _mesh_model(torch, dev, mesh)
         build_s = time.perf_counter() - t0
         batches = _mesh_batches(torch, dev, model.cfg)
+        # built while the parent runs world 1; the steps wait for its
+        # results, so the two runs do not share the card's time
+        go = os.path.join(workdir, "go")
+        deadline = time.monotonic() + MESH_WORLD_TIMEOUT
+        while not os.path.exists(go):
+            if time.monotonic() > deadline:
+                raise TimeoutError("world 1's results never came")
+            time.sleep(0.05)
         ss.selective_scan_fwd_cuda.launches = 0
         ss.selective_scan_bwd_cuda.launches = 0
         state, metrics, secs, comms = _mesh_steps(
             torch, state, step, batches, mesh, comm_on_last=True)
         launches = {"selective_scan_fwd": ss.selective_scan_fwd_cuda.launches,
                     "selective_scan_bwd": ss.selective_scan_bwd_cuda.launches}
-        # the world-1 parameters after the same steps, against these
+        t0 = time.perf_counter()
+        # the world-1 parameters and first moments after the same steps,
+        # against these, each rank on its own shards (world 1's file mapped,
+        # not read whole): the largest parameter difference, and for each
+        # first-moment leaf the sums of squares of the difference, of world
+        # 1's and of this run's, a replicated shard's counted once
         ref = torch.load(os.path.join(workdir, "world1.pt"),
-                         map_location=dev) if rank == 0 else None
-        worst = 0.0
+                         map_location="cpu", mmap=True)
+        worst, sums = 0.0, {}
         for k, p in state["params"].items():
-            full = _whole(p)
-            if rank == 0:
-                worst = max(worst, (full.float() - ref[k].float()).abs()
-                            .max().item())
+            m = state["opt"]["m"][k]
+            want = local_shard(ref["params"][k], mesh, p.placements)
+            worst = max(worst, (p.to_local().float() - want.to(dev).float())
+                        .abs().max().item())
+            want = local_shard(ref["m"][k], mesh, m.placements).to(
+                dev).double()
+            got = m.to_local().double()
+            sums[k] = [(((got - want) ** 2).sum() / replicas(m)).item(),
+                       ((want ** 2).sum() / replicas(m)).item(),
+                       ((got ** 2).sum() / replicas(m)).item()]
         del ref
         param_bytes = _local_bytes(dict(state["params"]))
         opt_bytes = _local_bytes(state["opt"])
@@ -3805,8 +3829,20 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
             "param_bytes": param_bytes, "opt_bytes": opt_bytes,
             "device": str(dev),
             "launches": launches, "cp_calls": seen["cp"],
-            "scan_shapes": seen["scan"][:1]})
+            "scan_shapes": seen["scan"][:1], "max_param_diff": worst,
+            "moment_sums": sums})
+        worst = max(r["max_param_diff"] for r in per_rank)
+        moment = {}   # leaf: [relative L2 difference, relative norm diff.]
+        for k in sums:
+            d2, r2, g2 = (sum(r["moment_sums"][k][i] for r in per_rank)
+                          for i in range(3))
+            scale = max(r2, 1e-60) ** 0.5
+            moment[k] = [d2 ** 0.5 / scale, abs(g2 ** 0.5 / scale - 1)]
+        for r in per_rank:
+            del r["moment_sums"]
+        compare_s = time.perf_counter() - t0
         if rank == 0:
+            t0 = time.perf_counter()
             # B7 and B8 at this rank's shard of one layer's scan
             *ops_, chunk = seen["args"]
             xc, dt, bm, cm, a, h0 = (t.detach().contiguous() for t in ops_)
@@ -3816,6 +3852,25 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
             _, ckpt, _ = fwd()
             bwd = lambda: ss.selective_scan_bwd_cuda(xc, dt, bm, cm, a, ckpt,
                                                      dy, chunk=chunk)
+            # the kernels against their plain versions on the shard (each
+            # plain version timed in the one call that gives its result)
+            plain = {}
+            plain_ms = {
+                "fwd": time_cuda(torch, lambda: plain.__setitem__(
+                    "fwd", ss.selective_scan_fwd_plain(
+                        xc, dt, bm, cm, a, h0, chunk=chunk)),
+                    reps=1, warmup=0),
+                "bwd": time_cuda(torch, lambda: plain.__setitem__(
+                    "bwd", ss.selective_scan_bwd_plain(
+                        xc, dt, bm, cm, a, ckpt, dy, chunk=chunk)),
+                    reps=1, warmup=0)}
+            held = {w: (max((g.float() - e.float()).abs().max().item()
+                            for g, e in zip(got, plain[w])),
+                        all(torch.allclose(g, e, **tol)
+                            for g, e in zip(got, plain[w])))
+                    for w, got, tol in (("fwd", fwd(), SCAN_FWD_TOL),
+                                        ("bwd", bwd(), SCAN_BWD_TOL))}
+            del plain
             B, S_, Di = xc.shape
             fb, bb = scan_bounds(B, S_, Di, a.shape[1], chunk,
                                  max_sm_clock_hz())
@@ -3829,7 +3884,12 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
                      "bwd_device_ms": call_device_ms(
                          torch, bwd, SCAN_BWD_KERNELS)["device_ms"],
                      "bwd_bound_ms": bb["bound_ms"],
-                     "bwd_bound_by": bb["bound_by"]}
+                     "bwd_bound_by": bb["bound_by"],
+                     "fwd_plain_ms": plain_ms["fwd"],
+                     "bwd_plain_ms": plain_ms["bwd"],
+                     "fwd_max_abs_err": held["fwd"][0],
+                     "bwd_max_abs_err": held["bwd"][0],
+                     "held": held["fwd"][1] and held["bwd"][1]}
             step_s = statistics.median(secs[1:]) if len(secs) > 1 \
                 else secs[0]
             rec = {"world": world, "mesh": list(sizes), "backend": backend,
@@ -3839,6 +3899,8 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
                    "step_ms": [s * 1e3 for s in secs],
                    "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
                    "comms_last_step": comms, "max_param_diff": worst,
+                   "moment_rel_diff": moment, "compare_s": compare_s,
+                   "scan_shard_s": time.perf_counter() - t0,
                    "per_rank": per_rank, "scan_shard": shard}
             with open(os.path.join(workdir, "result.json"), "w") as f:
                 json.dump(rec, f)
@@ -3884,12 +3946,17 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
     ranks on ``cuda:0`` in a (2, 2) mesh (gloo takes CUDA tensors in every
     collective the step uses; NCCL takes one rank a card), on several
     cards NCCL ranks, a card each ((2, 2) at four, (1, 2) at two or
-    three); the same steps against world 1 within ``MESH_CARDS_RTOL``, the
-    context-parallel branch taken and the scan launched once a shard.
-    Returns the phase's record."""
+    three), started with the phase to build while (a) runs and stepping
+    once (a) is done; the same steps against world 1 (the loss and
+    gradient norm within ``MESH_CARDS_RTOL``, each leaf of AdamW's first
+    moment within ``MESH_MOMENT_RTOL`` / ``MESH_MOMENT_NORM_RTOL``), the
+    context-parallel branch taken, the scan launched once a shard, and B7 /
+    B8 on a shard held against their plain versions. Returns the phase's
+    record."""
     import torch.distributed as dist
     from repro_torch.ckpt import restore_checkpoint, save_checkpoint
     from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.sharding.spmd import full_value
     from repro_torch.train import train_state_shardings
 
     rec = {"card": card_line()}
@@ -3897,6 +3964,9 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
     # the earlier phases' cached blocks go back to the card, which the
     # meshed world's ranks share
     torch.cuda.empty_cache()
+    # (c)'s ranks start now and build their models while (a) runs; they
+    # take their steps once (a)'s results are written
+    world, backend = _start_mesh_world(torch, work, procs)
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1, device_id=dev)
     try:
@@ -3918,9 +3988,9 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
                      f"{want}")
             runs[path] = (state, metrics, secs, time.perf_counter() - t0)
         (s1, m1, t1, w1), (s2, m2, t2, w2) = runs.values()
-        worst = max((_whole(s2["params"][k]).float() - p.detach().float())
+        worst = max((full_value(s2["params"][k]).float() - p.detach().float())
                     .abs().max().item() for k, p in s1["params"].items())
-        close = all(torch.allclose(_whole(s2["params"][k]), p.detach(),
+        close = all(torch.allclose(full_value(s2["params"][k]), p.detach(),
                                    **MESH_TOL)
                     for k, p in s1["params"].items())
         metric_ok = all(abs(a - b) <= MESH_TOL["atol"] +
@@ -3939,10 +4009,13 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
             fail(f"phase 25: the (1, 1) mesh's steps differ from one "
                  f"device's past {MESH_TOL} (largest parameter difference "
                  f"{worst}; {m2} vs {m1})")
-        torch.save({k: _whole(p) for k, p in s2["params"].items()},
+        torch.save({"params": {k: full_value(p).cpu()
+                               for k, p in s2["params"].items()},
+                    "m": {k: full_value(m).cpu()
+                          for k, m in s2["opt"]["m"].items()}},
                    os.path.join(work, "world1.pt"))
-        # (c) runs while (b) saves and restores (the checkpoint is host I/O)
-        world, backend = _start_mesh_world(torch, work, procs)
+        # (c) takes its steps while (b) saves and restores (host I/O)
+        open(os.path.join(work, "go"), "w").close()
         # (b) the checkpoint under the mesh
         t0 = time.perf_counter()
         save_checkpoint(work, MESH_STEPS, s2)
@@ -3955,7 +4028,7 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
         leaves = [(s2["params"], back["params"]),
                   (s2["opt"]["m"], back["opt"]["m"]),
                   (s2["opt"]["v"], back["opt"]["v"])]
-        if not all(torch.equal(_whole(a[k]), _whole(b[k]))
+        if not all(torch.equal(full_value(a[k]), full_value(b[k]))
                    for a, b in leaves for k in a) or \
                 back["step"] != s2["step"]:
             fail("phase 25: the state restored onto the mesh differs from "
@@ -3983,19 +4056,47 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
             fail(f"phase 25: {world} ranks' losses / grad norms "
                  f"{cards['metrics']} differ from world 1's {m2} past "
                  f"rtol {MESH_CARDS_RTOL}")
+    moment = cards["moment_rel_diff"]
+    worst = {w: sorted(moment, key=lambda k: -moment[k][i])[:5]
+             for i, w in enumerate(("l2", "norm"))}
+    log(f"phase 25: {world} ranks' first moments against world 1's, the "
+        f"largest relative L2 differences " + ", ".join(
+            f"{k} {moment[k][0]:.3g}" for k in worst["l2"]) +
+        "; the largest relative norm differences " + ", ".join(
+            f"{k} {moment[k][1]:.3g}" for k in worst["norm"]))
+    for i, (w, tol) in enumerate((("relative L2", MESH_MOMENT_RTOL),
+                                  ("relative norm", MESH_MOMENT_NORM_RTOL))):
+        leaf = worst["l2" if i == 0 else "norm"][0]
+        if moment[leaf][i] > tol:
+            fail(f"phase 25: {world} ranks' first moment of {leaf} differs "
+                 f"from world 1's by {moment[leaf][i]} ({w}), past {tol}")
+    leaf, rel = worst["l2"][0], moment[worst["l2"][0]][0]
     if cards["per_rank"][0]["cp_calls"] == 0 or any(
             r["launches"] != rec["launches"] for r in cards["per_rank"]):
         fail(f"phase 25: {world} ranks: context-parallel calls or scan "
              f"launches off: {cards['per_rank']}")
+    shard = cards["scan_shard"]
+    if not shard["held"]:
+        fail(f"phase 25: B7 / B8 on the shard {shard['shape']} differ from "
+             f"their plain versions past {SCAN_FWD_TOL} / {SCAN_BWD_TOL}: "
+             f"max abs err {shard['fwd_max_abs_err']} / "
+             f"{shard['bwd_max_abs_err']}")
     rec["world"] = cards
     log(f"phase 25: {world} ranks ({backend}, {cards['cards']} cards) "
         f"{cards['mesh']}: step ms "
         f"{[round(s, 1) for s in cards['step_ms']]}, "
         f"{cards['tokens_per_s']:.0f} tokens/s, losses / grad norms "
         f"{cards['metrics']}, largest parameter difference "
-        f"{cards['max_param_diff']}, collectives of a step "
+        f"{cards['max_param_diff']}, largest first-moment difference "
+        f"{rel} ({leaf}), B7 / B8 on the shard {shard['shape']} within "
+        f"{shard['fwd_max_abs_err']} / {shard['bwd_max_abs_err']} of plain "
+        f"({shard['fwd_plain_ms']:.1f} / {shard['bwd_plain_ms']:.1f} ms "
+        f"plain), collectives of a step "
         f"{cards['comms_last_step']}, bytes a rank "
-        f"{[(r['param_bytes'], r['opt_bytes']) for r in cards['per_rank']]}")
+        f"{[(r['param_bytes'], r['opt_bytes']) for r in cards['per_rank']]}"
+        f"; a rank's build {cards['build_s']:.1f} s, comparison "
+        f"{cards['compare_s']:.1f} s, rank 0's shard checks and timings "
+        f"{cards['scan_shard_s']:.1f} s")
     return rec
 
 

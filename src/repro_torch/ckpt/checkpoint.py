@@ -28,14 +28,16 @@ tensor of ``tree_like``, on that tensor's device and in its dtype, so the
 objects.
 
 Checkpoints are mesh-agnostic, as the reference's (arrays are stored
-unsharded): under a ``DeviceMesh`` every rank gathers each DTensor leaf
-(``sharding.spmd.full_value``, collectives), rank 0 writes the same files
-as on one device, and every rank waits at a barrier until they are
-committed. A restore reads the whole files on every rank and places each
-leaf by ``shardings`` (a tree of ``sharding.NamedSharding`` shaped like
-the tree, ``None`` at a host leaf) or, without them, in the layout of
-``tree_like``'s leaf; each rank keeps its own shard, so a checkpoint saved
-on one device restores onto a mesh and back (the elastic path).
+unsharded): under a ``DeviceMesh`` the ranks gather one DTensor leaf at a
+time (``sharding.spmd.full_value``, collectives), rank 0 moves it to the
+host and streams it into the same files as on one device (the others drop
+it at once), and every rank waits at a barrier until they are committed.
+A restore reads the whole files on every rank's host and places each leaf
+by ``shardings`` (a tree of ``sharding.NamedSharding`` shaped like the
+tree, ``None`` at a host leaf) or, without them, in the layout of
+``tree_like``'s leaf; each rank cuts its own shard on the host and moves
+only that, so a checkpoint saved on one device restores onto a mesh and
+back (the elastic path).
 """
 from __future__ import annotations
 
@@ -160,22 +162,36 @@ def save_checkpoint(directory: str, step: int, tree, keep_last: int = 3,
     its mesh together: each leaf is gathered, rank 0 writes, and all return
     once the step is committed."""
     with _span("ckpt.save", step=step):
-        leaves, _ = flatten_tree(tree)
+        leaves, structure = flatten_tree(tree)
         if not _meshed(leaves):
-            return _save_checkpoint(directory, step, tree, keep_last,
-                                    config_hash)
-        whole = unflatten_tree(tree, [
-            full_value(x) if isinstance(x, DTensor) else x
-            for x in leaves])
+            return _save_checkpoint(directory, step, leaves, structure,
+                                    keep_last, config_hash)
+        writer = dist.get_rank() == 0
+
+        def gathered():
+            # one leaf at a time: gathered on every rank (a collective),
+            # kept on rank 0's host only
+            for x in leaves:
+                if isinstance(x, DTensor):
+                    x = full_value(x)
+                    x = x.cpu() if writer else None
+                yield x
+
         final = os.path.join(directory, f"step_{step}")
-        if dist.get_rank() == 0:
-            _save_checkpoint(directory, step, whole, keep_last, config_hash)
+        if writer:
+            _save_checkpoint(directory, step, gathered(), structure,
+                             keep_last, config_hash)
+        else:
+            for _ in gathered():
+                pass
         dist.barrier()
         return final
 
 
-def _save_checkpoint(directory, step, tree, keep_last, config_hash) -> str:
-    leaves, structure = flatten_tree(tree)
+def _save_checkpoint(directory, step, leaves, structure, keep_last,
+                     config_hash) -> str:
+    """Write ``leaves`` (``flatten_tree``'s order; any iterable, consumed
+    once, so a meshed save streams them) under ``structure``."""
     os.makedirs(directory, exist_ok=True)
     final = os.path.join(directory, f"step_{step}")
     tmp = final + ".tmp"
@@ -184,7 +200,7 @@ def _save_checkpoint(directory, step, tree, keep_last, config_hash) -> str:
     os.makedirs(tmp)
 
     manifest = {"step": step, "treedef": structure,
-                "n_leaves": len(leaves), "shards": [], "dtypes": {},
+                "n_leaves": 0, "shards": [], "dtypes": {},
                 "versions": version_stamp(config_hash)}
     shard, shard_bytes, shard_idx = {}, 0, 0
 
@@ -206,6 +222,7 @@ def _save_checkpoint(directory, step, tree, keep_last, config_hash) -> str:
         manifest["dtypes"][f"leaf_{i}"] = dtype_name
         shard[f"leaf_{i}"] = arr
         shard_bytes += arr.nbytes
+        manifest["n_leaves"] = i + 1
         if shard_bytes >= _SHARD_BYTES:
             flush()
     flush()
@@ -308,7 +325,7 @@ def _restore_step(directory, step, tree_like, shardings, config_hash):
                 ref.copy_(got)
                 new_leaves.append(ref)
                 continue
-            got = place(got.to(ref.device, ref.dtype), sh)
+            got = place(got.to(dtype=ref.dtype), sh)
             if isinstance(ref, DTensor) and \
                     tuple(ref.placements) == tuple(got.placements):
                 ref.to_local().copy_(got.to_local())

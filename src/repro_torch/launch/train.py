@@ -42,7 +42,7 @@ from ..obs.log import get_logger
 from ..sharding.annotate import DEFAULT_RULES, is_device_mesh
 from ..sharding.rules import distribute_batch, distribute_params
 from ..train import (adafactor_init, adamw_init, init_train_state,
-                     make_train_step, place_train_state,
+                     make_train_step, microbatches, place_train_state,
                      train_state_shardings)
 from ..train.optimizer import OptConfig
 from ..utils.device import resolve_device
@@ -92,7 +92,9 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
         mesh = make_device_mesh(mesh, device_type=dev.type)
     rules = DEFAULT_RULES
     rank0 = mesh is None or dist.get_rank() == 0
-    model = Model(cfg, seed=seed, device=dev)
+    # under a mesh the weights are drawn on the host and each rank moves
+    # only its shards to its device (distribute_params)
+    model = Model(cfg, seed=seed, device=dev if mesh is None else "cpu")
     opt_cfg = OptConfig(learning_rate=lr, warmup_steps=min(100, steps // 10),
                         decay_steps=steps)
     shardings = None
@@ -113,9 +115,17 @@ def train(cfg: ModelConfig, *, steps: int, batch: int, seq_len: int,
                 _LOG.info(f"[train] resumed from step {restored}")
     step_fn = make_train_step(model, opt_cfg, optimizer, accum_steps=accum)
 
-    def placed(host_batch: dict) -> dict:
+    def placed(host_batch: dict):
+        """The step's batch: on the device, or under a mesh placed by the
+        batch specs (with ``accum`` > 1 each microbatch of the host batch
+        placed on its own)."""
         b = to_device(host_batch, dev)
-        return b if mesh is None else distribute_batch(b, mesh, rules)
+        if mesh is None:
+            return b
+        if accum == 1:
+            return distribute_batch(b, mesh, rules)
+        return [distribute_batch(m, mesh, rules)
+                for m in microbatches(b, accum)]
 
     source = make_pipeline(cfg, batch, seq_len, seed=seed, path=data_path)
     pf = Prefetcher(source, start_step=start_step)
@@ -196,7 +206,11 @@ def main(argv=None):
                     help="use the CPU-scale reduced config")
     ap.add_argument("--data", default=None, help="binary token file")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="use the 16x16 production mesh (needs 256 ranks)")
+                    help="use the 16x16 production mesh (needs 256 ranks); "
+                         "its 'model' axis runs attention and dense MLPs "
+                         "tensor-parallel and repeats the other products "
+                         "(MLA, MoE experts, Mamba projections) on every "
+                         "model rank")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for the host)")
     args = ap.parse_args(argv)

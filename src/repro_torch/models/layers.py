@@ -8,7 +8,9 @@ them), and the context-parallel flash form, which runs under a
 
 Functions take a param dict and activations, as the reference's do; the
 reference's logical-axis ``shard`` annotations are dropped. Under a mesh
-(``sharding.spmd``) they run on each rank's rows with the weights whole.
+(``sharding.spmd``) they run on each rank's rows with the weights whole,
+or, for the MLP and attention (``split``), with this rank's part of a
+tensor-parallel product over "model".
 A product the reference asks in float32 of lower-precision operands
 (``preferred_element_type=float32``) is an f32 product of the operands
 rounded to their dtype here: products of bf16 values are exact in f32, so
@@ -22,7 +24,8 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from ..sharding.spmd import gather_over_model, model_axis, sum_grads_over_model
+from ..sharding.spmd import (gather_over_model, model_axis,
+                              sum_grads_over_model, sum_over_model)
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -160,11 +163,25 @@ def activate(cfg: ModelConfig, h: torch.Tensor, gate=None) -> torch.Tensor:
     return F.gelu(h, approximate="tanh")
 
 
-def mlp(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+# the tensor dim of each leaf that a tensor-parallel product splits over
+# "model" (``sharding.spmd.split_over_model``): the hidden units of the MLP,
+# the heads of attention (column-parallel in, row-parallel out)
+MLP_SPLIT = {"wi": 1, "wg": 1, "wo": 0}
+ATTN_SPLIT = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0}
+
+
+def mlp(p: Params, cfg: ModelConfig, x: torch.Tensor,
+        split: bool = False) -> torch.Tensor:
+    """The MLP. ``split``: ``p`` holds this rank's hidden units of the
+    "model" axis (``MLP_SPLIT``), ``x`` is whole there; each rank's output
+    is its part of the sum, added up over the axis."""
     dt = x.dtype
+    if split:
+        x = sum_grads_over_model(x)
     h = torch.matmul(x, p["wi"].to(dt))
     g = torch.matmul(x, p["wg"].to(dt)) if cfg.mlp == "swiglu" else None
-    return torch.matmul(activate(cfg, h, g), p["wo"].to(dt))
+    y = torch.matmul(activate(cfg, h, g), p["wo"].to(dt))
+    return sum_over_model(y) if split else y
 
 
 # ---------------------------------------------------------------------------
@@ -365,9 +382,10 @@ def _context_parallel_flash(cfg: ModelConfig, q, k, v, q_positions,
     query positions to every key (K, V and their positions whole on each
     rank), its blocks numbered from ``rank_on_model * blocks_per_shard`` so
     it visits the band of its own positions; the ranks' outputs are
-    gathered along the sequence. Used when the head count does not divide
-    the model axis (hymba's 25, llava's 56), where every model rank would
-    otherwise attend with all heads over the whole sequence."""
+    gathered along the sequence. Taken under the reference's condition
+    (among others, the head count does not divide the model axis: hymba's
+    25); where the heads divide it, the attention runs head-parallel
+    instead (``attention(..., split=True)``)."""
     _, rank, tp = model_axis()
     s_local = q.shape[1] // tp
     blocks_per_shard = max(s_local // cfg.attn_chunk_q, 1)
@@ -382,7 +400,8 @@ def _context_parallel_flash(cfg: ModelConfig, q, k, v, q_positions,
 
 
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
-              positions: torch.Tensor, *, causal: bool = True) -> torch.Tensor:
+              positions: torch.Tensor, *, causal: bool = True,
+              split: bool = False) -> torch.Tensor:
     """Full self-attention sublayer: project, attend (flash for long
     sequences), output-project. Under a mesh with a "model" axis the
     reference's condition picks the context-parallel form: flash,
@@ -391,12 +410,18 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     head count). The reference's ``kv_override``
     / ``kv_positions`` / ``kv_mask`` arguments have no caller in either
     package (decode attends to the cache through ``attention_scores``) and
-    are not ported."""
+    are not ported. ``split``: ``p`` holds this rank's heads of the "model"
+    axis (``ATTN_SPLIT``; query and key-value heads both split, so each
+    rank's query groups meet their own key-value heads), ``x`` is whole
+    there; each rank's output is its part of the sum, added up over the
+    axis."""
+    if split:
+        x = sum_grads_over_model(x)
     q, k, v = qkv_project(p, cfg, x, positions)
     use_flash = cfg.attn_chunk_q > 0 and \
         k.shape[1] >= cfg.attn_chunk_threshold
     axis = model_axis()
-    tp = axis[2] if axis is not None else 1
+    tp = axis[2] if axis is not None and not split else 1
     if use_flash and tp > 1 and cfg.window > 0 and cfg.n_heads % tp and \
             q.shape[1] % tp == 0 and q.shape[1] // tp >= 128:
         out = _context_parallel_flash(cfg, q, k, v, positions, positions,
@@ -408,12 +433,14 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         out = attention_scores(q, k, v, positions, positions, causal=causal,
                                window=cfg.window)
-    return merge_heads(out, p["wo"])
+    out = merge_heads(out, p["wo"])
+    return sum_over_model(out) if split else out
 
 
 __all__ = ["Params", "_dense_init", "init_rmsnorm", "rmsnorm",
            "init_layernorm", "layernorm",
            "rope_frequencies", "apply_rope", "init_embedding", "embed",
            "init_unembed", "unembed", "init_mlp", "activate", "mlp",
+           "MLP_SPLIT", "ATTN_SPLIT",
            "init_attention", "project_heads", "merge_heads", "qkv_project",
            "attention_scores", "flash_attention", "attention"]

@@ -28,9 +28,11 @@ as the reference recomputes its Pallas call.
 Under a ``DeviceMesh`` (parameters placed by
 ``sharding.rules.distribute_params``, a batch by ``distribute_batch``)
 ``forward`` and ``loss`` run once a rank (``sharding.spmd``): each rank
-takes its rows of the batch, gathers each block's parameters whole just
-before the block runs (inside its remat, so backward gathers them again),
-and returns DTensors: the hidden states split by rows, and the loss as the
+takes its rows of the batch, gathers each block's parameters just before
+the block runs (inside its remat, so backward gathers them again): whole,
+but for the attention and the dense MLP, which keep this rank's heads or
+hidden units of the "model" axis where their layouts allow and run as
+tensor-parallel products (``block_params``), and returns DTensors: the hidden states split by rows, and the loss as the
 sum of the ranks' parts (each rank's cross-entropy over the whole batch's
 label count, its share of the aux loss).
 """
@@ -115,15 +117,18 @@ def _init_encoder_block(gen: torch.Generator, cfg: ModelConfig,
 # block forward (training / prefill: full sequences)
 # ---------------------------------------------------------------------------
 
-def _mixer(p: Params, cfg: ModelConfig, x, positions, *, causal=True):
+def _mixer(p: Params, cfg: ModelConfig, x, positions, *, causal=True,
+           split: bool = False):
     """Attention and/or SSM sublayer output at full sequence length (the
-    hybrid sums the two heads, attention first)."""
+    hybrid sums the two heads, attention first); ``split``: the attention
+    is tensor-parallel over "model" (``L.attention``)."""
     y = None
     if cfg.uses_attention:
         if cfg.attention == "mla":
             y = MLA.mla_attention(p["attn"], cfg, x, positions, causal=causal)
         else:
-            y = L.attention(p["attn"], cfg, x, positions, causal=causal)
+            y = L.attention(p["attn"], cfg, x, positions, causal=causal,
+                            split=split)
     if cfg.uses_ssm:
         ys = SSM.mamba_forward(p["ssm"], cfg, x)
         y = ys if y is None else y + ys
@@ -150,15 +155,36 @@ def _cross_attention(p: Params, cfg: ModelConfig, h: torch.Tensor,
     return L.merge_heads(o, p["wo"])
 
 
+def block_params(p: Params, cfg: ModelConfig, moe_layer: bool):
+    """A block's parameters for this rank under a mesh (``sharding.spmd``;
+    as they are without one): the attention's and the dense MLP's split
+    over "model" for tensor-parallel products where their layouts allow
+    (``L.ATTN_SPLIT``, ``L.MLP_SPLIT``), every other leaf gathered whole.
+    Returns (params, {"attn": split, "mlp": split})."""
+    out, split = {}, {"attn": False, "mlp": False}
+    for k, v in p.items():
+        if k == "attn" and cfg.attention != "mla":
+            out[k], split[k] = SP.split_over_model(v, L.ATTN_SPLIT)
+        elif k == "mlp" and not moe_layer:
+            out[k], split[k] = SP.split_over_model(v, L.MLP_SPLIT)
+        else:
+            out[k] = SP.whole_params(v)
+    return out, split
+
+
 def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, moe_layer: bool,
-                  causal: bool = True, enc_out: torch.Tensor | None = None):
+                  causal: bool = True, enc_out: torch.Tensor | None = None,
+                  split: dict | None = None):
     """Pre-norm residual block. Returns (x, aux_loss). ``enc_out`` [B, T, D]
     (encoder-decoder) adds cross-attention between the mixer and the
-    MLP."""
+    MLP. ``split`` (``block_params``' second value) says which sublayers
+    hold this rank's part of a tensor-parallel product."""
+    split = split or {}
     norm = _norm(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    x = x + _mixer(p, cfg, norm(p["ln1"], x), positions, causal=causal)
+    x = x + _mixer(p, cfg, norm(p["ln1"], x), positions, causal=causal,
+                   split=split.get("attn", False))
     if cfg.family == "ssm":
         return x, aux
     if cfg.family == "encdec" and enc_out is not None:
@@ -170,7 +196,7 @@ def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if moe_layer:
         y, aux = MOE.moe_ffn(p["mlp"], cfg, h)
     else:
-        y = L.mlp(p["mlp"], cfg, h)
+        y = L.mlp(p["mlp"], cfg, h, split=split.get("mlp", False))
     return x + y, aux
 
 
@@ -370,9 +396,12 @@ class Model(nn.Module):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for moe_layer, stack in ((False, params.get("dense_blocks", [])),
                                  (cfg.is_moe, params["blocks"])):
-            fn = _remat(lambda p, x_, moe=moe_layer: block_forward(
-                whole(p), cfg, x_, positions, moe_layer=moe,
-                enc_out=enc_out), cfg)
+            def run(p, x_, moe=moe_layer):
+                p, split = block_params(p, cfg, moe)
+                return block_forward(p, cfg, x_, positions, moe_layer=moe,
+                                     enc_out=enc_out, split=split)
+
+            fn = _remat(run, cfg)
             for p in stack:
                 x, aux = fn(p, x)
                 aux_total = aux_total + aux

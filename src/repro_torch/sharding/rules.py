@@ -142,8 +142,10 @@ def param_shardings(params: dict, mesh, rules=DEFAULT_RULES,
 def distribute_params(model: nn.Module, mesh, rules=DEFAULT_RULES):
     """Replace every parameter of ``model`` with a DTensor parameter placed
     on ``mesh`` by ``param_specs``. Every rank holds the same full weights
-    (``Model`` draws them from its seed on the host) and keeps its own
-    shard of each, so nothing is sent. Returns ``model``."""
+    (``Model`` draws them from its seed) and keeps its own shard of each,
+    so nothing is sent; weights on the host (``Model(..., device="cpu")``)
+    are cut there, leaf by leaf, and only the shards reach the mesh's
+    device. Returns ``model``."""
     shardings = param_shardings(dict(model.named_parameters()), mesh, rules)
     for name, sh in shardings.items():
         owner, _, leaf = name.rpartition(".")

@@ -7,13 +7,18 @@ local tensors, once a rank, as the reference's ``shard_map`` regions do:
 
 * each rank takes its rows of the batch (``local_batch``: the batch is
   split over the data axes);
-* a block gathers its parameters whole just before it runs
-  (``whole_params``: an all-gather over every mesh dim a leaf is split
-  on, FSDP's gather; its gradient comes back as each rank's part of the
-  sum over the data axes, which the train step reduce-scatters into the
-  parameter's shards);
-* the activations are whole over "model", so every model rank repeats the
-  block's work, except in the two places the reference splits it there:
+* a block gathers its parameters just before it runs (``whole_params``:
+  an all-gather over every mesh dim a leaf is split on, FSDP's gather;
+  its gradient comes back as each rank's part of the sum over the data
+  axes, which the train step reduce-scatters into the parameter's shards);
+* the attention, where its heads divide "model", and the dense MLP, where
+  its hidden units do, keep this rank's part there
+  (``split_over_model``: gathered over the other mesh dims only) and run
+  as tensor-parallel products, Megatron's pair: the input whole over
+  "model" passes ``sum_grads_over_model`` and the output, each rank's
+  part of the sum, ``sum_over_model`` (an all-reduce forward);
+* every other product runs whole over "model", repeated on each model
+  rank, except in the two places the reference splits its work there:
   the context-parallel flash attention (each rank's query positions) and
   the selective scan (each rank's channels). Each region's inputs pass
   ``sum_grads_over_model`` (the identity forward; its gradient summed over
@@ -39,8 +44,7 @@ import threading
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
-                                      distribute_tensor)
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from .annotate import placements, resolve_spec
 
@@ -50,11 +54,41 @@ _state = threading.local()
 def place(x, sharding) -> DTensor:
     """``x`` in the layout of ``sharding`` (a ``NamedSharding`` or anything
     with ``mesh`` and ``placements``): a DTensor is redistributed, a tensor
-    that every rank holds whole keeps its own shard (no communication)."""
+    that every rank holds whole keeps its own shard (no communication),
+    cut where it lies (the host, say) so that only the shard reaches the
+    mesh's device."""
+    mesh, layout = sharding.mesh, tuple(sharding.placements)
     if isinstance(x, DTensor):
-        return x.redistribute(sharding.mesh, sharding.placements)
-    return distribute_tensor(x, sharding.mesh, sharding.placements,
-                             src_data_rank=None)
+        return x.redistribute(mesh, layout)
+    local = local_shard(x, mesh, layout).to(_mesh_device(mesh))
+    return DTensor.from_local(local.contiguous(), mesh, layout,
+                              run_check=False, shape=x.shape,
+                              stride=x.contiguous().stride())
+
+
+def replicas(x: DTensor) -> int:
+    """How many ranks of its mesh hold each element of ``x``."""
+    split = 1
+    for p, n in zip(x.placements, x.device_mesh.shape):
+        split *= n if isinstance(p, Shard) else 1
+    return x.device_mesh.size() // split
+
+
+def local_shard(x: torch.Tensor, mesh, layout) -> torch.Tensor:
+    """This rank's shard of the whole tensor ``x`` in ``layout``, cut where
+    ``x`` lies: DTensor's chunks, the outer mesh dim's first."""
+    for m, p in enumerate(layout):
+        if isinstance(p, Shard):
+            x = torch.chunk(x, mesh.size(m), dim=p.dim)[
+                mesh.get_local_rank(m)]
+    return x
+
+
+def _mesh_device(mesh) -> torch.device:
+    """This rank's device of ``mesh`` (the current card for CUDA)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
 
 def batch_layout(mesh, rows: int) -> list:
@@ -145,14 +179,16 @@ class _WholeParam(torch.autograd.Function):
     this rank (its part of the sum over the mesh dims the batch is split
     on) summed there and cut to this rank's shard: a reduce-scatter where
     the parameter is split on such a dim, an all-reduce where it is whole
-    there, its own chunk where it is split on another."""
+    there, its own chunk where it is split on another. The mesh dim
+    ``keep`` (or None) is left as it is both ways: a tensor-parallel
+    product uses this rank's part there and gives that part's gradient."""
 
     @staticmethod
-    def forward(ctx, local, mesh, layout, rows):
-        ctx.mesh, ctx.layout, ctx.rows = mesh, layout, rows
+    def forward(ctx, local, mesh, layout, rows, keep=None):
+        ctx.mesh, ctx.layout, ctx.rows, ctx.keep = mesh, layout, rows, keep
         t = local
         for m in reversed(range(mesh.ndim)):
-            if isinstance(layout[m], Shard):
+            if isinstance(layout[m], Shard) and m != keep:
                 t = _gather_along(t, layout[m].dim, mesh.get_group(m),
                                   mesh.size(m))
         # in the parameter's own layout: a product with a transposed view
@@ -163,6 +199,8 @@ class _WholeParam(torch.autograd.Function):
     def backward(ctx, g):
         mesh = ctx.mesh
         for m in range(mesh.ndim):
+            if m == ctx.keep:
+                continue
             p, split = ctx.layout[m], isinstance(ctx.rows[m], Shard)
             group, n = mesh.get_group(m), mesh.size(m)
             if split and isinstance(p, Shard):
@@ -173,7 +211,7 @@ class _WholeParam(torch.autograd.Function):
             elif isinstance(p, Shard):
                 size = g.shape[p.dim] // n
                 g = g.narrow(p.dim, mesh.get_local_rank(m) * size, size)
-        return g.contiguous(), None, None, None
+        return g.contiguous(), None, None, None, None
 
 
 def whole_params(tree):
@@ -191,6 +229,34 @@ def whole_params(tree):
     mesh, layout = ctx
     return _WholeParam.apply(tree.to_local(), mesh, tuple(tree.placements),
                              tuple(layout))
+
+
+def split_over_model(tree: dict, dims: dict):
+    """A sublayer's parameters for a tensor-parallel product over "model"
+    (Megatron's column- then row-parallel pair): ``(tree, True)`` with each
+    leaf gathered over every mesh dim but "model" and this rank's part
+    kept there, when ``dims`` names every leaf of ``tree`` and each is a
+    DTensor split over "model" on that tensor dim and on no other mesh
+    dim (so a rank's part is one contiguous block); else
+    ``(whole_params(tree), False)``. Without a model axis of two or more
+    it is always the latter."""
+    ctx, axis = current(), model_axis()
+    if axis is None or not set(tree) <= set(dims):
+        return whole_params(tree), False
+    mesh, layout = ctx
+    m = mesh.mesh_dim_names.index("model")
+
+    def splits(k, x) -> bool:
+        return isinstance(x, DTensor) and x.placements[m] == Shard(
+            dims[k]) and not any(
+            isinstance(p, Shard) and p.dim == dims[k]
+            for i, p in enumerate(x.placements) if i != m)
+
+    if not all(splits(k, x) for k, x in tree.items()):
+        return whole_params(tree), False
+    return {k: _WholeParam.apply(x.to_local(), mesh, tuple(x.placements),
+                                 tuple(layout), m)
+            for k, x in tree.items()}, True
 
 
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
@@ -270,16 +336,35 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, dim, rank, size):
         ctx.dim, ctx.rank, ctx.size = dim, rank, size
-        x = x.movedim(dim, 0).contiguous()
-        out = x.new_empty((size * x.shape[0], *x.shape[1:]))
-        dist.all_gather_into_tensor(out, x, group=group)
-        return out.movedim(0, dim)
+        return _gather_along(x, dim, group, size)
 
     @staticmethod
     def backward(ctx, g):
         n = g.shape[ctx.dim] // ctx.size
         return (g.narrow(ctx.dim, ctx.rank * n, n).contiguous(), None, None,
                 None, None)
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum over ``group`` forward (an all-reduce); the gradient as it
+    is backward (every rank's output is the same sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        x = x.contiguous().clone()
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The exit of a tensor-parallel product: each model rank's part of
+    ``x`` summed over the axis."""
+    axis = model_axis()
+    return x if axis is None else _SumOver.apply(x, axis[0])
 
 
 def sum_grads_over_model(x: torch.Tensor) -> torch.Tensor:
@@ -299,8 +384,9 @@ def gather_over_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _Gather.apply(x, group, dim % x.dim(), rank, size)
 
 
-__all__ = ["place", "batch_layout", "spmd", "within", "current",
+__all__ = ["place", "replicas", "local_shard", "batch_layout", "spmd", "within", "current",
            "local_batch",
-           "whole_params", "full_value", "batch_sum", "batch_shards", "as_batch_partial",
-           "as_batch_rows",
-           "model_axis", "sum_grads_over_model", "gather_over_model"]
+           "whole_params", "split_over_model", "full_value", "batch_sum",
+           "batch_shards", "as_batch_partial", "as_batch_rows",
+           "model_axis", "sum_grads_over_model", "sum_over_model",
+           "gather_over_model"]

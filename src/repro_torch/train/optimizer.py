@@ -20,7 +20,9 @@ from dataclasses import dataclass
 
 import torch
 import torch.distributed as dist
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor
+
+from ..sharding.spmd import replicas
 
 
 @dataclass(frozen=True)
@@ -56,14 +58,6 @@ def adamw_init(params: dict) -> dict:
             "v": {k: torch.zeros_like(p) for k, p in params.items()}}
 
 
-def _replicas(x: DTensor) -> int:
-    """How many ranks of its mesh hold each element of ``x``."""
-    split = 1
-    for p, n in zip(x.placements, x.device_mesh.shape):
-        split *= n if isinstance(p, Shard) else 1
-    return x.device_mesh.size() // split
-
-
 def global_norm(tree: dict) -> torch.Tensor:
     """The L2 norm of every leaf together, in float32. Over DTensors it is
     a full reduction: each rank sums its shards' squares (a replicated
@@ -73,7 +67,7 @@ def global_norm(tree: dict) -> torch.Tensor:
         if isinstance(x, DTensor):
             mesh = x.device_mesh
             s = torch.sum(torch.square(x.to_local().to(torch.float32)))
-            s = s / _replicas(x)
+            s = s / replicas(x)
         else:
             s = torch.sum(torch.square(x.to(torch.float32)))
         total = s if total is None else total + s

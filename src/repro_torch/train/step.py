@@ -23,9 +23,7 @@ from __future__ import annotations
 import torch
 from torch.distributed.tensor import DTensor
 
-from ..sharding.annotate import NamedSharding
-from ..sharding.rules import batch_specs
-from ..sharding.spmd import full_value, place
+from ..sharding.spmd import full_value
 from .optimizer import OptConfig, adafactor_update, adamw_update
 
 
@@ -54,25 +52,22 @@ def _like_leaves(new, old):
     return _like(new, old)
 
 
-def _rows(batch: dict, lo: int, hi: int) -> dict:
-    """Rows [lo, hi) of every leaf of ``batch``: a microbatch. A DTensor
-    batch is gathered, cut, and each microbatch placed again by
-    ``batch_specs`` on its own shape (its rows split over the data axes
-    where they divide them)."""
-    meshes = [v.device_mesh for v in batch.values()
-              if isinstance(v, DTensor)]
-    out = {k: _whole(v)[lo:hi] for k, v in batch.items()}
-    if not meshes:
-        return out
-    specs = batch_specs(out, meshes[0])
-    return {k: place(v, NamedSharding(meshes[0], specs[k]))
-            for k, v in out.items()}
-
-
-def _whole(t: torch.Tensor) -> torch.Tensor:
-    """A metric as a plain tensor: a DTensor's full value (collectives
-    every rank takes part in), else ``t``."""
-    return full_value(t)
+def microbatches(batch: dict, accum_steps: int) -> list:
+    """``batch`` cut into ``accum_steps`` microbatches of contiguous rows
+    (the reference's reshape). A meshed run cuts the host batch so and
+    places each microbatch (``sharding.rules.distribute_batch``), so the
+    step never gathers a placed batch back."""
+    if any(isinstance(v, DTensor) for v in batch.values()):
+        raise ValueError("a placed batch cannot be cut into microbatches: "
+                         "cut the host batch with microbatches() and "
+                         "place each")
+    b = next(iter(batch.values())).shape[0]
+    if b % accum_steps:
+        raise ValueError(f"batch {b} is not a multiple of "
+                         f"accum_steps {accum_steps}")
+    mb = b // accum_steps
+    return [{k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
+            for i in range(accum_steps)]
 
 
 def make_train_step(model, opt_cfg: OptConfig, optimizer: str = "adamw",
@@ -81,9 +76,10 @@ def make_train_step(model, opt_cfg: OptConfig, optimizer: str = "adamw",
 
     ``accum_steps > 1`` splits the batch's leading dim into microbatches
     (contiguous rows, as the reference's reshape) and accumulates gradients
-    in f32 before one optimizer update. ``constrain_accum`` shards the
-    accumulation buffer like the parameters (under a mesh every gradient is
-    put in its parameter's layout anyway).
+    in f32 before one optimizer update; under a mesh ``batch`` is then the
+    list of placed microbatches (``microbatches`` of the host batch).
+    ``constrain_accum`` shards the accumulation buffer like the parameters
+    (under a mesh every gradient is put in its parameter's layout anyway).
     """
     update_fn = adamw_update if optimizer == "adamw" else adafactor_update
 
@@ -92,7 +88,7 @@ def make_train_step(model, opt_cfg: OptConfig, optimizer: str = "adamw",
         # under a mesh each rank differentiates its own part of the loss
         own = loss.to_local() if isinstance(loss, DTensor) else loss
         grads = torch.autograd.grad(own, list(params.values()))
-        return _whole(loss), metrics, _constrain_like_params(
+        return full_value(loss), metrics, _constrain_like_params(
             dict(zip(params, grads)), params)
 
     def train_step(state: dict, batch: dict):
@@ -100,20 +96,19 @@ def make_train_step(model, opt_cfg: OptConfig, optimizer: str = "adamw",
         if accum_steps == 1:
             loss, metrics, grads = grads_of(params, batch)
         else:
-            b = next(iter(batch.values())).shape[0]
-            if b % accum_steps:
-                raise ValueError(f"batch {b} is not a multiple of "
+            micro = batch if isinstance(batch, (list, tuple)) \
+                else microbatches(batch, accum_steps)
+            if len(micro) != accum_steps:
+                raise ValueError(f"{len(micro)} microbatches, not "
                                  f"accum_steps {accum_steps}")
-            mb = b // accum_steps
             loss = torch.zeros((), dtype=torch.float32,
                                device=next(iter(params.values())).device)
             grads = {k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in params.items()}
             if constrain_accum:
                 grads = _constrain_like_params(grads, params)
-            for i in range(accum_steps):
-                mb_loss, _, mb_grads = grads_of(
-                    params, _rows(batch, i * mb, (i + 1) * mb))
+            for mb_batch in micro:
+                mb_loss, _, mb_grads = grads_of(params, mb_batch)
                 grads = {k: grads[k] + mb_grads[k].to(torch.float32)
                          / accum_steps for k in grads}
                 if constrain_accum:
@@ -135,13 +130,13 @@ def make_train_step(model, opt_cfg: OptConfig, optimizer: str = "adamw",
         new_state = {"params": params,
                      "opt": _like_leaves(new_opt, state["opt"]),
                      "step": state["step"] + 1}
-        out_metrics = {"loss": _whole(loss),
-                       **{k: _whole(v) for k, v in opt_metrics.items()}}
-        out_metrics.update({k: _whole(v) for k, v in metrics.items()
+        out_metrics = {"loss": full_value(loss),
+                       **{k: full_value(v) for k, v in opt_metrics.items()}}
+        out_metrics.update({k: full_value(v) for k, v in metrics.items()
                             if torch.is_tensor(v) and v.dim() == 0})
         return new_state, out_metrics
 
     return train_step
 
 
-__all__ = ["make_train_step"]
+__all__ = ["make_train_step", "microbatches"]

@@ -1091,7 +1091,8 @@ def _world_of_one(cuda):
                                   "qwen2.5-3b"])
 def test_world_of_one_mesh_steps_equal_one_device_on_cuda(cuda, arch):
     """Two AdamW steps of ``reduced(cfg, float32)`` under a (1, 1)
-    ("data", "model") mesh of an NCCL world of 1, against the same steps
+    ("data", "model") mesh of an NCCL world of 1 (the weights drawn on the
+    host and their shards moved to the card), against the same steps
     without a mesh: bit-equal, and the scan kernels launched as often."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import selective_scan as ss
@@ -1110,7 +1111,7 @@ def test_world_of_one_mesh_steps_equal_one_device_on_cuda(cuda, arch):
         mesh = make_device_mesh((1, 1))
         runs = []
         for meshed in (False, True):
-            model = Model(cfg, seed=0, device=cuda)
+            model = Model(cfg, seed=0, device="cpu" if meshed else cuda)
             if meshed:
                 distribute_params(model, mesh)
             state = build_state(model, "adamw")

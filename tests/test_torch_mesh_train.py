@@ -22,6 +22,7 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -51,6 +52,7 @@ OTHER_FAMILIES = ("olmoe-1b-7b", "deepseek-v2-lite-16b", "llava-next-34b",
                   "whisper-medium", "glm4-9b", "nemotron-4-15b",
                   "codeqwen1.5-7b")
 PLACED = ("qwen2.5-3b", "hymba-1.5b", "olmoe-1b-7b")
+TP_ARCHS = ("qwen2.5-3b", "olmoe-1b-7b", "deepseek-v2-lite-16b")
 
 WORLD = r'''
 import json, os, signal
@@ -66,8 +68,9 @@ from repro_torch.models.inputs import ShapeSpec, make_inputs
 from repro_torch.sharding.annotate import spec_ways
 from repro_torch.sharding.rules import (distribute_batch, distribute_params,
                                         param_specs)
-from repro_torch.train import (OptConfig, make_train_step, place_train_state,
-                               train_state_shardings)
+from repro_torch.sharding.spmd import local_shard
+from repro_torch.train import (OptConfig, make_train_step, microbatches,
+                               place_train_state, train_state_shardings)
 
 torch.set_num_threads(1)
 out = {}
@@ -93,7 +96,7 @@ for arch in PLACED:
             for k, p in Model(cfg, seed=0, device="cpu").named_parameters()}
     model = distribute_params(Model(cfg, seed=0, device="cpu"), m22)
     specs = param_specs(full, m22)
-    bad_shape, bad_bits, held, want, n_split = [], [], 0, 0.0, 0
+    bad_shape, bad_bits, bad_cut, held, want, n_split = [], [], [], 0, 0.0, 0
     for k, p in model.named_parameters():
         shape = list(full[k].shape)
         for i, entry in enumerate(specs[k]):
@@ -103,6 +106,9 @@ for arch in PLACED:
             bad_shape.append(k)
         if not torch.equal(p.full_tensor(), full[k]):
             bad_bits.append(k)
+        if not torch.equal(local_shard(full[k], m22, p.placements),
+                           p.to_local()):
+            bad_cut.append(k)
         held += p.to_local().numel() * p.to_local().element_size()
         want += full[k].numel() * full[k].element_size() / spec_ways(
             specs[k], m22)
@@ -113,7 +119,8 @@ for arch in PLACED:
     state = place_train_state(build_state(model, "adamw"), m22)
     fac = place_train_state(build_state(model, "adafactor"), m22)
     out["placed_" + arch] = {
-        "bad_shape": bad_shape, "bad_bits": bad_bits, "held": heldall,
+        "bad_shape": bad_shape, "bad_bits": bad_bits, "bad_cut": bad_cut,
+        "held": heldall,
         "want": want, "total": total, "n_split": n_split,
         "moments_like_params": all(
             tuple(state["opt"][m][k].placements) == tuple(p.placements)
@@ -122,6 +129,36 @@ for arch in PLACED:
             all(pl == Replicate() for pl in leaf.placements)
             for f in fac["opt"]["f"].values() for leaf in f.values()),
         "step": [type(state["step"]).__name__, state["step"]]}
+
+
+# -- which sublayers run tensor-parallel over "model" --
+import repro_torch.models.model as MM
+real_block_params, seen = MM.block_params, []
+
+
+def spy(p, cfg, moe):
+    got, split = real_block_params(p, cfg, moe)
+    seen.append({k: [split[k], [list(t.shape) for t in got[k].values()
+                                if torch.is_tensor(t)]]
+                 for k in split if k in got})
+    return got, split
+
+
+MM.block_params = spy
+for arch in TP_ARCHS:
+    cfg = cfg_of(arch)
+    for sizes in ((2, 2), (4, 1)):
+        model = distribute_params(Model(cfg, seed=0, device="cpu"),
+                                  meshes[sizes])
+        seen.clear()
+        with torch.no_grad():
+            model.loss(distribute_batch(make_inputs(
+                cfg, ShapeSpec("t", 64, 4, "train"), seed=3,
+                device="cpu"), meshes[sizes]))
+        out[f"tp_{arch}_{sizes[1]}"] = {
+            "blocks": seen[:], "d_ff": cfg.d_ff, "heads": cfg.n_heads,
+            "kv_heads": cfg.n_kv_heads, "d_model": cfg.d_model}
+MM.block_params = real_block_params
 
 
 # -- one meshed train step against one device --
@@ -139,7 +176,11 @@ def two_steps(arch, mesh, opt, accum, remat):
         if meshed:
             state = place_train_state(state, meshes[mesh])
         step = make_train_step(model, ocfg, opt, accum_steps=accum)
-        b = distribute_batch(batch, meshes[mesh]) if meshed else batch
+        b = batch
+        if meshed:
+            b = distribute_batch(batch, meshes[mesh]) if accum == 1 else [
+                distribute_batch(m, meshes[mesh])
+                for m in microbatches(batch, accum)]
         metrics = []
         for _ in range(2):
             state, m = step(state, b)
@@ -227,6 +268,17 @@ out["resume"] = {
         for k, v in full_state["opt"][m].items()]),
     "step": resumed_state["step"]}
 
+# -- microbatches: the launcher cuts the host batch and places each --
+kw_acc = dict(kw, steps=2)
+out["accum"] = {"one": train(cfg, accum=1, **kw_acc)[1],
+                "two": train(cfg, accum=2, **kw_acc)[1]}
+try:
+    microbatches(distribute_batch(make_inputs(
+        cfg, ShapeSpec("t", 32, 4, "train"), seed=3, device="cpu"), m22), 2)
+    out["placed_batch_cut"] = "no error"
+except ValueError as e:
+    out["placed_batch_cut"] = str(e)
+
 if rank == 0:
     print("RESULT " + json.dumps(out), flush=True)
 '''
@@ -281,7 +333,7 @@ def run_world(body: str, world: int = 4, timeout: float = 600, **consts
 def world(tmp_path_factory):
     return run_world(WORLD, TMP=str(tmp_path_factory.mktemp("mesh")),
                      LR=LR, PLACED=PLACED, STEP_CASES=STEP_CASES,
-                     OTHER_FAMILIES=OTHER_FAMILIES)
+                     OTHER_FAMILIES=OTHER_FAMILIES, TP_ARCHS=TP_ARCHS)
 
 
 @pytest.mark.parametrize("arch", PLACED)
@@ -289,6 +341,13 @@ def test_every_leaf_has_its_specs_local_shape_and_gathers_back(world, arch):
     got = world["placed_" + arch]
     assert got["bad_shape"] == [] and got["bad_bits"] == []
     assert got["n_split"] > 0
+
+
+@pytest.mark.parametrize("arch", PLACED)
+def test_a_host_leaf_is_cut_into_its_dtensor_shard(world, arch):
+    """``local_shard`` (how ``place`` cuts a host leaf for the card) gives
+    each rank the shard ``distribute_tensor`` keeps."""
+    assert world["placed_" + arch]["bad_cut"] == []
 
 
 @pytest.mark.parametrize("arch", PLACED)
@@ -364,3 +423,37 @@ def test_production_mesh_raises_below_256_ranks():
         train_main(["--arch", "qwen2.5-3b", "--reduced", "--device", "cpu",
                     "--steps", "1", "--production-mesh"])
     assert reduced(get_config("qwen2.5-3b")).n_layers == 2
+
+
+def test_launcher_places_each_microbatch_of_the_host_batch(world):
+    """``train(..., accum=2)`` under a mesh cuts the host batch into
+    microbatches and places each; its losses equal the whole batch's
+    within the step tolerance. A placed batch is not cut again."""
+    got = world["accum"]
+    np.testing.assert_allclose(got["two"], got["one"], rtol=STEP_TOL)
+    assert "cut the host batch" in world["placed_batch_cut"]
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_attention_and_dense_mlp_run_tensor_parallel_over_model(world,
+                                                                arch):
+    """On (2, 2) every block's attention (its heads dividing "model") and
+    dense MLP hold half their heads / hidden units and are marked split;
+    MLA (deepseek) and the MoE experts (olmoe, deepseek's routed layers)
+    are gathered whole; on (4, 1) nothing is split."""
+    got = world[f"tp_{arch}_2"]
+    d, ff, h, hk = got["d_model"], got["d_ff"], got["heads"], got["kv_heads"]
+    mla = arch.startswith("deepseek")
+    for i, block in enumerate(got["blocks"]):
+        split, shapes = block["attn"]
+        assert split is not mla
+        if not mla:
+            assert shapes[:4] == [[d, h // 2, d // h], [d, hk // 2, d // h],
+                                  [d, hk // 2, d // h], [h // 2, d // h, d]]
+        split, shapes = block["mlp"]
+        dense = arch == "qwen2.5-3b" or (mla and i == 0)
+        assert split is dense
+        if dense:
+            assert shapes[0] == [d, ff // 2] and shapes[-1] == [ff // 2, d]
+    assert not any(split for block in world[f"tp_{arch}_1"]["blocks"]
+                   for split, _ in block.values())
