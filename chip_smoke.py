@@ -248,9 +248,28 @@ Phases, each fatal on error (exit code 1, no result line):
     kind (``CommDebugMode``), and B7 / B8 timed at the shard's shape
     beside their bounds. ``python3 chip_smoke.py --phase 25`` runs this
     phase alone.
+26. serving on a ``torch.distributed`` device mesh: hymba-1.5b at its
+    published widths cut to 4 layers (the scan kernels) and qwen2.5-3b
+    cut to 2, ``Model.prefill`` at 2 x 2048 and ``generate``'s 4 prompts
+    of 16 tokens and 16 new ones, placed by the reference's param, cache
+    and batch specs. (a) Under a (1, 1) mesh of an NCCL world of 1, for
+    each of ``DEFAULT_RULES``, ``SERVING_RULES`` and ``LONG_CONTEXT_RULES``
+    (batch 1), float32 hymba against one device: the prefill's and every
+    teacher-forced decode step's logits and ``generate``'s tokens
+    bit-equal, B7 launched once per Mamba layer of each prefill. (b) A
+    (2, 2) world (four gloo ranks on the card; NCCL ranks a card each on
+    several) teacher-forced on one device's tokens: hymba under all three
+    rule sets and qwen2.5-3b under the default and serving ones, float32
+    logits of the prefill (the context-parallel attention, B7 once a
+    shard at [1, 2048, 1600]) and of every decode step within rtol / atol
+    1e-4 and every greedy token equal, bfloat16 reported; decode ms a step,
+    tokens/s, prefill tokens/s, each rank's bytes of parameters and cache,
+    a decode step's collectives by kind, and B7 held against its plain
+    version and timed at the shard's shape beside its bound. ``python3
+    chip_smoke.py --phase 26`` runs this phase alone.
 
 Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20, 21, 22,
-23, 24, 25)
+23, 24, 25, 26)
 is driven with every kernel's launch count set to 0 just before it and read
 just after; a path whose kernels were not launched fails the run. Launches
 made to compare a kernel with its plain version are not counted. The
@@ -428,6 +447,30 @@ MESH_TOL = dict(rtol=1e-6, atol=1e-7)
 MESH_CARDS_RTOL = 5e-4
 MESH_MOMENT_RTOL, MESH_MOMENT_NORM_RTOL = 5e-2, 3e-3
 MESH_WORLD_TIMEOUT = 300
+# meshed serving (phase 26): SERVE_MESH_LAYERS layers of each arch at its
+# published widths (hymba-1.5b on the scan kernels), Model.prefill at
+# PREFILL_BATCH x PREFILL_SEQ and generate's SERVE_BATCH prompts of
+# SERVE_PROMPT tokens and SERVE_MESH_NEW new ones (batch 1 under
+# LONG_CONTEXT_RULES); one device's runs (SERVE_REFERENCES: arch, dtype,
+# batch 1) feed and hold the meshed ones: the (1, 1) mesh bit-equal, the
+# (2, 2) world's SERVE_WORLD_RUNS (arch, rule set, dtype) within
+# SERVE_MESH_TOL in float32, teacher-forced on one device's tokens, every
+# decode step under SERVING_RULES and the first SERVE_FSDP_STEPS under the
+# rule sets whose weights are gathered over "data" every step
+SERVE_MESH_LAYERS = {"hymba-1.5b": 4, "qwen2.5-3b": SERVE_LAYERS}
+SERVE_MESH_NEW = 16
+SERVE_MESH_TOL = dict(rtol=1e-4, atol=1e-4)
+SERVE_FSDP_STEPS = 2
+SERVE_REFERENCES = (("hymba-1.5b", "float32", False),
+                    ("hymba-1.5b", "float32", True),
+                    ("hymba-1.5b", "bfloat16", False),
+                    ("qwen2.5-3b", "float32", False))
+SERVE_WORLD_RUNS = (("hymba-1.5b", "serving", "float32"),
+                    ("hymba-1.5b", "default", "float32"),
+                    ("hymba-1.5b", "long", "float32"),
+                    ("hymba-1.5b", "serving", "bfloat16"),
+                    ("qwen2.5-3b", "serving", "float32"),
+                    ("qwen2.5-3b", "default", "float32"))
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
@@ -3727,9 +3770,12 @@ def _mesh_steps(torch, state, step, batches, mesh, comm_on_last=False):
 
 
 def _local_bytes(tree) -> int:
+    """This rank's bytes of a tree of tensors (a DTensor's local shard)."""
     from torch.distributed.tensor import DTensor
     if isinstance(tree, dict):
         return sum(_local_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_local_bytes(v) for v in tree)
     if isinstance(tree, DTensor):
         tree = tree.to_local()
     return tree.numel() * tree.element_size() if hasattr(tree, "numel") \
@@ -3911,24 +3957,29 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
         dist.destroy_process_group()
 
 
-def mesh_training_path(torch, dev, zero_counts, read_counts) -> dict:
-    """Phase 25 (``_mesh_training``) in a scratch directory under
-    ``build/``; every rank process it starts is stopped and the directory
-    removed however it ends."""
+def _in_scratch_world(phase, torch, dev, zero_counts, read_counts) -> dict:
+    """A meshed phase (``_mesh_training``, ``_mesh_serving``) in a scratch
+    directory under ``build/``; every rank process it starts is stopped and
+    the directory removed however it ends."""
     import shutil
     import tempfile
 
     work = tempfile.mkdtemp(dir=os.path.join(ROOT, "build"))
     procs: list = []
     try:
-        return _mesh_training(torch, dev, zero_counts, read_counts, work,
-                              procs)
+        return phase(torch, dev, zero_counts, read_counts, work, procs)
     finally:
         for p in procs:
             if p.poll() is None:
                 p.kill()
                 p.wait()
         shutil.rmtree(work, ignore_errors=True)
+
+
+def mesh_training_path(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 25 (``_mesh_training``)."""
+    return _in_scratch_world(_mesh_training, torch, dev, zero_counts,
+                             read_counts)
 
 
 def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
@@ -4100,21 +4151,23 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
     return rec
 
 
-def _start_mesh_world(torch, work: str, procs: list):
-    """Start phase 25's meshed world: four gloo ranks on ``cuda:0`` where
-    one card is visible (gloo takes CUDA tensors in every collective the
-    step uses; NCCL takes one rank a card), else NCCL ranks a card each (4
-    at four cards or more, else 2), appended to ``procs``. Returns (world,
+def _start_mesh_world(torch, work: str, procs: list,
+                      entry: str = "--mesh-rank"):
+    """Start a meshed world (phase 25's ranks, or with ``entry``
+    "--serve-rank" phase 26's): four gloo ranks on ``cuda:0`` where one
+    card is visible (gloo takes CUDA tensors in every collective the ranks
+    use; NCCL takes one rank a card), else NCCL ranks a card each (4 at four
+    cards or more, else 2), appended to ``procs``. Returns (world,
     backend)."""
     count = torch.cuda.device_count()
     backend = "nccl" if count >= 2 else "gloo"
     world = 4 if count >= 4 or count == 1 else 2
     if count == 1:
-        log("phase 25: one card: the (2, 2) world is four gloo ranks on "
-            "cuda:0 (NCCL takes one rank a card)")
+        log("one card: the (2, 2) world is four gloo ranks on cuda:0 (NCCL "
+            "takes one rank a card)")
     port = _free_port()
     procs.extend(subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+        [sys.executable, os.path.abspath(__file__), entry, str(r),
          "--mesh-world", str(world), "--mesh-port", str(port),
          "--mesh-dir", work, "--mesh-backend", backend],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -4129,10 +4182,10 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def mesh_phase_only() -> None:
-    """``python3 chip_smoke.py --phase 25``: phase 25 alone (the sources
-    built first), its record, the card line and the result line; on
-    several cards its world is NCCL ranks a card each."""
+def mesh_phase_only(phase: int) -> None:
+    """``python3 chip_smoke.py --phase 25`` (or ``26``): that phase alone
+    (the sources built first), its record, the card line and the result
+    line; on several cards its world is NCCL ranks a card each."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs the GPU")
@@ -4157,26 +4210,468 @@ def mesh_phase_only() -> None:
         return counts
 
     t0 = time.perf_counter()
-    rec = mesh_training_path(torch, torch.device("cuda", 0), zero_counts,
-                             read_counts)
+    path, name = ((mesh_training_path, "mesh_training") if phase == 25 else
+                  (mesh_serving_path, "mesh_serving"))
+    rec = path(torch, torch.device("cuda", 0), zero_counts, read_counts)
     rec["phase_s"] = time.perf_counter() - t0
-    print(json.dumps({"mesh_training": rec}), flush=True)
-    log(f"phase 25: {rec['phase_s']:.1f} s ({rec['card']})")
+    print(json.dumps({name: rec}), flush=True)
+    log(f"phase {phase}: {rec['phase_s']:.1f} s ({rec['card']})")
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
 
 
+def _serve_rule_sets() -> dict:
+    from repro_torch.sharding import (DEFAULT_RULES, LONG_CONTEXT_RULES,
+                                      SERVING_RULES)
+    return {"default": DEFAULT_RULES, "serving": SERVING_RULES,
+            "long": LONG_CONTEXT_RULES}
+
+
+def _serve_cfg(arch: str, dtype: str):
+    """Phase 26's config of ``arch``: published widths cut to
+    ``SERVE_MESH_LAYERS``, in ``dtype``, on the scan kernels."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch).replace(n_layers=SERVE_MESH_LAYERS[arch],
+                                   dtype=dtype)
+    return cfg.replace(ssm_kernel=True) if cfg.uses_ssm else cfg
+
+
+def _serve_host_models() -> dict:
+    """Each phase-26 arch's weights, drawn once on the host from seed 0
+    (float32 parameters; a bfloat16 run computes in bfloat16 from them)."""
+    from repro_torch.models import Model
+    return {arch: Model(_serve_cfg(arch, "float32"), seed=0, device="cpu")
+            for arch in SERVE_MESH_LAYERS}
+
+
+def _serve_model(torch, host, cfg, dev, mesh, rules):
+    """A copy of the host model computing in ``cfg``'s dtype: on ``dev``
+    (mesh None), else placed on ``mesh`` by ``param_specs(rules)``, each
+    rank moving only its shards to its card."""
+    import copy
+    from repro_torch.sharding.rules import distribute_params
+    model = copy.deepcopy(host)
+    model.cfg = cfg
+    if mesh is None:
+        return model.to(dev)
+    return distribute_params(model, mesh, rules)
+
+
+def _serve_inputs(cfg, long_context: bool):
+    """(prefill tokens [PREFILL_BATCH, PREFILL_SEQ], prompts [SERVE_BATCH,
+    SERVE_PROMPT]) as host int64 from one seed; row 0 of each under
+    ``LONG_CONTEXT_RULES`` (batch 1)."""
+    rng = np.random.default_rng(26)
+    pre = rng.integers(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))
+    prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
+    return (pre[:1], prompts[:1]) if long_context else (pre, prompts)
+
+
+def _serve_calls(torch, model, dev, pre, teacher, steps, mesh=None,
+                 rules=None, count_comms=False) -> dict:
+    """``Model.prefill`` on ``pre`` and ``steps`` decode steps fed
+    ``teacher``'s tokens (a cache of ``teacher``'s length), on one device
+    or, with ``mesh``, once a rank with the tokens placed by
+    ``batch_specs(rules)``: the prefill's and every step's logits gathered
+    whole on the host (float32), the prefill's seconds, each step's
+    seconds (synchronised, the gather for the host outside), the
+    collectives of the last step by kind (``count_comms``) and this rank's
+    bytes of parameters and cache."""
+    import contextlib
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.sharding.rules import distribute_batch
+    from repro_torch.sharding.spmd import full_value
+    kw = {} if mesh is None else {"rules": rules}
+
+    def placed(x):
+        t = torch.as_tensor(x, dtype=torch.int64)
+        if mesh is None:
+            return t.to(dev)
+        return distribute_batch({"tokens": t}, mesh, rules)["tokens"]
+
+    tokens = placed(pre)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg = model.prefill(tokens, **kw)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    out = {"prefill": full_value(lg).float().cpu(), "prefill_s": prefill_s}
+    cache = model.init_cache(teacher.shape[0], teacher.shape[1], **kw)
+    logits, secs, comms = [], [], None
+    for t in range(steps):
+        tok = placed(teacher[:, t:t + 1])
+        counting = count_comms and t == steps - 1
+        mode = CommDebugMode() if counting else contextlib.nullcontext()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mode:
+            lg, cache = model.decode_step(cache, tok, t, **kw)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if counting:
+            comms = {str(k).rsplit(".", 1)[-1]: v
+                     for k, v in mode.get_comm_counts().items()}
+        logits.append(full_value(lg)[:, 0].float().cpu())
+    out.update(steps=torch.stack(logits), step_s=secs, comms=comms,
+               param_bytes=_local_bytes(dict(model.named_parameters())),
+               cache_bytes=_local_bytes(cache))
+    return out
+
+
+def _serve_key(arch: str, dtype: str, long_context: bool) -> str:
+    return f"{arch}|{dtype}|{'batch1' if long_context else 'full'}"
+
+
+def _held(torch, got, want) -> tuple[float, bool]:
+    """(largest difference, within ``SERVE_MESH_TOL``) of two logits."""
+    return ((got - want).abs().max().item(),
+            bool(torch.allclose(got, want, **SERVE_MESH_TOL)))
+
+
+def serve_rank_main(rank: int, world: int, port: int, workdir: str,
+                    backend: str) -> None:
+    """One rank of phase 26's meshed world (``python3 chip_smoke.py
+    --serve-rank R --mesh-world W --mesh-port P --mesh-dir D --mesh-backend
+    B``): with NCCL a card each, with gloo every rank on ``cuda:0``; the
+    (2, 2) mesh at four ranks and (1, 2) at two. The weights are drawn on
+    the host while world 1 runs; once world 1's results are in ``workdir``
+    each of ``SERVE_WORLD_RUNS`` places them by its rule set and runs the
+    prefill and the decode steps teacher-forced on world 1's tokens, held
+    against world 1's logits; B7's launches and the context-parallel calls
+    counted, B7 held against its plain version and timed at the shard's
+    shape; rank 0 writes ``result.json`` under ``workdir``."""
+    import faulthandler
+
+    import torch
+    import torch.distributed as dist
+    faulthandler.enable()
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch.models.layers as L
+    import repro_torch.models.ssm as S
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.mesh import make_device_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            **({"device_id": dev} if backend == "nccl"
+                               else {}))
+    try:
+        sizes = (2, 2) if world == 4 else (1, world)
+        mesh = make_device_mesh(sizes)
+        rule_sets = _serve_rule_sets()
+        seen = {"cp": 0, "args": None}
+        real_cp, real_scan = L._context_parallel_flash, S.selective_scan
+
+        def cp(*a, **k):
+            seen["cp"] += 1
+            return real_cp(*a, **k)
+
+        def scan(*a):
+            if seen["args"] is None and a[0].dtype == torch.float32:
+                seen["args"] = [t.detach().clone() if torch.is_tensor(t)
+                                else t for t in a]
+            return real_scan(*a)
+
+        L._context_parallel_flash, S.selective_scan = cp, scan
+        t0 = time.perf_counter()
+        host = _serve_host_models()
+        build_s = time.perf_counter() - t0
+        go = os.path.join(workdir, "go")
+        deadline = time.monotonic() + MESH_WORLD_TIMEOUT
+        while not os.path.exists(go):
+            if time.monotonic() > deadline:
+                raise TimeoutError("world 1's results never came")
+            time.sleep(0.05)
+        ref = torch.load(os.path.join(workdir, "world1.pt"),
+                         map_location="cpu")
+        runs = {}
+        for arch, rules_name, dtype in SERVE_WORLD_RUNS:
+            long_context = rules_name == "long"
+            r = ref[_serve_key(arch, dtype, long_context)]
+            cfg = _serve_cfg(arch, dtype)
+            steps = (r["steps"].shape[0] if rules_name == "serving"
+                     else SERVE_FSDP_STEPS)
+            t0 = time.perf_counter()
+            model = _serve_model(torch, host[arch], cfg, dev, mesh,
+                                 rule_sets[rules_name])
+            place_s = time.perf_counter() - t0
+            ss.selective_scan_fwd_cuda.launches = 0
+            cp_before = seen["cp"]
+            t0 = time.perf_counter()
+            got = _serve_calls(torch, model, dev, r["pre"], r["teacher"],
+                               steps, mesh, rule_sets[rules_name],
+                               count_comms=True)
+            run_s = time.perf_counter() - t0
+            pre_err = _held(torch, got["prefill"], r["prefill"])
+            step_errs = [_held(torch, g, w) for g, w in
+                         zip(got["steps"], r["steps"][:steps])]
+            greedy = bool(torch.equal(got["steps"].argmax(-1),
+                                      r["steps"][:steps].argmax(-1)))
+            dec = got["step_s"][1:] or got["step_s"]
+            runs["|".join((arch, rules_name, dtype))] = {
+                "batch": int(r["pre"].shape[0]), "steps": steps,
+                "prefill": pre_err, "decode_worst": max(
+                    e for e, _ in step_errs),
+                "decode_held": all(ok for _, ok in step_errs),
+                "greedy_equal": greedy,
+                "b7_launches": ss.selective_scan_fwd_cuda.launches,
+                "cp_calls": seen["cp"] - cp_before,
+                "prefill_s": got["prefill_s"],
+                "prefill_tokens_per_s": r["pre"].numel() / got["prefill_s"],
+                "decode_ms": statistics.median(dec) * 1e3,
+                "decode_tokens_per_s": r["teacher"].shape[0] /
+                statistics.median(dec),
+                "comms_decode_step": got["comms"],
+                "param_bytes": got["param_bytes"],
+                "cache_bytes": got["cache_bytes"],
+                "place_s": place_s, "run_s": run_s}
+            del model, got
+            torch.cuda.empty_cache()
+        per_rank = [None] * world
+        dist.all_gather_object(per_rank, {"device": str(dev), "runs": runs})
+        if rank == 0:
+            t0 = time.perf_counter()
+            # B7 at this rank's shard of the f32 prefill's first Mamba layer
+            *ops_, chunk = seen["args"]
+            xc, dt, bm, cm, a, h0 = (t.contiguous() for t in ops_)
+            fwd = lambda: ss.selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0,
+                                                     chunk=chunk)
+            plain = {}
+            plain_ms = time_cuda(torch, lambda: plain.__setitem__(
+                "fwd", ss.selective_scan_fwd_plain(xc, dt, bm, cm, a, h0,
+                                                   chunk=chunk)),
+                reps=1, warmup=0)
+            got = fwd()
+            err = max((g.float() - e.float()).abs().max().item()
+                      for g, e in zip(got, plain["fwd"]))
+            held = all(torch.allclose(g, e, **SCAN_FWD_TOL)
+                       for g, e in zip(got, plain["fwd"]))
+            B, S_, Di = xc.shape
+            fb, _ = scan_bounds(B, S_, Di, a.shape[1], chunk,
+                                max_sm_clock_hz())
+            shard = {"shape": [B, S_, Di, a.shape[1]], "chunk": chunk,
+                     "ms": time_cuda(torch, fwd),
+                     "device_ms": kernel_device_ms(torch, fwd, "ssm_fwd", 1),
+                     "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
+                     "plain_ms": plain_ms, "max_abs_err": err,
+                     "held": held}
+            rec = {"world": world, "mesh": list(sizes), "backend": backend,
+                   "cards": len({r["device"] for r in per_rank}),
+                   "card": card_line(), "build_s": build_s,
+                   "per_rank": per_rank, "b7_shard": shard,
+                   "b7_shard_s": time.perf_counter() - t0}
+            with open(os.path.join(workdir, "result.json"), "w") as f:
+                json.dump(rec, f)
+        dist.all_reduce(torch.zeros(1, device=dev))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_serving_path(torch, dev, zero_counts, read_counts) -> dict:
+    """Phase 26 (``_mesh_serving``)."""
+    return _in_scratch_world(_mesh_serving, torch, dev, zero_counts,
+                             read_counts)
+
+
+def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
+                  procs: list) -> dict:
+    """Phase 26: serving on a ``torch.distributed`` device mesh. (a) An
+    NCCL world of 1 and a (1, 1) ("data", "model") ``DeviceMesh``:
+    hymba-1.5b at published widths cut to ``SERVE_MESH_LAYERS`` (float32,
+    the scan kernels), under each of the reference's three rule sets
+    (``LONG_CONTEXT_RULES`` at batch 1), ``Model.prefill`` at
+    ``PREFILL_BATCH`` x ``PREFILL_SEQ``, the decode steps of ``generate``'s
+    ``SERVE_BATCH`` prompts of ``SERVE_PROMPT`` tokens and
+    ``SERVE_MESH_NEW`` new ones teacher-forced on one device's tokens, and
+    ``generate`` itself, against the same calls on one device: logits and
+    tokens bit-equal, B7 launched once per Mamba layer of each prefill.
+    One device also gives the references of the meshed world: hymba in
+    bfloat16 and qwen2.5-3b (published widths cut to ``SERVE_LAYERS``). (b)
+    A meshed world (``serve_rank_main``; four gloo ranks on ``cuda:0`` in a
+    (2, 2) mesh on one card, NCCL ranks a card each on several), started
+    with the phase to draw its weights while one device runs, and taking
+    its runs once one device's references are written, while (a) runs the
+    (1, 1) mesh: each of
+    ``SERVE_WORLD_RUNS`` held to world 1's logits within ``SERVE_MESH_TOL``
+    in float32 (prefill and every decode step; every greedy token equal),
+    bfloat16 reported; B7 launched once per Mamba layer on each rank's
+    shard and held against its plain version there, the context-parallel
+    attention taken. Returns the phase's record."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.launch.serve import generate
+
+    rec = {"card": card_line()}
+    torch.cuda.set_device(dev)
+    torch.cuda.empty_cache()
+    world, backend = _start_mesh_world(torch, work, procs, "--serve-rank")
+    rule_sets = _serve_rule_sets()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=dev)
+    try:
+        mesh = make_device_mesh((1, 1))
+        t0 = time.perf_counter()
+        host = _serve_host_models()
+        rec["host_draw_s"] = time.perf_counter() - t0
+        refs, world1 = {}, {}
+        # one device: the references (and the tokens every world is fed)
+        for arch, dtype, long_context in SERVE_REFERENCES:
+            cfg = _serve_cfg(arch, dtype)
+            model = _serve_model(torch, host[arch], cfg, dev, None, None)
+            pre, prompts = _serve_inputs(cfg, long_context)
+            zero_counts()
+            t0 = time.perf_counter()
+            new = generate(model, prompts, SERVE_MESH_NEW)
+            generate_s = time.perf_counter() - t0
+            teacher = np.concatenate([prompts, new], axis=1)
+            got = _serve_calls(torch, model, dev, pre, teacher,
+                               teacher.shape[1])
+            key = _serve_key(arch, dtype, long_context)
+            counts = read_counts(f"mesh_serve_one_{key}", (
+                "selective_scan_fwd",) if cfg.uses_ssm else ())
+            refs[key] = {"pre": torch.from_numpy(pre),
+                         "teacher": torch.from_numpy(teacher),
+                         "prefill": got["prefill"], "steps": got["steps"]}
+            world1[key] = {"one_device": {
+                "b7_launches": counts["selective_scan_fwd"],
+                "generate_s": generate_s, "prefill_s": got["prefill_s"],
+                "decode_ms": statistics.median(got["step_s"][1:]) * 1e3,
+                "param_bytes": got["param_bytes"],
+                "cache_bytes": got["cache_bytes"]}}
+            if not torch.equal(got["steps"][SERVE_PROMPT - 1:-1]
+                               .argmax(-1).T, torch.from_numpy(new)):
+                fail(f"phase 26: {key}: the decode steps' argmax differs "
+                     f"from generate's tokens on one device")
+            del model
+            torch.cuda.empty_cache()
+        # (b) takes its runs while (a) runs the (1, 1) mesh
+        torch.save(refs, os.path.join(work, "world1.pt"))
+        open(os.path.join(work, "go"), "w").close()
+        # (a) the (1, 1) mesh under each rule set, against one device
+        arch = "hymba-1.5b"
+        n_mamba = SERVE_MESH_LAYERS[arch]
+        for rules_name, rules in rule_sets.items():
+            long_context = rules_name == "long"
+            key = _serve_key(arch, "float32", long_context)
+            r = refs[key]
+            model = _serve_model(torch, host[arch],
+                                 _serve_cfg(arch, "float32"), dev, mesh,
+                                 rules)
+            zero_counts()
+            got = _serve_calls(torch, model, dev, r["pre"].numpy(),
+                               r["teacher"].numpy(), r["teacher"].shape[1],
+                               mesh, rules, count_comms=True)
+            counts = read_counts(f"mesh_serve_world1_{rules_name}",
+                                 ("selective_scan_fwd",))
+            new = generate(model, r["teacher"][:, :SERVE_PROMPT].numpy(),
+                           SERVE_MESH_NEW, mesh=mesh, rules=rules)
+            same = {"prefill": bool(torch.equal(got["prefill"],
+                                                r["prefill"])),
+                    "steps": bool(torch.equal(got["steps"], r["steps"])),
+                    "tokens": bool(np.array_equal(
+                        new, r["teacher"][:, SERVE_PROMPT:].numpy()))}
+            dec = got["step_s"][1:]
+            world1[key][rules_name] = {
+                "bit_equal": same, "b7_launches":
+                    counts["selective_scan_fwd"],
+                "prefill_s": got["prefill_s"],
+                "prefill_tokens_per_s": r["pre"].numel() / got["prefill_s"],
+                "decode_ms": statistics.median(dec) * 1e3,
+                "decode_tokens_per_s": r["teacher"].shape[0] /
+                statistics.median(dec),
+                "comms_decode_step": got["comms"],
+                "param_bytes": got["param_bytes"],
+                "cache_bytes": got["cache_bytes"]}
+            if not all(same.values()):
+                fail(f"phase 26: the (1, 1) mesh under {rules_name} differs "
+                     f"from one device: {same}")
+            if counts["selective_scan_fwd"] != n_mamba:
+                fail(f"phase 26: the (1, 1) mesh's prefill under "
+                     f"{rules_name} launched B7 {counts['selective_scan_fwd']}"
+                     f" times; {n_mamba} Mamba layers")
+            del model
+            torch.cuda.empty_cache()
+        rec["world1"] = world1
+        log("phase 26: the (1, 1) mesh bit-equal to one device under "
+            "default, serving and long-context rules (prefill, every decode "
+            "step, generate's tokens); B7 " + ", ".join(
+                f"{k} {v['b7_launches']}" for k, v in
+                world1[_serve_key(arch, "float32", False)].items()
+                if k != "one_device") + " a prefill; decode ms a step " +
+            ", ".join(f"{k} {v[n]['decode_ms']:.2f}" for k, v in
+                      world1.items() for n in v))
+        del host
+    finally:
+        dist.destroy_process_group()
+
+    # (b) the meshed world's results
+    outs = [p.communicate(timeout=MESH_WORLD_TIMEOUT)[0] for p in procs]
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        fail(f"phase 26: the {world}-rank {backend} world failed (exit "
+             f"codes {codes}): " + " | ".join(
+                 f"rank {r}: {out[-1500:]}" for r, out in enumerate(outs)))
+    with open(os.path.join(work, "result.json")) as f:
+        cards = json.load(f)
+    for r, per in enumerate(cards["per_rank"]):
+        for name, run in per["runs"].items():
+            arch, rules_name, dtype = name.split("|")
+            n_mamba = (SERVE_MESH_LAYERS[arch]
+                       if _serve_cfg(arch, dtype).uses_ssm else 0)
+            if run["b7_launches"] != n_mamba:
+                fail(f"phase 26: rank {r}, {name}: B7 launched "
+                     f"{run['b7_launches']} times; {n_mamba} Mamba layers")
+            if arch == "hymba-1.5b" and cards["mesh"][1] > 1 and \
+                    run["cp_calls"] == 0:
+                fail(f"phase 26: rank {r}, {name}: the prefill did not take "
+                     f"the context-parallel attention")
+            if dtype == "float32" and not (
+                    run["prefill"][1] and run["decode_held"]
+                    and run["greedy_equal"]):
+                fail(f"phase 26: rank {r}, {name}: prefill {run['prefill']}, "
+                     f"largest decode difference {run['decode_worst']} "
+                     f"(held {run['decode_held']}), greedy tokens equal "
+                     f"{run['greedy_equal']}, past {SERVE_MESH_TOL}")
+    shard = cards["b7_shard"]
+    if not shard["held"]:
+        fail(f"phase 26: B7 on the shard {shard['shape']} differs from its "
+             f"plain version past {SCAN_FWD_TOL}: max abs err "
+             f"{shard['max_abs_err']}")
+    rec["world"] = cards
+    runs0 = cards["per_rank"][0]["runs"]
+    log(f"phase 26: {world} ranks ({backend}, {cards['cards']} cards) "
+        f"{cards['mesh']}: " + "; ".join(
+            f"{name} prefill diff {run['prefill'][0]:.3g}, decode diff "
+            f"{run['decode_worst']:.3g} over {run['steps']} steps, greedy "
+            f"equal {run['greedy_equal']}, decode {run['decode_ms']:.1f} ms "
+            f"a step, prefill {run['prefill_tokens_per_s']:.0f} tokens/s, "
+            f"bytes a rank {run['param_bytes']} / {run['cache_bytes']}, "
+            f"collectives {run['comms_decode_step']}"
+            for name, run in runs0.items()) +
+        f"; B7 on the shard {shard['shape']} {shard['ms']:.4f} ms (device "
+        f"{shard['device_ms']:.4f}, bound {shard['bound_ms']:.4g}, plain "
+        f"{shard['plain_ms']:.1f}), within {shard['max_abs_err']:.3g} of "
+        f"plain; a rank's weights drawn in {cards['build_s']:.1f} s")
+    return rec
+
+
 def main() -> None:
-    if "--mesh-rank" in sys.argv:
-        args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
-        mesh_rank_main(int(args["--mesh-rank"]), int(args["--mesh-world"]),
-                       int(args["--mesh-port"]), args["--mesh-dir"],
-                       args["--mesh-backend"])
-        return
-    if sys.argv[1:] == ["--phase", "25"]:
-        mesh_phase_only()
+    for entry, rank_main in (("--mesh-rank", mesh_rank_main),
+                             ("--serve-rank", serve_rank_main)):
+        if entry in sys.argv:
+            args = dict(zip(sys.argv[1::2], sys.argv[2::2]))
+            rank_main(int(args[entry]), int(args["--mesh-world"]),
+                      int(args["--mesh-port"]), args["--mesh-dir"],
+                      args["--mesh-backend"])
+            return
+    if sys.argv[1:] in (["--phase", "25"], ["--phase", "26"]):
+        mesh_phase_only(int(sys.argv[2]))
         return
     try:
         run_phases()
@@ -4581,6 +5076,14 @@ def run_phases() -> None:
     mesh_rec["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"mesh_training": mesh_rec}), flush=True)
     log(f"phase 25: {mesh_rec['phase_s']:.1f} s ({mesh_rec['card']})")
+
+    # -- 26. serving on a device mesh ----------------------------------------
+    t0 = time.perf_counter()
+    serve_mesh_rec = mesh_serving_path(torch, dev, zero_counts, read_counts)
+    serve_mesh_rec["phase_s"] = time.perf_counter() - t0
+    print(json.dumps({"mesh_serving": serve_mesh_rec}), flush=True)
+    log(f"phase 26: {serve_mesh_rec['phase_s']:.1f} s "
+        f"({serve_mesh_rec['card']})")
 
     totals = {name: sum(c[name] for c in path_launches.values())
               for name in kernels}

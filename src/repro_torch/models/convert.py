@@ -9,12 +9,16 @@ blocks too) and numbering the list of DeepSeek's leading dense blocks
 (``dense_blocks.<i>.*``); top-level leaves (whisper's ``pos_embed``) keep
 their names. ``load_reference_params`` copies it into a model, so a test
 can hand the same parameters to both packages and compare gradients leaf
-by leaf.
+by leaf. The caches of both packages share one stacked layout;
+``cache_arrays`` flattens either (a meshed one gathered whole) to
+{path: array} for comparing them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..sharding.spmd import full_value
 
 
 def _flatten(tree, prefix: str, out: dict) -> None:
@@ -65,4 +69,27 @@ def load_reference_params(model: torch.nn.Module, tree: dict) -> None:
             p.copy_(src.to(p.dtype))
 
 
-__all__ = ["flatten_reference", "load_reference_params"]
+def cache_arrays(cache) -> dict[str, np.ndarray]:
+    """A serving cache of either package (``init_cache``'s tree: ``scan``,
+    ``dense``, whisper's ``cross_k`` / ``cross_v``) as {path: float32
+    numpy array}, paths joined by "/"; DTensor leaves of a meshed cache
+    gathered whole (``sharding.spmd.full_value``)."""
+    out: dict[str, np.ndarray] = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, f"{path}/{k}" if path else k)
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}/{i}")
+        elif isinstance(node, torch.Tensor):
+            out[path] = full_value(node).float().cpu().numpy()
+        else:
+            out[path] = np.asarray(node, dtype=np.float32)
+
+    walk(cache, "")
+    return out
+
+
+__all__ = ["flatten_reference", "load_reference_params", "cache_arrays"]

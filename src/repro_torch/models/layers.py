@@ -10,7 +10,10 @@ Functions take a param dict and activations, as the reference's do; the
 reference's logical-axis ``shard`` annotations are dropped. Under a mesh
 (``sharding.spmd``) they run on each rank's rows with the weights whole,
 or, for the MLP and attention (``split``), with this rank's part of a
-tensor-parallel product over "model".
+tensor-parallel product over "model". The decode step's attention
+(``decode_attention``) meets the three cache layouts of the reference's
+rule sets there, the embedding and the unembedding take a vocabulary split
+over "model" (``embed_part``, ``unembed``).
 A product the reference asks in float32 of lower-precision operands
 (``preferred_element_type=float32``) is an f32 product of the operands
 rounded to their dtype here: products of bf16 values are exact in f32, so
@@ -24,8 +27,9 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from ..sharding.spmd import (gather_over_model, model_axis,
-                              sum_grads_over_model, sum_over_model)
+from ..sharding.spmd import (combine_softmax_over_model, gather_over_model,
+                              model_axis, model_slice, sum_grads_over_model,
+                              sum_over_model)
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -108,6 +112,23 @@ def init_embedding(gen: torch.Generator, vocab: int, d: int,
                                   dtype=torch.float32) * 0.02).to(device)}
 
 
+def embed_part(table: torch.Tensor, dim, tokens: torch.Tensor,
+               dtype) -> torch.Tensor:
+    """``embed`` of a table that holds this model rank's contiguous run of
+    the vocabulary (``dim`` 0; ``sharding.spmd.model_part``): a token
+    outside the run gives zeros, and the ranks' rows are summed over
+    "model", which is exact (one term is not zero). ``dim`` None: the whole
+    table, as ``embed``."""
+    if dim is None:
+        return embed({"table": table}, tokens, dtype)
+    n = table.shape[0]
+    local = tokens - model_axis()[1] * n
+    inside = (local >= 0) & (local < n)
+    rows = table[torch.clamp(local, 0, n - 1)]
+    return sum_over_model(torch.where(inside[..., None], rows, 0.0)
+                          .to(dtype))
+
+
 def embed(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
     """The rows of ``tokens``, gathered in the table's float32 and then
     cast (the reference casts the table first: the same values, but its
@@ -128,7 +149,8 @@ def unembed(p: Params, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
     the reference's (a bf16 product with ``preferred_element_type=float32``:
     products of bf16 values are exact in f32), but the product here is an
     f32 GEMM standing in for that bf16 tensor-core product, so it costs an
-    f32 GEMM's time."""
+    f32 GEMM's time. A ``w`` that holds a rank's run of the vocabulary
+    gives that run's logits."""
     w = p["w"].to(x.dtype)
     logits = torch.matmul(x.to(torch.float32), w.to(torch.float32))
     if softcap > 0:
@@ -238,24 +260,33 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 
 
 def attention_scores(q, k, v, q_positions, kv_positions, *, causal: bool,
-                     window: int = 0, kv_mask=None) -> torch.Tensor:
+                     window: int = 0, kv_mask=None,
+                     head_dim: int = 0) -> torch.Tensor:
     """Plain attention. q: [B,Sq,H,D]; k,v: [B,Skv,Hkv,D].
 
     GQA is computed with *grouped* products — queries reshaped to
     [B,Sq,Hkv,G,D] against unexpanded K/V, so the KV repeat is never
     materialised. Scores in f32; the probabilities are cast to q's dtype
-    before the PV product, as the reference casts them."""
+    before the PV product, as the reference casts them. ``head_dim``: q, k
+    and v hold this model rank's run of the ``head_dim`` columns of each
+    head (a cache split over "model" on its head dim, the reference's
+    fallback); the partial scores are summed over "model" before the
+    scale, the mask and the softmax, and the output holds the run's
+    columns."""
     b, sq, h, dh = q.shape
     hk = k.shape[2]
     g = h // hk
     dv = v.shape[-1]
     qg = q.reshape(b, sq, hk, g, dh)
     scores = torch.einsum("bqhgd,bkhd->bhgqk", _f32(qg), _f32(k))
-    scores = scores / math.sqrt(dh)
-    rel = q_positions[:, None, None, :, None] - \
-        kv_positions[:, None, None, None, :]
+    if head_dim:
+        scores = sum_over_model(scores)
+    scores = scores / math.sqrt(head_dim or dh)
     mask = torch.ones((b, 1, 1, sq, k.shape[1]), dtype=torch.bool,
                       device=q.device)
+    if causal or window:
+        rel = q_positions[:, None, None, :, None] - \
+            kv_positions[:, None, None, None, :]
     if causal:
         mask = mask & (rel >= 0)
     if window:
@@ -266,6 +297,111 @@ def attention_scores(q, k, v, q_positions, kv_positions, *, causal: bool,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(b, sq, h, dv)
+
+
+def attention_over_split_keys(q, k, v, kv_mask) -> torch.Tensor:
+    """One query position's attention (no causal or window mask: decode)
+    over keys split over "model" (a cache's slots, "seq_kv"): each rank's
+    softmax statistics over its keys k, v [B, Skv/tp, Hkv, D] with their
+    validity ``kv_mask`` [B, Skv/tp], combined over "model"
+    (``sharding.spmd.combine_softmax_over_model``). Scores in f32, the
+    probabilities cast to q's dtype before the PV product; the output
+    [B, Sq, H, Dv] in q's dtype."""
+    b, sq, h, dh = q.shape
+    hk = k.shape[2]
+    g = h // hk
+    dv = v.shape[-1]
+    qg = q.reshape(b, sq, hk, g, dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", _f32(qg), _f32(k)) / math.sqrt(dh)
+    s = torch.where(kv_mask[:, None, None, None, :], s, MASKED)
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", _f32(p.to(q.dtype)), _f32(v))
+    out = combine_softmax_over_model(m, p.sum(dim=-1), acc)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
+
+
+def owned_slot(slot: int, n_local: int):
+    """The index in this model rank's run of ``n_local`` cache slots of
+    the global ``slot``, or None where another rank owns it."""
+    rank = model_axis()[1]
+    return slot - rank * n_local if slot // n_local == rank else None
+
+
+def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                     positions: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, slot: int, kv_mask, *,
+                     dims: dict | None = None,
+                     cache_dim: int | None = None) -> torch.Tensor:
+    """One token's self-attention sublayer against a layer's KV cache
+    [B, S, Hkv, D], which it updates in place: the new key and value go
+    into ``slot`` and the query attends to every slot ``kv_mask`` marks.
+
+    Under a mesh ``p`` holds each leaf's "model" part
+    (``sharding.spmd.model_parts``) and ``dims`` the tensor dim each is
+    split on there (None: whole); no leaf is gathered over "model". A
+    projection split over heads gives this rank's heads, gathered whole
+    unless the cache holds this rank's heads. ``cache_dim`` is the cache's
+    dim split over "model" (layer-local), one of the reference's three
+    layouts:
+
+    * 2, the KV heads (``DEFAULT_RULES`` / ``LONG_CONTEXT_RULES`` where they
+      divide "model"): head-parallel, each rank its own query groups;
+    * 3, the head dim (the same rules where the KV heads do not divide the
+      axis): each rank writes and scores its run of each head's columns,
+      the partial scores summed over "model" before the mask and the
+      softmax, the PV product its own columns, gathered;
+    * 1, the slots (``SERVING_RULES``' "seq_kv"): the rank that owns
+      ``slot`` writes it, each scores its own slots for every head, and the
+      softmax statistics are combined over "model";
+    * None: the whole cache on every rank.
+
+    The output projection is row-parallel (this rank's heads, summed over
+    "model") where ``wo`` is split over heads."""
+    dims = dims or {}
+    dt = x.dtype
+
+    def heads(w: str, b: str, rope: bool):
+        y = project_heads(x, p[w])
+        if cfg.qkv_bias:
+            bias = p[b]
+            if dims.get(w) is not None and dims.get(b) is None:
+                bias = model_slice(bias, 0)
+            y = y + bias.to(dt)
+        if rope:
+            y = apply_rope(y, positions, cfg.rope_theta, cfg.rotary_pct)
+        if cache_dim == 2:
+            return y if dims.get(w) is not None else model_slice(y, 2)
+        return gather_over_model(y, 2) if dims.get(w) is not None else y
+
+    q = heads("wq", "bq", True)
+    k = heads("wk", "bk", True)
+    v = heads("wv", "bv", False)
+    if cache_dim == 1:
+        local = owned_slot(slot, k_cache.shape[1])
+        if local is not None:
+            k_cache[:, local] = k[:, 0]
+            v_cache[:, local] = v[:, 0]
+        o = attention_over_split_keys(q, k_cache, v_cache,
+                                      model_slice(kv_mask, 1))
+    elif cache_dim == 3:
+        k_cache[:, slot] = model_slice(k[:, 0], -1)
+        v_cache[:, slot] = model_slice(v[:, 0], -1)
+        o = gather_over_model(attention_scores(
+            model_slice(q, -1), k_cache, v_cache, None, None, causal=False,
+            kv_mask=kv_mask, head_dim=q.shape[-1]), -1)
+    else:
+        k_cache[:, slot] = k[:, 0]
+        v_cache[:, slot] = v[:, 0]
+        o = attention_scores(q, k_cache, v_cache, None, None, causal=False,
+                             kv_mask=kv_mask)
+    if dims.get("wo") is not None:
+        if cache_dim != 2:
+            o = model_slice(o, 2)
+        return sum_over_model(merge_heads(o, p["wo"]))
+    if cache_dim == 2:
+        o = gather_over_model(o, 2)
+    return merge_heads(o, p["wo"])
 
 
 def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool,
@@ -443,4 +579,5 @@ __all__ = ["Params", "_dense_init", "init_rmsnorm", "rmsnorm",
            "init_unembed", "unembed", "init_mlp", "activate", "mlp",
            "MLP_SPLIT", "ATTN_SPLIT",
            "init_attention", "project_heads", "merge_heads", "qkv_project",
-           "attention_scores", "flash_attention", "attention"]
+           "attention_scores", "attention_over_split_keys", "owned_slot",
+           "decode_attention", "embed_part", "flash_attention", "attention"]

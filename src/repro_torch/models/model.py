@@ -34,7 +34,13 @@ but for the attention and the dense MLP, which keep this rank's heads or
 hidden units of the "model" axis where their layouts allow and run as
 tensor-parallel products (``block_params``), and returns DTensors: the hidden states split by rows, and the loss as the
 sum of the ranks' parts (each rank's cross-entropy over the whole batch's
-label count, its share of the aux loss).
+label count, its share of the aux loss). ``prefill`` and ``decode_step``
+serve on a mesh the same way under any of the reference's three rule sets
+(``rules=``): the cache comes placed by ``cache_specs`` (``init_cache``),
+the tokens by ``batch_specs``, and a decode step computes with each
+parameter's "model" part (``_decode_params``), each rank writing only its
+part of the new token's cache entries; the logits come back split by rows
+and whole over the vocabulary.
 """
 from __future__ import annotations
 
@@ -51,6 +57,8 @@ from . import mla as MLA
 from . import moe as MOE
 from . import ssm as SSM
 from ..sharding import spmd as SP
+from ..sharding.annotate import DEFAULT_RULES
+from ..sharding.rules import distribute_cache
 from ..utils.device import resolve_device
 from .config import ModelConfig
 
@@ -484,16 +492,29 @@ class Model(nn.Module):
         return ce_sum / torch.clamp_min(n_valid, 1), n_valid
 
     # ---------------- serving ----------------
-    def init_cache(self, batch: int, max_len: int) -> Params:
+    def init_cache(self, batch: int, max_len: int, *,
+                   rules=DEFAULT_RULES) -> Params:
         """Per-layer caches sized for the serving context, stacked as the
         reference stacks them: attention keys and values (MLA: the latent
         and the rope key) of ``min(window, max_len)`` slots when the
         attention is windowed (a ring buffer), else ``max_len``; the SSM
         layers' conv window and f32 state; the encoder-decoder's
         cross-attention keys and values over ``n_audio_frames``, zeros
-        until the caller fills them (``cross_kv``)."""
+        until the caller fills them (``cross_kv``).
+
+        On a meshed model (parameters placed by ``distribute_params``) the
+        leaves are DTensors on its mesh, placed by ``cache_specs(rules)``
+        (``sharding.rules.distribute_cache``), each rank's shard made as
+        zeros of its local shape."""
+        mesh = self._mesh()
+        if mesh is None:
+            return self._cache_tree(batch, max_len, self.device)
+        return distribute_cache(self._cache_tree(batch, max_len, "meta"),
+                                mesh, rules)
+
+    def _cache_tree(self, batch: int, max_len: int, dev) -> Params:
         cfg = self.cfg
-        dt, dev = cfg.compute_dtype, self.device
+        dt = cfg.compute_dtype
         n_dense = len(self.dense_blocks)
         n_scan = len(self.blocks)
         kv_len = min(cfg.window, max_len) if cfg.window else max_len
@@ -546,10 +567,16 @@ class Model(nn.Module):
         return abs_pos.expand(b, kv_len), valid.expand(b, kv_len)
 
     def _decode_mixer(self, p: Params, x: torch.Tensor, pos: int,
-                      layer_cache: Params, *, kv_len: int) -> torch.Tensor:
+                      layer_cache: Params, *, kv_len: int,
+                      dims: dict | None = None,
+                      cache_dims: dict | None = None) -> torch.Tensor:
         """One-token mixer step against one layer's cache, which it updates
-        in place. x: [B, 1, D]."""
+        in place. x: [B, 1, D]. Under a mesh ``dims`` holds the "model"
+        dims of the sublayers' parameter parts ({"attn": {...}, "ssm":
+        {...}}), ``cache_dims`` each cache leaf's layer-local dim split over
+        "model", and ``kv_len`` is the whole cache's slot count."""
         cfg = self.cfg
+        dims, cache_dims = dims or {}, cache_dims or {}
         b = x.shape[0]
         positions = torch.full((b, 1), pos, dtype=torch.int64,
                                device=x.device)
@@ -561,51 +588,87 @@ class Model(nn.Module):
                                  f"{kv_len} slots")
             kv_pos, kv_mask = self._cache_positions(b, kv_len, pos, x.device)
             if cfg.attention == "mla":
-                q_nope, q_rope = MLA.mla_queries(p["attn"], cfg, x, positions)
-                c_kv, k_rope = MLA.mla_compress(p["attn"], cfg, x, positions)
-                layer_cache["c_kv"][:, slot] = c_kv[:, 0]
-                layer_cache["k_rope"][:, slot] = k_rope[:, 0]
-                y = MLA.mla_attend(p["attn"], cfg, q_nope, q_rope,
+                y = MLA.mla_decode(p["attn"], cfg, x, positions,
                                    layer_cache["c_kv"],
-                                   layer_cache["k_rope"], positions, kv_pos,
-                                   causal=False, kv_mask=kv_mask)
+                                   layer_cache["k_rope"], slot, kv_pos,
+                                   kv_mask, cache_dim=cache_dims.get("c_kv"))
             else:
-                q, k, v = L.qkv_project(p["attn"], cfg, x, positions)
-                layer_cache["k"][:, slot] = k[:, 0]
-                layer_cache["v"][:, slot] = v[:, 0]
-                o = L.attention_scores(q, layer_cache["k"], layer_cache["v"],
-                                       positions, kv_pos, causal=False,
-                                       window=0, kv_mask=kv_mask)
-                y = L.merge_heads(o, p["attn"]["wo"])
+                y = L.decode_attention(p["attn"], cfg, x, positions,
+                                       layer_cache["k"], layer_cache["v"],
+                                       slot, kv_mask, dims=dims.get("attn"),
+                                       cache_dim=cache_dims.get("k"))
         if cfg.uses_ssm:
             sc = {"conv": layer_cache["conv"], "state": layer_cache["state"]}
-            ys, sc_new = SSM.mamba_decode_step(p["ssm"], cfg, x, sc)
+            ys, sc_new = SSM.mamba_decode_step(p["ssm"], cfg, x, sc,
+                                               dims=dims.get("ssm"))
             layer_cache["conv"].copy_(sc_new["conv"])
             layer_cache["state"].copy_(sc_new["state"])
             y = ys if y is None else y + ys
         return y
 
-    @torch.no_grad()
-    def decode_step(self, cache: Params, tokens: torch.Tensor, pos: int,
-                    params: Params | None = None):
-        """One-token serve step at position ``pos`` (a host int). tokens:
-        [B, 1] -> (logits [B, 1, V] f32, cache). The cache is updated in
-        place and returned, where the reference returns a new one. The
-        encoder-decoder adds ``pos_embed``'s row ``pos`` and attends to the
-        cache's cross keys and values."""
+    def _decode_params(self, p: Params, moe_layer: bool):
+        """A block's parameters for one decode step: as they are on one
+        device; under a mesh the attention's (not MLA's) and the Mamba
+        mixer's "model" parts (``SP.model_parts``), the dense MLP's (and a
+        MoE layer's shared expert's) tensor-parallel split
+        (``SP.split_over_model``), every other leaf whole (the norms, MLA's
+        weights and the routed experts). Returns (params, "model" dims of
+        the parts, whether the (shared) MLP is split)."""
+        cfg = self.cfg
+        out, dims, mlp_split = {}, {}, False
+        for k, v in p.items():
+            if k == "ssm" or (k == "attn" and cfg.attention != "mla"):
+                out[k], dims[k] = SP.model_parts(v)
+            elif k == "mlp" and not moe_layer:
+                out[k], mlp_split = SP.split_over_model(v, L.MLP_SPLIT)
+            elif k == "mlp" and "shared" in v:
+                out[k] = SP.whole_params({n: w for n, w in v.items()
+                                          if n != "shared"})
+                out[k]["shared"], mlp_split = SP.split_over_model(
+                    v["shared"], L.MLP_SPLIT)
+            else:
+                out[k] = SP.whole_params(v)
+        return out, dims, mlp_split
+
+    @staticmethod
+    def _stack_cache(stack: Params, rows: int):
+        """A stacked cache ({name: [L, B, ...]}) as local tensors (each
+        rank's shard of a DTensor, written in place), each leaf's
+        layer-local dim split over "model" (None: whole there) and the
+        whole cache's slot count."""
+        local, dims, kv_len = {}, {}, 0
+        for k, v in stack.items():
+            d = SP.model_dim(v)
+            dims[k] = None if d is None else d - 1
+            local[k] = v.to_local() if isinstance(v, DTensor) else v
+            if local[k].shape[1] != rows:
+                raise ValueError(f"cache leaf {k} holds {local[k].shape[1]} "
+                                 f"rows where the tokens hold {rows}: place "
+                                 f"both by the same rules")
+            if k in ("k", "c_kv"):
+                kv_len = v.shape[2]
+        return local, dims, kv_len
+
+    def _decode(self, cache: Params, tokens: torch.Tensor, pos: int,
+                params: Params | None = None):
+        """The decode step on this rank's rows: (logits [B, 1, V] f32, or
+        under a mesh this rank's run of the vocabulary where the
+        unembedding is split over "model"; whether it is)."""
         cfg = self.cfg
         params = self.params() if params is None else params
         dt = cfg.compute_dtype
         norm = _norm(cfg)
-        x = L.embed(params["embed"], tokens, dt)
+        whole = SP.whole_params
+        x = L.embed_part(*SP.model_part(params["embed"]["table"]), tokens,
+                         dt)
         if cfg.family == "encdec":
-            x = x + params["pos_embed"][pos][None, None].to(dt)
+            x = x + whole(params["pos_embed"])[pos][None, None].to(dt)
 
-        def one_layer(p, x, lc, moe_layer, cross=None):
-            kv_len = (lc["k"].shape[1] if "k" in lc else
-                      lc["c_kv"].shape[1] if "c_kv" in lc else 0)
+        def one_layer(p, x, lc, kv_len, cache_dims, moe_layer, cross=None):
+            p, dims, mlp_split = self._decode_params(p, moe_layer)
             x = x + self._decode_mixer(p, norm(p["ln1"], x), pos, lc,
-                                       kv_len=kv_len)
+                                       kv_len=kv_len, dims=dims,
+                                       cache_dims=cache_dims)
             if cross is not None:
                 positions = torch.full((x.shape[0], 1), pos,
                                        dtype=torch.int64, device=x.device)
@@ -615,31 +678,106 @@ class Model(nn.Module):
             if cfg.family != "ssm":
                 h2 = norm(p["ln2"], x)
                 if moe_layer:
-                    y2, _ = MOE.moe_ffn(p["mlp"], cfg, h2)
+                    y2, _ = MOE.moe_ffn(p["mlp"], cfg, h2, mlp_split)
                 else:
-                    y2 = L.mlp(p["mlp"], cfg, h2)
+                    y2 = L.mlp(p["mlp"], cfg, h2, split=mlp_split)
                 x = x + y2
             return x
 
+        rows = tokens.shape[0]
         for i, p in enumerate(params.get("dense_blocks", [])):
-            lc = {k: v[0] for k, v in cache["dense"][i].items()}
-            x = one_layer(p, x, lc, False)
+            lc, cache_dims, kv_len = self._stack_cache(cache["dense"][i], rows)
+            x = one_layer(p, x, {k: v[0] for k, v in lc.items()}, kv_len,
+                          cache_dims, False)
+        lc, cache_dims, kv_len = self._stack_cache(cache["scan"], rows)
         for i, p in enumerate(params["blocks"]):
-            lc = {k: v[i] for k, v in cache["scan"].items()}
             cross = ((cache["cross_k"][i], cache["cross_v"][i])
                      if cfg.family == "encdec" else None)
-            x = one_layer(p, x, lc, cfg.is_moe, cross)
-        x = norm(params["ln_f"], x)
-        return L.unembed(params["unembed"], x, cfg.logit_softcap), cache
+            x = one_layer(p, x, {k: v[i] for k, v in lc.items()}, kv_len,
+                          cache_dims, cfg.is_moe, cross)
+        x = norm(whole(params["ln_f"]), x)
+        w, vdim = SP.model_part(params["unembed"]["w"])
+        return L.unembed({"w": w}, x, cfg.logit_softcap), vdim is not None
+
+    def _serving(self, mesh, rows: int, rules):
+        """The ``spmd`` context of a meshed serving call on a batch of
+        ``rows`` rows placed by ``rules``."""
+        if self.cfg.family == "encdec":
+            raise NotImplementedError(
+                "meshed serving covers the decoder-only families, as the "
+                "reference's serving launcher does; whisper's meshed decode "
+                "is not ported")
+        return SP.spmd(mesh, rows, rules)
+
+    @staticmethod
+    def _placed(tokens):
+        if not isinstance(tokens, DTensor):
+            raise TypeError("under a mesh the tokens are a DTensor placed "
+                            "by batch_specs (sharding.rules.distribute_batch)")
+        return tokens
+
+    @torch.no_grad()
+    def decode_step(self, cache: Params, tokens: torch.Tensor, pos: int,
+                    params: Params | None = None, *, rules=DEFAULT_RULES):
+        """One-token serve step at position ``pos`` (a host int). tokens:
+        [B, 1] -> (logits [B, 1, V] f32, cache). The cache is updated in
+        place and returned, where the reference returns a new one. The
+        encoder-decoder adds ``pos_embed``'s row ``pos`` and attends to the
+        cache's cross keys and values.
+
+        On a meshed model the step runs once a rank (``sharding.spmd``) on
+        tokens placed by ``batch_specs(rules)`` (a DTensor) and a cache
+        placed by ``cache_specs(rules)`` (``init_cache(..., rules=rules)``):
+        each rank takes its rows (all of them under ``LONG_CONTEXT_RULES``,
+        whose batch is whole on every rank), each block takes its
+        parameters' "model" parts or gathers the leaves its layout needs
+        whole (``_decode_params``), and each rank writes its own part of
+        the new token's cache entries. The logits come back as a DTensor
+        [B, 1, V] split by rows as the tokens are and whole over the
+        vocabulary (the ranks' runs of a vocabulary split over "model"
+        gathered); ``launch.serve.generate`` takes the greedy token from the
+        runs instead (``SP.argmax_over_model``)."""
+        mesh = self._mesh()
+        if mesh is None:
+            return self._decode(cache, tokens, pos, params)[0], cache
+        with self._serving(mesh, self._placed(tokens).shape[0], rules):
+            logits, split = self._decode(cache, SP.local_batch(tokens), pos,
+                                         params)
+            if split:
+                logits = SP.gather_over_model(logits, -1)
+            return SP.as_batch_rows(logits), cache
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, params: Params | None = None, *,
-                extra: dict | None = None) -> torch.Tensor:
+                extra: dict | None = None, rules=DEFAULT_RULES
+                ) -> torch.Tensor:
         """Full-sequence forward returning the last position's logits
-        [B, 1, V] (as the reference's, it does not fill a cache)."""
+        [B, 1, V] (as the reference's, it does not fill a cache).
+
+        On a meshed model the forward runs once a rank (``sharding.spmd``)
+        on tokens (and ``extra``) placed by ``batch_specs(rules)``: each
+        rank takes its rows (under ``LONG_CONTEXT_RULES`` the whole batch,
+        its sequence gathered where the rules split it), and the logits come
+        back as ``decode_step``'s do, a DTensor split by rows and whole over
+        the vocabulary."""
+        mesh = self._mesh()
         params = self.params() if params is None else params
-        x, _ = self.forward(tokens, params, extra=extra)
-        return L.unembed(params["unembed"], x[:, -1:], self.cfg.logit_softcap)
+        if mesh is None:
+            x, _ = self.forward(tokens, params, extra=extra)
+            # contiguous: a strided operand's product takes another path
+            # when the weight needs no gradient (the meshed one below)
+            return L.unembed(params["unembed"], x[:, -1:].contiguous(),
+                             self.cfg.logit_softcap)
+        with self._serving(mesh, self._placed(tokens).shape[0], rules):
+            x, _ = self._forward(
+                SP.local_batch(tokens), params,
+                extra={k: SP.local_batch(v) for k, v in (extra or {}).items()})
+            w, vdim = SP.model_part(params["unembed"]["w"])
+            logits = L.unembed({"w": w}, x[:, -1:].contiguous(),
+                               self.cfg.logit_softcap)
+            if vdim is not None:
+                logits = SP.gather_over_model(logits, -1)
+            return SP.as_batch_rows(logits)
 
 
 def _map_tree(fn, tree):

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import torch
 
+from ..sharding.spmd import batch_shards, gather_rows, take_rows
 from .config import ModelConfig
 from .layers import Params, _dense_init, activate, init_mlp, mlp
 
@@ -57,13 +58,29 @@ def _top_k(probs: torch.Tensor, k: int):
     return torch.gather(probs, -1, order), order
 
 
-def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
+            shared_split: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y, aux_loss).
 
     Tokens are reshaped into groups of ``min(moe_group_size, B*S)``; within
     each group the top-k experts per token are selected and tokens are
-    placed into expert capacity slots via one-hot position products."""
+    placed into expert capacity slots via one-hot position products.
+
+    Under a mesh (``sharding.spmd``) a rank holds its rows of the batch. Its
+    tokens form the groups one device forms of them where they are a
+    multiple of one device's group size; otherwise (a decode step's
+    ``[B/dp, 1, D]``, fewer tokens than a group) the rows are gathered over
+    the data axes, the whole batch is routed as on one device, so the same
+    tokens are dropped, and each rank keeps its rows. The expert weights
+    are whole on every rank; ``shared_split``: the shared expert holds this
+    rank's hidden units of a tensor-parallel MLP over "model"
+    (``layers.mlp``)."""
+    gathered = False
+    shards = batch_shards()
+    if shards > 1:
+        tokens = x.shape[0] * x.shape[1]
+        if tokens % min(cfg.moe_group_size, tokens * shards):
+            x, gathered = gather_rows(x), True
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = x.dtype
@@ -112,8 +129,9 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor
     y = torch.einsum("gtec,gecd->gtd", combine, ye)            # [G,T,D]
 
     if cfg.n_shared_experts:
-        y = y + mlp(p["shared"], cfg, xt)
-    return y.reshape(b, s, d), aux.to(torch.float32)
+        y = y + mlp(p["shared"], cfg, xt, split=shared_split)
+    y = y.reshape(b, s, d)
+    return (take_rows(y) if gathered else y), aux.to(torch.float32)
 
 
 __all__ = ["init_moe", "moe_ffn", "_capacity", "_one_hot", "_top_k"]

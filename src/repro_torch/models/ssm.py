@@ -18,7 +18,7 @@ reference's ``shard_map`` runs its kernel: each rank scans its own batch
 rows and channels, with no collective inside. Decode is the O(1)
 recurrence step on a carried (conv window, f32 state) cache:
 ``init_mamba_cache`` and ``mamba_decode_step``, plain PyTorch as in the
-reference (no kernel).
+reference (no kernel), on this rank's channels under a mesh.
 """
 from __future__ import annotations
 
@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import selective_scan
-from ..sharding.spmd import gather_over_model, model_axis, sum_grads_over_model
+from ..sharding.spmd import (gather_over_model, model_axis, model_slice,
+                              sum_grads_over_model, sum_over_model)
 from .config import ModelConfig
 from .layers import Params, _dense_init
 
@@ -63,7 +64,9 @@ def _ssm_params_from_x(p: Params, cfg: ModelConfig, xc: torch.Tensor):
     dt_bc = torch.matmul(xc, p["x_proj"].to(xc.dtype))
     r, n = cfg.ssm_dt_rank, cfg.ssm_state
     dt, b_mat, c_mat = torch.split(dt_bc, [r, n, n], dim=-1)
-    dt = torch.matmul(dt, p["dt_proj"].to(xc.dtype))
+    # contiguous: a strided operand's product takes another path when the
+    # weight needs no gradient (a meshed step's gathered weight)
+    dt = torch.matmul(dt.contiguous(), p["dt_proj"].to(xc.dtype))
     dt = softplus(dt.to(torch.float32) + p["dt_bias"])
     return dt, b_mat.to(torch.float32), c_mat.to(torch.float32)
 
@@ -215,29 +218,64 @@ def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
 
 
 def mamba_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                      cache: Params) -> tuple[torch.Tensor, Params]:
+                      cache: Params, dims: dict | None = None
+                      ) -> tuple[torch.Tensor, Params]:
     """One-token decode. x: [B, 1, D]; cache: the last kc-1 conv inputs
     [B, kc-1, Di] and the ssm state [B, Di, N] (f32). Returns (y [B, 1, D],
-    the new cache)."""
+    the new cache).
+
+    Under a mesh ``p`` holds each leaf's "model" part
+    (``sharding.spmd.model_parts``) and ``dims`` the tensor dim each is
+    split on there, and the cache may hold this rank's channels
+    ("ssm_inner" over "model"): then the step runs on them. ``in_proj``
+    holds x and z side by side, so its "model" part is not one rank's
+    channels of both: its product ([B, 1, 2 Di], small at decode) is
+    gathered instead of the weight, and each rank keeps its channels of x
+    and z. ``x_proj`` and ``out_proj`` are row-parallel (their partial
+    products summed over "model"), ``dt_proj`` column-parallel; the conv,
+    ``a_log`` and ``d_skip`` stay local. No leaf is gathered over
+    "model"."""
     di = cfg.d_inner
+    dims = dims or {}
+    split = cache["state"].shape[1] != di       # this rank's channels
+
+    def chan(name: str, dim: int) -> torch.Tensor:
+        """This rank's channels of a leaf along ``dim``."""
+        if split and dims.get(name) is None:
+            return model_slice(p[name], dim)
+        return p[name]
+
+    def rows(y: torch.Tensor) -> torch.Tensor:
+        """A row-parallel product's output, summed over the channels."""
+        return sum_over_model(y) if split else y
+
     dt_ = x.dtype
     xz = torch.matmul(x, p["in_proj"].to(dt_))
+    if dims.get("in_proj") is not None:
+        xz = gather_over_model(xz, -1)
     xin, z = torch.split(xz, di, dim=-1)                        # [B,1,Di]
+    if split:
+        xin, z = model_slice(xin, -1), model_slice(z, -1)
 
     conv_win = torch.cat([cache["conv"], xin], dim=1)           # [B,kc,Di]
-    xc = (conv_win * p["conv_w"].to(dt_)).sum(dim=1)
-    xc = F.silu(xc + p["conv_b"].to(dt_))[:, None, :]           # [B,1,Di]
+    xc = (conv_win * chan("conv_w", 1).to(dt_)).sum(dim=1)
+    xc = F.silu(xc + chan("conv_b", 0).to(dt_))[:, None, :]     # [B,1,Di]
 
-    dt, b_mat, c_mat = _ssm_params_from_x(p, cfg, xc)
-    a = -torch.exp(p["a_log"])
+    dt_bc = rows(torch.matmul(xc, chan("x_proj", 0).to(xc.dtype)))
+    r, n = cfg.ssm_dt_rank, cfg.ssm_state
+    dt, b_mat, c_mat = torch.split(dt_bc, [r, n, n], dim=-1)
+    dt = torch.matmul(dt.contiguous(), chan("dt_proj", 1).to(xc.dtype))
+    dt = softplus(dt.to(torch.float32) + chan("dt_bias", 0))
+    b_mat, c_mat = b_mat.to(torch.float32), c_mat.to(torch.float32)
+    a = -torch.exp(chan("a_log", 0))
     xc32 = xc.to(torch.float32)[:, 0]
     a_bar = torch.exp(dt[:, 0, :, None] * a)                    # [B,Di,N]
     bx = dt[:, 0, :, None] * b_mat[:, 0, None, :] * xc32[..., None]
     h = a_bar * cache["state"] + bx                             # [B,Di,N]
     y = torch.einsum("bin,bn->bi", h, c_mat[:, 0])
-    y = y + xc32 * p["d_skip"]
+    y = y + xc32 * chan("d_skip", 0)
     y = y[:, None, :].to(dt_) * F.silu(z)
-    out = torch.matmul(y, p["out_proj"].to(dt_))
+    out = rows(torch.matmul(y, chan("out_proj", 0).to(dt_)))
     return out, {"conv": conv_win[:, 1:], "state": h}
 
 

@@ -22,9 +22,9 @@ MLP keeps the documented ("fsdp", "mlp") / ("mlp", "fsdp") layout.
 
 On a ``MeshShape`` ``param_shardings`` is the spec tree itself; on a
 ``DeviceMesh`` it maps each name to a ``NamedSharding``, whose
-``placements`` are DTensor's. ``distribute_params`` and ``distribute_batch``
-place a model's parameters and a host batch on a ``DeviceMesh`` by these
-specs.
+``placements`` are DTensor's. ``distribute_params``, ``distribute_batch`` and
+``distribute_cache`` place a model's parameters, a host batch and a
+serving cache on a ``DeviceMesh`` by these specs.
 """
 from __future__ import annotations
 
@@ -32,10 +32,11 @@ import re
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from .annotate import (DEFAULT_RULES, NamedSharding, is_device_mesh,
                        resolve_spec)
-from .spmd import place
+from .spmd import _mesh_device, local_shape, place
 
 # (path regex, logical axes per dim, without a layer-stack axis)
 _PARAM_RULES: tuple[tuple[str, tuple], ...] = (
@@ -189,6 +190,34 @@ def batch_specs(batch: dict, mesh, rules=DEFAULT_RULES) -> dict:
     return out
 
 
+def distribute_cache(cache, mesh, rules=DEFAULT_RULES):
+    """``Model.init_cache``'s tree as DTensors placed on ``mesh`` by
+    ``cache_specs`` (the reference's ``_named(mesh, c_specs)``): a leaf
+    on the meta device (``init_cache``'s shapes under a mesh) becomes zeros
+    of this rank's local shape on the mesh's device, so no rank holds a
+    whole cache; any other leaf is cut where it lies and only the shard
+    reaches the device."""
+    specs = cache_specs(cache, mesh, rules)
+
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [walk(v, s) for v, s in zip(node, spec)]
+        sh = NamedSharding(mesh, spec)
+        if not node.is_meta:
+            return place(node, sh)
+        layout = sh.placements
+        local = torch.zeros(local_shape(node.shape, mesh, layout),
+                            dtype=node.dtype, device=_mesh_device(mesh))
+        return DTensor.from_local(local, mesh, layout, run_check=False,
+                                  shape=node.shape,
+                                  stride=torch.empty(node.shape,
+                                                     device="meta").stride())
+
+    return walk(cache, specs)
+
+
 def _cache_axes(path: str, nd: int) -> tuple:
     if path.endswith(("/k", "/v", "cross_k", "cross_v")):
         # head_dim is the fallback TP axis when kv_heads doesn't divide the
@@ -226,5 +255,5 @@ def cache_specs(cache, mesh, rules=DEFAULT_RULES):
 
 
 __all__ = ["param_specs", "param_shardings", "batch_specs", "cache_specs",
-           "distribute_params", "distribute_batch",
+           "distribute_params", "distribute_batch", "distribute_cache",
            "logical_axes_for", "is_expert_leaf", "path_of"]

@@ -26,6 +26,17 @@ local tensors, once a rank, as the reference's ``shard_map`` regions do:
   and its output ``gather_over_model`` (an all-gather forward; each rank's
   slice of the gradient backward).
 
+Serving (``Model.prefill``, ``Model.decode_step``) runs the same way,
+under no gradient, with the batch placed by any of the reference's rule
+sets (``spmd(mesh, rows, rules)``: under ``LONG_CONTEXT_RULES`` every rank
+holds the whole batch). A decode step never gathers a leaf that the rules
+split over "model" (but MLA's weights and the routed experts, whole as in
+training): it computes with the leaf's "model" part (``model_part``) and
+gathers or sums the small activations instead; attention over a cache
+split on its slots combines each rank's softmax statistics in rank order
+(``combine_softmax_over_model``), and the greedy token is the argmax over
+the ranks' runs of the vocabulary (``argmax_over_model``).
+
 DTensor holds the layouts (placing, ``to_local`` / ``from_local``, the
 optimizer's elementwise formulas), not the model's ops, and the
 collectives here are ``torch.distributed``'s own calls on the mesh's
@@ -46,7 +57,7 @@ import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
-from .annotate import placements, resolve_spec
+from .annotate import DEFAULT_RULES, placements, resolve_spec
 
 _state = threading.local()
 
@@ -91,16 +102,30 @@ def _mesh_device(mesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
-def batch_layout(mesh, rows: int) -> list:
-    """The placements of a batch of ``rows`` rows on ``mesh``: the rows
-    split over the data axes where they divide them, whole elsewhere."""
-    return placements(resolve_spec(("batch",), mesh, dims=(rows,)), mesh)
+def local_shape(shape, mesh, layout) -> tuple:
+    """The shape of a rank's shard of a tensor of ``shape`` in ``layout``
+    (every split even, as ``resolve_spec`` keeps only axes that divide)."""
+    shape = list(shape)
+    for m, p in enumerate(layout):
+        if isinstance(p, Shard):
+            shape[p.dim] //= mesh.size(m)
+    return tuple(shape)
 
 
-def spmd(mesh, rows: int):
+def batch_layout(mesh, rows: int, rules=DEFAULT_RULES) -> list:
+    """The placements of a batch of ``rows`` rows on ``mesh`` under
+    ``rules``: the rows split over the data axes where they divide them,
+    whole elsewhere (whole everywhere under ``LONG_CONTEXT_RULES``, whose
+    "batch" maps to no axis)."""
+    return placements(resolve_spec(("batch",), mesh, dict(rules),
+                                   dims=(rows,)), mesh)
+
+
+def spmd(mesh, rows: int, rules=DEFAULT_RULES):
     """Run the model once a rank on ``mesh`` for a batch of ``rows`` rows
-    (the helpers below read this context)."""
-    return within((mesh, batch_layout(mesh, rows)))
+    placed by ``rules`` (the rule set that placed the batch and the caches;
+    the helpers below read this context)."""
+    return within((mesh, batch_layout(mesh, rows, rules)))
 
 
 @contextlib.contextmanager
@@ -122,15 +147,23 @@ def current():
 
 def local_batch(x):
     """This rank's rows of a batch leaf (a DTensor placed by the batch
-    specs); a plain tensor as it is."""
+    specs); a plain tensor as it is. A leaf split along another dim where
+    the rows are whole (the sequence of ``LONG_CONTEXT_RULES``' tokens) is
+    gathered whole there."""
     ctx = current()
     if ctx is None or not isinstance(x, DTensor):
         return x
     mesh, layout = ctx
-    if tuple(x.placements) != tuple(layout):
-        raise ValueError(f"a batch leaf placed {x.placements}, not "
-                         f"{layout}: place it with distribute_batch")
-    return x.to_local()
+    t = x.to_local()
+    for m in reversed(range(mesh.ndim)):
+        p, want = x.placements[m], layout[m]
+        if p == want:
+            continue
+        if isinstance(want, Shard) or not isinstance(p, Shard):
+            raise ValueError(f"a batch leaf placed {x.placements}, not "
+                             f"{layout}: place it with distribute_batch")
+        t = _gather_along(t, p.dim, mesh.get_group(m), mesh.size(m))
+    return t
 
 
 def _partial_over_rows(layout) -> list:
@@ -139,7 +172,10 @@ def _partial_over_rows(layout) -> list:
 
 
 def _gather_along(t, dim: int, group, n: int) -> torch.Tensor:
-    """Every rank of ``group``'s ``t`` concatenated along ``dim``."""
+    """Every rank of ``group``'s ``t`` concatenated along ``dim`` (``t``
+    itself in a group of one)."""
+    if n == 1:
+        return t
     t = t.movedim(dim, 0).contiguous()
     out = t.new_empty((n * t.shape[0], *t.shape[1:]))
     dist.all_gather_into_tensor(out, t, group=group)
@@ -147,7 +183,10 @@ def _gather_along(t, dim: int, group, n: int) -> torch.Tensor:
 
 
 def _reduce_scatter_along(t, dim: int, group, n: int) -> torch.Tensor:
-    """The sum of ``t`` over ``group``, this rank's chunk along ``dim``."""
+    """The sum of ``t`` over ``group``, this rank's chunk along ``dim``
+    (``t`` itself in a group of one)."""
+    if n == 1:
+        return t
     t = t.movedim(dim, 0).contiguous()
     out = t.new_empty((t.shape[0] // n, *t.shape[1:]))
     dist.reduce_scatter_tensor(out, t, group=group)
@@ -199,7 +238,7 @@ class _WholeParam(torch.autograd.Function):
     def backward(ctx, g):
         mesh = ctx.mesh
         for m in range(mesh.ndim):
-            if m == ctx.keep:
+            if m == ctx.keep or mesh.size(m) == 1:
                 continue
             p, split = ctx.layout[m], isinstance(ctx.rows[m], Shard)
             group, n = mesh.get_group(m), mesh.size(m)
@@ -240,23 +279,10 @@ def split_over_model(tree: dict, dims: dict):
     dim (so a rank's part is one contiguous block); else
     ``(whole_params(tree), False)``. Without a model axis of two or more
     it is always the latter."""
-    ctx, axis = current(), model_axis()
-    if axis is None or not set(tree) <= set(dims):
+    if model_axis() is None or not set(tree) <= set(dims) or any(
+            _own_model_dim(x) != dims[k] for k, x in tree.items()):
         return whole_params(tree), False
-    mesh, layout = ctx
-    m = mesh.mesh_dim_names.index("model")
-
-    def splits(k, x) -> bool:
-        return isinstance(x, DTensor) and x.placements[m] == Shard(
-            dims[k]) and not any(
-            isinstance(p, Shard) and p.dim == dims[k]
-            for i, p in enumerate(x.placements) if i != m)
-
-    if not all(splits(k, x) for k, x in tree.items()):
-        return whole_params(tree), False
-    return {k: _WholeParam.apply(x.to_local(), mesh, tuple(x.placements),
-                                 tuple(layout), m)
-            for k, x in tree.items()}, True
+    return {k: _keep_model_part(x) for k, x in tree.items()}, True
 
 
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
@@ -384,9 +410,164 @@ def gather_over_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     return _Gather.apply(x, group, dim % x.dim(), rank, size)
 
 
-__all__ = ["place", "replicas", "local_shard", "batch_layout", "spmd", "within", "current",
-           "local_batch",
+# ---------------------------------------------------------------------------
+# serving: the decode step once a rank (no gradient)
+# ---------------------------------------------------------------------------
+
+def model_dim(x) -> int | None:
+    """The tensor dim of the DTensor ``x`` split over "model" inside
+    ``spmd``, or None (whole there, a plain tensor, no context, or a model
+    axis of one)."""
+    if model_axis() is None or not isinstance(x, DTensor):
+        return None
+    m = x.device_mesh.mesh_dim_names.index("model")
+    p = x.placements[m]
+    return p.dim if isinstance(p, Shard) else None
+
+
+def _own_model_dim(x) -> int | None:
+    """``model_dim(x)`` where no other mesh dim splits that tensor dim (so
+    a rank's part there is one contiguous block), else None."""
+    dim = model_dim(x)
+    names = x.device_mesh.mesh_dim_names if dim is not None else ()
+    if any(isinstance(p, Shard) and p.dim == dim and names[i] != "model"
+           for i, p in enumerate(x.placements if names else ())):
+        return None
+    return dim
+
+
+def _keep_model_part(x) -> torch.Tensor:
+    """The DTensor ``x`` gathered over every mesh dim but "model"."""
+    mesh, layout = current()
+    return _WholeParam.apply(x.to_local(), mesh, tuple(x.placements),
+                             tuple(layout),
+                             mesh.mesh_dim_names.index("model"))
+
+
+def model_part(x):
+    """``(t, dim)``: a parameter gathered over every mesh dim but "model",
+    with this rank's part kept there along tensor dim ``dim``, where the
+    leaf is split over "model" on a dim no other mesh dim splits; else
+    ``(whole_params(x), None)``. A decode step computes with the part and
+    never gathers such a leaf over "model"."""
+    dim = _own_model_dim(x)
+    return (whole_params(x), None) if dim is None else (_keep_model_part(x),
+                                                         dim)
+
+
+def model_parts(tree: dict) -> tuple[dict, dict]:
+    """``model_part`` of every leaf of a sublayer's parameters: ({name:
+    tensor}, {name: dim or None})."""
+    parts = {k: model_part(v) for k, v in tree.items()}
+    return ({k: t for k, (t, _) in parts.items()},
+            {k: d for k, (_, d) in parts.items()})
+
+
+def model_slice(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This model rank's contiguous part of a tensor whole along ``dim``
+    (DTensor's chunk); ``t`` itself without a model axis."""
+    axis = model_axis()
+    if axis is None:
+        return t
+    _, rank, size = axis
+    n = t.shape[dim] // size
+    return t.narrow(dim, rank * n, n)
+
+
+def _stack_over_model(t: torch.Tensor) -> torch.Tensor:
+    """[size, *t.shape]: every model rank's ``t``, in rank order."""
+    group, _, size = model_axis()
+    out = t.new_empty((size * t.numel(),))
+    dist.all_gather_into_tensor(out, t.contiguous().reshape(-1), group=group)
+    return out.view(size, *t.shape)
+
+
+def combine_softmax_over_model(m: torch.Tensor, l: torch.Tensor,
+                               acc: torch.Tensor) -> torch.Tensor:
+    """Attention over keys split over "model" (a cache's sequence): each
+    rank's running max ``m``, sum ``l`` of exp(score - m) and weighted
+    values ``acc`` (``[..., dv]``) gathered and combined, rank after rank in
+    rank order on every rank, so the result does not depend on the
+    collective's own order; returns acc / l over every key."""
+    ms, ls, accs = (_stack_over_model(t) for t in (m, l, acc))
+    top = ms.amax(dim=0)
+    total_l = torch.zeros_like(l)
+    total_acc = torch.zeros_like(acc)
+    for r in range(ms.shape[0]):
+        w = torch.exp(ms[r] - top)
+        total_l = total_l + ls[r] * w
+        total_acc = total_acc + accs[r] * w[..., None]
+    return total_acc / torch.clamp_min(total_l[..., None], 1e-30)
+
+
+def argmax_over_model(logits: torch.Tensor, split: bool) -> torch.Tensor:
+    """``torch.argmax(..., dim=-1)`` of logits whose last dim holds this
+    rank's contiguous run of the vocabulary when ``split`` (the whole of
+    it otherwise): each rank's best (value, global index) gathered over
+    "model" and the best kept in rank order, a tie going to the lowest
+    global index, as ``torch.argmax`` breaks it on one device."""
+    idx = torch.argmax(logits, dim=-1)
+    if not split or model_axis() is None:
+        return idx
+    _, rank, _ = model_axis()
+    val = torch.gather(logits, -1, idx[..., None])[..., 0]
+    vals = _stack_over_model(val)
+    idxs = _stack_over_model(idx + rank * logits.shape[-1])
+    best_v, best_i = vals[0], idxs[0]
+    for r in range(1, vals.shape[0]):
+        take = vals[r] > best_v
+        best_v = torch.where(take, vals[r], best_v)
+        best_i = torch.where(take, idxs[r], best_i)
+    return best_i
+
+
+def row_shard_index() -> int:
+    """This rank's place among the batch's row shards (0 where the rows
+    are whole, and without a context)."""
+    ctx = current()
+    if ctx is None:
+        return 0
+    mesh, layout = ctx
+    index = 0
+    for m, p in enumerate(layout):
+        if isinstance(p, Shard):
+            index = index * mesh.size(m) + mesh.get_local_rank(m)
+    return index
+
+
+def gather_rows(x: torch.Tensor) -> torch.Tensor:
+    """Every row shard's ``x`` concatenated along dim 0 (the whole batch,
+    in DTensor's chunk order); its gradient is this rank's rows. ``x``
+    itself where the rows are whole or without a context."""
+    ctx = current()
+    if ctx is None:
+        return x
+    mesh, layout = ctx
+    for m in reversed(range(mesh.ndim)):
+        if isinstance(layout[m], Shard):
+            x = _Gather.apply(x, mesh.get_group(m), 0,
+                              mesh.get_local_rank(m), mesh.size(m))
+    return x
+
+
+def take_rows(x: torch.Tensor) -> torch.Tensor:
+    """This rank's rows of a whole-batch ``x`` (``gather_rows`` undone)."""
+    ctx = current()
+    if ctx is None:
+        return x
+    mesh, layout = ctx
+    for m, p in enumerate(layout):
+        if isinstance(p, Shard):
+            n = x.shape[0] // mesh.size(m)
+            x = x.narrow(0, mesh.get_local_rank(m) * n, n)
+    return x
+
+
+__all__ = ["place", "replicas", "local_shard", "local_shape", "batch_layout",
+           "spmd", "within", "current", "local_batch",
            "whole_params", "split_over_model", "full_value", "batch_sum",
            "batch_shards", "as_batch_partial", "as_batch_rows",
            "model_axis", "sum_grads_over_model", "sum_over_model",
-           "gather_over_model"]
+           "gather_over_model", "model_dim", "model_part", "model_parts",
+           "model_slice", "combine_softmax_over_model", "argmax_over_model",
+           "row_shard_index", "gather_rows", "take_rows"]
