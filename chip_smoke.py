@@ -246,20 +246,31 @@ Phases, each fatal on error (exit code 1, no result line):
     1's, the largest parameter difference, step ms, tokens/s, each rank's
     bytes of parameters and optimizer state, the collectives of a step by
     kind (``CommDebugMode``), and B7 / B8 timed at the shard's shape
-    beside their bounds. ``python3 chip_smoke.py --phase 25`` runs this
-    phase alone.
+    beside their bounds; (d) deepseek-v2-lite-16b at its published widths
+    cut to 2 layers (1 dense, 1 MoE of 64 experts top-6 and 2 shared;
+    1.085e9 parameters, float32), drawn once on the host into a file the
+    ranks map, 2 AdamW steps in world 1 and in the same (2, 2) world (MLA's
+    heads, 32 experts a model rank, a vocabulary-parallel cross-entropy
+    over 102400 words), held to world 1 by (c)'s gates, each rank's bytes
+    of parameters and AdamW state logged. ``python3 chip_smoke.py --phase
+    25`` runs this phase alone.
 26. serving on a ``torch.distributed`` device mesh: hymba-1.5b at its
-    published widths cut to 4 layers (the scan kernels) and qwen2.5-3b
-    cut to 2, ``Model.prefill`` at 2 x 2048 and ``generate``'s 4 prompts
-    of 16 tokens and 16 new ones, placed by the reference's param, cache
-    and batch specs. (a) Under a (1, 1) mesh of an NCCL world of 1, for
-    each of ``DEFAULT_RULES``, ``SERVING_RULES`` and ``LONG_CONTEXT_RULES``
-    (batch 1), float32 hymba against one device: the prefill's and every
-    teacher-forced decode step's logits and ``generate``'s tokens
-    bit-equal, B7 launched once per Mamba layer of each prefill. (b) A
-    (2, 2) world (four gloo ranks on the card; NCCL ranks a card each on
-    several) teacher-forced on one device's tokens: hymba under all three
-    rule sets and qwen2.5-3b under the default and serving ones, float32
+    published widths cut to 4 layers (the scan kernels), qwen2.5-3b and
+    deepseek-v2-lite-16b cut to 2, whisper-medium cut to 2 encoder and 2
+    decoder layers (1500 frames), ``Model.prefill`` at 2 x 2048 and
+    ``generate``'s 4 prompts of 16 tokens and 16 new ones (whisper's
+    greedy tokens from its own decode loop, its cross cache from
+    ``Model.encode`` and ``Model.cross_kv``), placed by the reference's
+    param, cache and batch specs. (a) Under a (1, 1) mesh of an NCCL
+    world of 1, for each of ``DEFAULT_RULES``, ``SERVING_RULES`` and
+    ``LONG_CONTEXT_RULES`` (batch 1), float32 hymba and whisper against
+    one device: the prefill's and every teacher-forced decode step's
+    logits and hymba's ``generate`` tokens bit-equal, B7 launched once per
+    Mamba layer of each prefill. (b) A (2, 2) world (four gloo ranks on
+    the card; NCCL ranks a card each on several) teacher-forced on one
+    device's tokens: hymba and whisper under all three rule sets,
+    qwen2.5-3b and deepseek (32 experts a model rank) under the default
+    and serving ones, float32
     logits of the prefill (the context-parallel attention, B7 once a
     shard at [1, 2048, 1600]) and of every decode step within rtol / atol
     1e-4 and every greedy token equal, bfloat16 reported; decode ms a step,
@@ -446,7 +457,7 @@ MESH_ARCH, MESH_LAYERS, MESH_STEPS = "hymba-1.5b", 2, 2
 MESH_TOL = dict(rtol=1e-6, atol=1e-7)
 MESH_CARDS_RTOL = 5e-4
 MESH_MOMENT_RTOL, MESH_MOMENT_NORM_RTOL = 5e-2, 3e-3
-MESH_WORLD_TIMEOUT = 300
+MESH_WORLD_TIMEOUT = 600
 # meshed serving (phase 26): SERVE_MESH_LAYERS layers of each arch at its
 # published widths (hymba-1.5b on the scan kernels), Model.prefill at
 # PREFILL_BATCH x PREFILL_SEQ and generate's SERVE_BATCH prompts of
@@ -457,20 +468,40 @@ MESH_WORLD_TIMEOUT = 300
 # SERVE_MESH_TOL in float32, teacher-forced on one device's tokens, every
 # decode step under SERVING_RULES and the first SERVE_FSDP_STEPS under the
 # rule sets whose weights are gathered over "data" every step
-SERVE_MESH_LAYERS = {"hymba-1.5b": 4, "qwen2.5-3b": SERVE_LAYERS}
+# phases 25 and 26's MLA and MoE model: deepseek-v2-lite-16b at its
+# published widths cut to MOE_LAYERS (its dense first layer and one layer
+# of 64 routed experts top-6 and 2 shared experts), in float32 (bf16
+# rounding that differs between worlds would flip top-6 choices); drawn
+# once a run on the host and shared with the ranks through a mapped file
+MOE_ARCH, MOE_LAYERS = "deepseek-v2-lite-16b", 2
+# whisper-medium (phase 26) at its published widths cut to ENCDEC_LAYERS
+# encoder and as many decoder layers, 1500 frames
+ENCDEC_LAYERS = 2
+SERVE_MESH_LAYERS = {"hymba-1.5b": 4, "qwen2.5-3b": SERVE_LAYERS,
+                     ENCDEC_ARCH: ENCDEC_LAYERS, MOE_ARCH: MOE_LAYERS}
 SERVE_MESH_NEW = 16
 SERVE_MESH_TOL = dict(rtol=1e-4, atol=1e-4)
 SERVE_FSDP_STEPS = 2
 SERVE_REFERENCES = (("hymba-1.5b", "float32", False),
                     ("hymba-1.5b", "float32", True),
                     ("hymba-1.5b", "bfloat16", False),
-                    ("qwen2.5-3b", "float32", False))
+                    ("qwen2.5-3b", "float32", False),
+                    (ENCDEC_ARCH, "float32", False),
+                    (ENCDEC_ARCH, "float32", True),
+                    (MOE_ARCH, "float32", False))
 SERVE_WORLD_RUNS = (("hymba-1.5b", "serving", "float32"),
                     ("hymba-1.5b", "default", "float32"),
                     ("hymba-1.5b", "long", "float32"),
                     ("hymba-1.5b", "serving", "bfloat16"),
                     ("qwen2.5-3b", "serving", "float32"),
-                    ("qwen2.5-3b", "default", "float32"))
+                    ("qwen2.5-3b", "default", "float32"),
+                    (ENCDEC_ARCH, "serving", "float32"),
+                    (ENCDEC_ARCH, "default", "float32"),
+                    (ENCDEC_ARCH, "long", "float32"),
+                    (MOE_ARCH, "serving", "float32"),
+                    (MOE_ARCH, "default", "float32"))
+# the (1, 1) mesh's archs, each under every rule set against one device
+SERVE_WORLD1_ARCHS = ("hymba-1.5b", ENCDEC_ARCH)
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
                     "hexamesh", "hexatorus", "sid_mesh", "octamesh", "kite",
                     "double_butterfly")
@@ -3782,6 +3813,61 @@ def _local_bytes(tree) -> int:
         else 0
 
 
+def _against_world1(torch, dist, state, ref_path: str, mesh, dev,
+                    world: int, extra: dict) -> tuple:
+    """A meshed run's state against world 1's after the same steps (its
+    file mapped, not read whole), each rank on its own shards: the largest
+    parameter difference over every rank, each first-moment leaf's
+    [relative L2 difference, relative difference of the norms] (from each
+    rank's sums of squares, a replicated shard counted once), and every
+    rank's record (``extra`` with its bytes of parameters and optimizer
+    state added). Returns (worst, moment, per_rank)."""
+    from repro_torch.sharding.spmd import local_shard, replicas
+    ref = torch.load(ref_path, map_location="cpu", mmap=True)
+    worst, sums = 0.0, {}
+    for k, p in state["params"].items():
+        m = state["opt"]["m"][k]
+        want = local_shard(ref["params"][k], mesh, p.placements)
+        worst = max(worst, (p.to_local().float() - want.to(dev).float())
+                    .abs().max().item())
+        want = local_shard(ref["m"][k], mesh, m.placements).to(dev).double()
+        got = m.to_local().double()
+        sums[k] = [(((got - want) ** 2).sum() / replicas(m)).item(),
+                   ((want ** 2).sum() / replicas(m)).item(),
+                   ((got ** 2).sum() / replicas(m)).item()]
+    del ref
+    per_rank = [None] * world
+    dist.all_gather_object(per_rank, dict(
+        extra, param_bytes=_local_bytes(dict(state["params"])),
+        opt_bytes=_local_bytes(state["opt"]), device=str(dev),
+        max_param_diff=worst, moment_sums=sums))
+    worst = max(r["max_param_diff"] for r in per_rank)
+    moment = {}
+    for k in sums:
+        d2, r2, g2 = (sum(r["moment_sums"][k][i] for r in per_rank)
+                      for i in range(3))
+        scale = max(r2, 1e-60) ** 0.5
+        moment[k] = [d2 ** 0.5 / scale, abs(g2 ** 0.5 / scale - 1)]
+    for r in per_rank:
+        del r["moment_sums"]
+    return worst, moment, per_rank
+
+
+def _moe_mesh_model(torch, dev, mesh, path: str):
+    """Phase 25's ``MOE_ARCH`` (``_moe_cfg``) from the shared host file:
+    placed on ``mesh`` (each rank reading only its shards), its AdamW
+    state placed like it, and its step."""
+    from repro_torch.launch.train import build_state
+    from repro_torch.sharding.rules import distribute_params
+    from repro_torch.train import OptConfig, make_train_step, place_train_state
+    model = distribute_params(_model_from_host_file(torch, _moe_cfg(), path),
+                              mesh)
+    state = place_train_state(build_state(model, "adamw"), mesh)
+    ocfg = OptConfig(learning_rate=TRAIN_LR, warmup_steps=0,
+                     decay_steps=MESH_STEPS)
+    return model, state, make_train_step(model, ocfg, "adamw")
+
+
 def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
                    backend: str) -> None:
     """One rank of phase 25's meshed world (``python3 chip_smoke.py
@@ -3803,7 +3889,6 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
     import repro_torch.models.ssm as S
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.launch.mesh import make_device_mesh
-    from repro_torch.sharding.spmd import local_shard, replicas
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3848,44 +3933,10 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
         launches = {"selective_scan_fwd": ss.selective_scan_fwd_cuda.launches,
                     "selective_scan_bwd": ss.selective_scan_bwd_cuda.launches}
         t0 = time.perf_counter()
-        # the world-1 parameters and first moments after the same steps,
-        # against these, each rank on its own shards (world 1's file mapped,
-        # not read whole): the largest parameter difference, and for each
-        # first-moment leaf the sums of squares of the difference, of world
-        # 1's and of this run's, a replicated shard's counted once
-        ref = torch.load(os.path.join(workdir, "world1.pt"),
-                         map_location="cpu", mmap=True)
-        worst, sums = 0.0, {}
-        for k, p in state["params"].items():
-            m = state["opt"]["m"][k]
-            want = local_shard(ref["params"][k], mesh, p.placements)
-            worst = max(worst, (p.to_local().float() - want.to(dev).float())
-                        .abs().max().item())
-            want = local_shard(ref["m"][k], mesh, m.placements).to(
-                dev).double()
-            got = m.to_local().double()
-            sums[k] = [(((got - want) ** 2).sum() / replicas(m)).item(),
-                       ((want ** 2).sum() / replicas(m)).item(),
-                       ((got ** 2).sum() / replicas(m)).item()]
-        del ref
-        param_bytes = _local_bytes(dict(state["params"]))
-        opt_bytes = _local_bytes(state["opt"])
-        per_rank = [None] * world
-        dist.all_gather_object(per_rank, {
-            "param_bytes": param_bytes, "opt_bytes": opt_bytes,
-            "device": str(dev),
-            "launches": launches, "cp_calls": seen["cp"],
-            "scan_shapes": seen["scan"][:1], "max_param_diff": worst,
-            "moment_sums": sums})
-        worst = max(r["max_param_diff"] for r in per_rank)
-        moment = {}   # leaf: [relative L2 difference, relative norm diff.]
-        for k in sums:
-            d2, r2, g2 = (sum(r["moment_sums"][k][i] for r in per_rank)
-                          for i in range(3))
-            scale = max(r2, 1e-60) ** 0.5
-            moment[k] = [d2 ** 0.5 / scale, abs(g2 ** 0.5 / scale - 1)]
-        for r in per_rank:
-            del r["moment_sums"]
+        worst, moment, per_rank = _against_world1(
+            torch, dist, state, os.path.join(workdir, "world1.pt"), mesh,
+            dev, world, {"launches": launches, "cp_calls": seen["cp"],
+                         "scan_shapes": seen["scan"][:1]})
         compare_s = time.perf_counter() - t0
         if rank == 0:
             t0 = time.perf_counter()
@@ -3948,10 +3999,39 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
                    "moment_rel_diff": moment, "compare_s": compare_s,
                    "scan_shard_s": time.perf_counter() - t0,
                    "per_rank": per_rank, "scan_shard": shard}
-            with open(os.path.join(workdir, "result.json"), "w") as f:
-                json.dump(rec, f)
         # every rank waits for rank 0's timings (a collective on the card:
         # gloo's barrier picks a device by rank)
+        dist.all_reduce(torch.zeros(1, device=dev))
+        del model, state, step, batches
+        torch.cuda.empty_cache()
+        # MOE_ARCH: MLA's heads, the experts and the vocabulary split over
+        # "model", from the parent's host file, against its world 1
+        t0 = time.perf_counter()
+        with open(os.path.join(workdir, "host_files.json")) as f:
+            path = json.load(f)[MOE_ARCH]
+        model, state, step = _moe_mesh_model(torch, dev, mesh, path)
+        batches = _mesh_batches(torch, dev, model.cfg)
+        moe_build_s = time.perf_counter() - t0
+        state, metrics, secs, comms = _mesh_steps(
+            torch, state, step, batches, mesh, comm_on_last=True)
+        t0 = time.perf_counter()
+        worst, moment, per_rank = _against_world1(
+            torch, dist, state, os.path.join(workdir, "moe_world1.pt"),
+            mesh, dev, world, {"experts_a_rank": model.blocks[-1].mlp.wi
+                               .to_local().shape[0]})
+        if rank == 0:
+            step_s = statistics.median(secs[1:]) if len(secs) > 1 \
+                else secs[0]
+            rec["moe"] = {"arch": MOE_ARCH, "build_s": moe_build_s,
+                          "metrics": metrics,
+                          "step_ms": [s * 1e3 for s in secs],
+                          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
+                          "comms_last_step": comms, "max_param_diff": worst,
+                          "moment_rel_diff": moment,
+                          "compare_s": time.perf_counter() - t0,
+                          "per_rank": per_rank}
+            with open(os.path.join(workdir, "result.json"), "w") as f:
+                json.dump(rec, f)
         dist.all_reduce(torch.zeros(1, device=dev))
     finally:
         dist.destroy_process_group()
@@ -4047,7 +4127,8 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
         metric_ok = all(abs(a - b) <= MESH_TOL["atol"] +
                         MESH_TOL["rtol"] * abs(b)
                         for x, y in zip(m2, m1) for a, b in zip(x, y))
-        rec.update(one_device=m1, world1=m2, max_param_diff=worst,
+        rec.update(world1_param_bytes=_local_bytes(dict(s2["params"])),
+                   one_device=m1, world1=m2, max_param_diff=worst,
                    bit_equal=worst == 0.0 and m1 == m2,
                    step_ms_one_device=[s * 1e3 for s in t1],
                    step_ms_world1=[s * 1e3 for s in t2],
@@ -4065,6 +4146,7 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
                     "m": {k: full_value(m).cpu()
                           for k, m in s2["opt"]["m"].items()}},
                    os.path.join(work, "world1.pt"))
+        rec["moe_world1"] = _moe_world1(torch, dev, mesh, work)
         # (c) takes its steps while (b) saves and restores (host I/O)
         open(os.path.join(work, "go"), "w").close()
         # (b) the checkpoint under the mesh
@@ -4132,7 +4214,44 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
              f"their plain versions past {SCAN_FWD_TOL} / {SCAN_BWD_TOL}: "
              f"max abs err {shard['fwd_max_abs_err']} / "
              f"{shard['bwd_max_abs_err']}")
+    moe, moe1 = cards["moe"], rec["moe_world1"]
+    for (l_w, g_w), (l_1, g_1) in zip(moe["metrics"], moe1["metrics"]):
+        if not (abs(l_w - l_1) <= MESH_CARDS_RTOL * abs(l_1) and
+                abs(g_w - g_1) <= MESH_CARDS_RTOL * abs(g_1)):
+            fail(f"phase 25: {world} ranks' {MOE_ARCH} losses / grad norms "
+                 f"{moe['metrics']} differ from world 1's {moe1['metrics']} "
+                 f"past rtol {MESH_CARDS_RTOL}")
+    mm = moe["moment_rel_diff"]
+    for i, (w, tol) in enumerate((("relative L2", MESH_MOMENT_RTOL),
+                                  ("relative norm", MESH_MOMENT_NORM_RTOL))):
+        top = max(mm, key=lambda k: mm[k][i])
+        if mm[top][i] > tol:
+            fail(f"phase 25: {world} ranks' {MOE_ARCH} first moment of {top} "
+                 f"differs from world 1's by {mm[top][i]} ({w}), past {tol}")
+    experts = _moe_cfg().n_experts // cards["mesh"][1]
+    if any(r["experts_a_rank"] != experts for r in moe["per_rank"]):
+        fail(f"phase 25: {MOE_ARCH}'s ranks hold "
+             f"{[r['experts_a_rank'] for r in moe['per_rank']]} routed "
+             f"experts, not {experts}")
+    whole = moe1["param_bytes"] + moe1["opt_bytes"]
+    for r in moe["per_rank"]:
+        r["state_share"] = (r["param_bytes"] + r["opt_bytes"]) / whole
+    for r in cards["per_rank"]:
+        r["param_share"] = r["param_bytes"] / rec["world1_param_bytes"]
     rec["world"] = cards
+    log(f"phase 25: {world} ranks' {MOE_ARCH}: step ms "
+        f"{[round(x, 1) for x in moe['step_ms']]}, {moe['tokens_per_s']:.0f} "
+        f"tokens/s, losses / grad norms {moe['metrics']} (world 1 "
+        f"{moe1['metrics']}), largest parameter difference "
+        f"{moe['max_param_diff']}, largest first-moment differences "
+        f"{max(v[0] for v in mm.values()):.3g} (L2) / "
+        f"{max(v[1] for v in mm.values()):.3g} (norm), collectives of a step "
+        f"{moe['comms_last_step']}, {experts} experts a rank, bytes a rank "
+        f"(parameters, AdamW state) "
+        f"{[(r['param_bytes'], r['opt_bytes']) for r in moe['per_rank']]}"
+        f" ({[round(r['state_share'], 4) for r in moe['per_rank']]} of world "
+        f"1's {whole}); built from the mapped file in {moe['build_s']:.1f} s,"
+        f" compared in {moe['compare_s']:.1f} s")
     log(f"phase 25: {world} ranks ({backend}, {cards['cards']} cards) "
         f"{cards['mesh']}: step ms "
         f"{[round(s, 1) for s in cards['step_ms']]}, "
@@ -4145,10 +4264,58 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
         f"plain), collectives of a step "
         f"{cards['comms_last_step']}, bytes a rank "
         f"{[(r['param_bytes'], r['opt_bytes']) for r in cards['per_rank']]}"
+        f" ({[round(r['param_share'], 4) for r in cards['per_rank']]} of "
+        f"the parameters)"
         f"; a rank's build {cards['build_s']:.1f} s, comparison "
         f"{cards['compare_s']:.1f} s, rank 0's shard checks and timings "
         f"{cards['scan_shard_s']:.1f} s")
     return rec
+
+
+def _moe_world1(torch, dev, mesh, work: str) -> dict:
+    """Phase 25's ``MOE_ARCH`` in world 1 (the (1, 1) mesh): its weights
+    drawn once on the host into the file the ranks map
+    (``host_files.json`` names it), ``MESH_STEPS`` AdamW steps, and the
+    parameters and first moments after them saved for the ranks
+    (``moe_world1.pt``). Returns its record."""
+    from repro_torch.sharding.spmd import full_value
+    t0 = time.perf_counter()
+    path = _shared_host_weights(torch, MOE_ARCH, _moe_cfg())
+    draw_s = time.perf_counter() - t0
+    with open(os.path.join(work, "host_files.json"), "w") as f:
+        json.dump({MOE_ARCH: path}, f)
+    t0 = time.perf_counter()
+    model, state, step = _moe_mesh_model(torch, dev, mesh, path)
+    batches = _mesh_batches(torch, dev, model.cfg)
+    place_s = time.perf_counter() - t0
+    state, metrics, secs, comms = _mesh_steps(torch, state, step, batches,
+                                              mesh, comm_on_last=True)
+    t0 = time.perf_counter()
+    torch.save({"params": {k: full_value(p).cpu()
+                           for k, p in state["params"].items()},
+                "m": {k: full_value(m).cpu()
+                      for k, m in state["opt"]["m"].items()}},
+               os.path.join(work, "moe_world1.pt"))
+    n_params = sum(p.numel() for p in model.parameters())
+    out = {"arch": MOE_ARCH, "layers": MOE_LAYERS, "n_params": n_params,
+           "draw_s": draw_s, "place_s": place_s,
+           "save_s": time.perf_counter() - t0, "metrics": metrics,
+           "step_ms": [x * 1e3 for x in secs],
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / secs[-1],
+           "comms_last_step": comms,
+           "param_bytes": _local_bytes(dict(state["params"])),
+           "opt_bytes": _local_bytes(state["opt"]),
+           "peak_alloc_bytes": torch.cuda.max_memory_allocated(dev)}
+    log(f"phase 25: {MOE_ARCH} ({MOE_LAYERS} layers, {n_params} parameters, "
+        f"float32) in world 1: losses / grad norms {metrics}, step ms "
+        f"{[round(x, 1) for x in out['step_ms']]}, "
+        f"{out['tokens_per_s']:.0f} tokens/s, parameters / AdamW state "
+        f"{out['param_bytes']} / {out['opt_bytes']} bytes; drawn on the "
+        f"host and saved in {draw_s:.1f} s, placed in {place_s:.1f} s, "
+        f"its results saved in {out['save_s']:.1f} s")
+    del model, state, step, batches
+    torch.cuda.empty_cache()
+    return out
 
 
 def _start_mesh_world(torch, work: str, procs: list,
@@ -4231,28 +4398,78 @@ def _serve_rule_sets() -> dict:
 
 def _serve_cfg(arch: str, dtype: str):
     """Phase 26's config of ``arch``: published widths cut to
-    ``SERVE_MESH_LAYERS``, in ``dtype``, on the scan kernels."""
+    ``SERVE_MESH_LAYERS`` (whisper's encoder too), in ``dtype``, on the
+    scan kernels."""
     from repro_torch.configs import get_config
     cfg = get_config(arch).replace(n_layers=SERVE_MESH_LAYERS[arch],
                                    dtype=dtype)
+    if cfg.family == "encdec":
+        cfg = cfg.replace(n_encoder_layers=SERVE_MESH_LAYERS[arch])
     return cfg.replace(ssm_kernel=True) if cfg.uses_ssm else cfg
 
 
+def _moe_cfg():
+    """``MOE_ARCH`` at its published widths cut to ``MOE_LAYERS``, float32
+    (phase 25 trains it with remat "full", phase 26 serves it)."""
+    from repro_torch.configs import get_config
+    return get_config(MOE_ARCH).replace(n_layers=MOE_LAYERS,
+                                        dtype="float32", remat="full")
+
+
+_HOST_FILES: dict = {}
+
+
+def _shared_host_weights(torch, arch: str, cfg) -> str:
+    """A file of ``arch``'s weights (``cfg``), drawn on the host from seed 0
+    once in this process and saved under ``build/`` (removed when the
+    process ends): the parent and every rank of a meshed world map it
+    instead of drawing the weights each."""
+    if arch not in _HOST_FILES:
+        import atexit
+        from repro_torch.models import Model
+        model = Model(cfg, seed=0, device="cpu")
+        path = os.path.join(ROOT, "build", f"host_weights_{arch}.pt")
+        torch.save({k: p.detach() for k, p in model.named_parameters()},
+                   path)
+        atexit.register(lambda: os.path.exists(path) and os.remove(path))
+        _HOST_FILES[arch] = path
+    return _HOST_FILES[arch]
+
+
+def _model_from_host_file(torch, cfg, path: str):
+    """A ``Model`` of ``cfg`` whose parameters are the tensors of ``path``
+    (``_shared_host_weights``), mapped rather than read: placing it on a
+    mesh reads only this rank's shards, moving it to a card reads all."""
+    from repro_torch.models import Model
+    model = Model(cfg, device="meta")
+    for name, t in torch.load(path, map_location="cpu", mmap=True).items():
+        owner, _, leaf = name.rpartition(".")
+        model.get_submodule(owner).register_parameter(
+            leaf, torch.nn.Parameter(t))
+    return model
+
+
 def _serve_host_models() -> dict:
-    """Each phase-26 arch's weights, drawn once on the host from seed 0
-    (float32 parameters; a bfloat16 run computes in bfloat16 from them)."""
+    """Each phase-26 arch's weights, drawn on the host from seed 0 (float32
+    parameters; a bfloat16 run computes in bfloat16 from them), but
+    ``MOE_ARCH``'s: its caller adds the path of the shared file
+    (``_shared_host_weights``)."""
     from repro_torch.models import Model
     return {arch: Model(_serve_cfg(arch, "float32"), seed=0, device="cpu")
-            for arch in SERVE_MESH_LAYERS}
+            for arch in SERVE_MESH_LAYERS if arch != MOE_ARCH}
 
 
 def _serve_model(torch, host, cfg, dev, mesh, rules):
-    """A copy of the host model computing in ``cfg``'s dtype: on ``dev``
-    (mesh None), else placed on ``mesh`` by ``param_specs(rules)``, each
-    rank moving only its shards to its card."""
+    """A copy of the host model (or of the shared file's, ``host`` its
+    path) computing in ``cfg``'s dtype: on ``dev`` (mesh None), else placed
+    on ``mesh`` by ``param_specs(rules)``, each rank moving only its shards
+    to its card."""
     import copy
     from repro_torch.sharding.rules import distribute_params
-    model = copy.deepcopy(host)
+    if isinstance(host, str):
+        model = _model_from_host_file(torch, cfg, host)
+    else:
+        model = copy.deepcopy(host)
     model.cfg = cfg
     if mesh is None:
         return model.to(dev)
@@ -4261,44 +4478,86 @@ def _serve_model(torch, host, cfg, dev, mesh, rules):
 
 def _serve_inputs(cfg, long_context: bool):
     """(prefill tokens [PREFILL_BATCH, PREFILL_SEQ], prompts [SERVE_BATCH,
-    SERVE_PROMPT]) as host int64 from one seed; row 0 of each under
+    SERVE_PROMPT], whisper's stub frames or None) as host arrays from one
+    seed (int64 tokens; float32 frames [PREFILL_BATCH + SERVE_BATCH, T,
+    D]: the prefill's rows, then the decode's); row 0 of each under
     ``LONG_CONTEXT_RULES`` (batch 1)."""
     rng = np.random.default_rng(26)
     pre = rng.integers(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))
     prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
-    return (pre[:1], prompts[:1]) if long_context else (pre, prompts)
+    frames = None
+    if cfg.family == "encdec":
+        frames = rng.normal(0, 1, (PREFILL_BATCH + SERVE_BATCH,
+                                   cfg.n_audio_frames, cfg.d_model)).astype(
+            np.float32)
+        if long_context:
+            frames = frames[[0, PREFILL_BATCH]]
+    if long_context:
+        return pre[:1], prompts[:1], frames
+    return pre, prompts, frames
+
+
+def _encdec_greedy(torch, model, dev, prompts, frames, new: int):
+    """Whisper's greedy tokens [B, new] on one device: ``encode`` and
+    ``cross_kv`` fill the cache's cross keys and values from ``frames``,
+    the decode steps take the prompts and then each argmax (``generate``
+    serves the decoder-only families)."""
+    b, n = prompts.shape
+    cache = model.init_cache(b, n + new)
+    enc = model.encode(torch.as_tensor(frames).to(dev))
+    cache["cross_k"], cache["cross_v"] = model.cross_kv(enc)
+    tok = torch.as_tensor(prompts, dtype=torch.int64).to(dev)
+    out = []
+    for t in range(n + new - 1):
+        col = tok[:, t:t + 1] if t < n else out[-1][:, None]
+        lg, cache = model.decode_step(cache, col, t)
+        if t >= n - 1:
+            out.append(lg[:, -1].float().argmax(-1))
+    return torch.stack(out, 1).cpu().numpy()
 
 
 def _serve_calls(torch, model, dev, pre, teacher, steps, mesh=None,
-                 rules=None, count_comms=False) -> dict:
+                 rules=None, count_comms=False, frames=None) -> dict:
     """``Model.prefill`` on ``pre`` and ``steps`` decode steps fed
     ``teacher``'s tokens (a cache of ``teacher``'s length), on one device
-    or, with ``mesh``, once a rank with the tokens placed by
-    ``batch_specs(rules)``: the prefill's and every step's logits gathered
-    whole on the host (float32), the prefill's seconds, each step's
-    seconds (synchronised, the gather for the host outside), the
-    collectives of the last step by kind (``count_comms``) and this rank's
-    bytes of parameters and cache."""
+    or, with ``mesh``, once a rank with the tokens (and whisper's
+    ``frames``, ``_serve_inputs``') placed by ``batch_specs(rules)``: the
+    prefill's and every step's logits gathered whole on the host
+    (float32), the prefill's seconds, whisper's encoder and cross-cache
+    seconds, each step's seconds (synchronised, the gather for the host
+    outside), the collectives of the last step by kind (``count_comms``)
+    and this rank's bytes of parameters and cache."""
     import contextlib
     from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch.sharding.rules import distribute_batch
     from repro_torch.sharding.spmd import full_value
     kw = {} if mesh is None else {"rules": rules}
 
-    def placed(x):
-        t = torch.as_tensor(x, dtype=torch.int64)
+    def placed(x, name="tokens", dtype=torch.int64):
+        t = torch.as_tensor(x, dtype=dtype)
         if mesh is None:
             return t.to(dev)
-        return distribute_batch({"tokens": t}, mesh, rules)["tokens"]
+        return distribute_batch({name: t}, mesh, rules)[name]
 
     tokens = placed(pre)
+    extra = {}
+    if frames is not None:
+        extra = {"extra": {"frames": placed(frames[:pre.shape[0]], "frames",
+                                            torch.float32)}}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    lg = model.prefill(tokens, **kw)
+    lg = model.prefill(tokens, **extra, **kw)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
     out = {"prefill": full_value(lg).float().cpu(), "prefill_s": prefill_s}
     cache = model.init_cache(teacher.shape[0], teacher.shape[1], **kw)
+    if frames is not None:
+        t0 = time.perf_counter()
+        enc = model.encode(placed(frames[pre.shape[0]:], "frames",
+                                  torch.float32), **kw)
+        cache["cross_k"], cache["cross_v"] = model.cross_kv(enc, **kw)
+        torch.cuda.synchronize()
+        out["encode_s"] = time.perf_counter() - t0
     logits, secs, comms = [], [], None
     for t in range(steps):
         tok = placed(teacher[:, t:t + 1])
@@ -4380,6 +4639,8 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
 
         L._context_parallel_flash, S.selective_scan = cp, scan
         t0 = time.perf_counter()
+        # MOE_ARCH's weights come from the parent's file, named once world
+        # 1's results are in
         host = _serve_host_models()
         build_s = time.perf_counter() - t0
         go = os.path.join(workdir, "go")
@@ -4388,6 +4649,8 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
             if time.monotonic() > deadline:
                 raise TimeoutError("world 1's results never came")
             time.sleep(0.05)
+        with open(os.path.join(workdir, "host_files.json")) as f:
+            host[MOE_ARCH] = json.load(f)[MOE_ARCH]
         ref = torch.load(os.path.join(workdir, "world1.pt"),
                          map_location="cpu")
         runs = {}
@@ -4406,7 +4669,7 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
             t0 = time.perf_counter()
             got = _serve_calls(torch, model, dev, r["pre"], r["teacher"],
                                steps, mesh, rule_sets[rules_name],
-                               count_comms=True)
+                               count_comms=True, frames=r["frames"])
             run_s = time.perf_counter() - t0
             pre_err = _held(torch, got["prefill"], r["prefill"])
             step_errs = [_held(torch, g, w) for g, w in
@@ -4430,6 +4693,9 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                 "comms_decode_step": got["comms"],
                 "param_bytes": got["param_bytes"],
                 "cache_bytes": got["cache_bytes"],
+                "encode_s": got.get("encode_s"),
+                "experts_a_rank": (model.blocks[-1].mlp.wi.to_local()
+                                   .shape[0] if cfg.is_moe else None),
                 "place_s": place_s, "run_s": run_s}
             del model, got
             torch.cuda.empty_cache()
@@ -4518,30 +4784,44 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
         mesh = make_device_mesh((1, 1))
         t0 = time.perf_counter()
         host = _serve_host_models()
+        # drawn and saved by phase 25 in a whole run
+        host[MOE_ARCH] = _shared_host_weights(torch, MOE_ARCH, _moe_cfg())
         rec["host_draw_s"] = time.perf_counter() - t0
         refs, world1 = {}, {}
         # one device: the references (and the tokens every world is fed)
         for arch, dtype, long_context in SERVE_REFERENCES:
             cfg = _serve_cfg(arch, dtype)
+            t0 = time.perf_counter()
             model = _serve_model(torch, host[arch], cfg, dev, None, None)
-            pre, prompts = _serve_inputs(cfg, long_context)
+            place_s = time.perf_counter() - t0
+            pre, prompts, frames = _serve_inputs(cfg, long_context)
             zero_counts()
             t0 = time.perf_counter()
-            new = generate(model, prompts, SERVE_MESH_NEW)
+            if frames is None:
+                new = generate(model, prompts, SERVE_MESH_NEW)
+            else:
+                new = _encdec_greedy(torch, model, dev, prompts,
+                                     frames[pre.shape[0]:], SERVE_MESH_NEW)
             generate_s = time.perf_counter() - t0
             teacher = np.concatenate([prompts, new], axis=1)
             got = _serve_calls(torch, model, dev, pre, teacher,
-                               teacher.shape[1])
+                               teacher.shape[1], frames=frames)
             key = _serve_key(arch, dtype, long_context)
             counts = read_counts(f"mesh_serve_one_{key}", (
                 "selective_scan_fwd",) if cfg.uses_ssm else ())
             refs[key] = {"pre": torch.from_numpy(pre),
                          "teacher": torch.from_numpy(teacher),
+                         "frames": (None if frames is None
+                                    else torch.from_numpy(frames)),
                          "prefill": got["prefill"], "steps": got["steps"]}
             world1[key] = {"one_device": {
                 "b7_launches": counts["selective_scan_fwd"],
                 "generate_s": generate_s, "prefill_s": got["prefill_s"],
                 "decode_ms": statistics.median(got["step_s"][1:]) * 1e3,
+                "decode_tokens_per_s": teacher.shape[0] / statistics.median(
+                    got["step_s"][1:]),
+                "prefill_tokens_per_s": pre.size / got["prefill_s"],
+                "encode_s": got.get("encode_s"), "place_s": place_s,
                 "param_bytes": got["param_bytes"],
                 "cache_bytes": got["cache_bytes"]}}
             if not torch.equal(got["steps"][SERVE_PROMPT - 1:-1]
@@ -4552,11 +4832,14 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
             torch.cuda.empty_cache()
         # (b) takes its runs while (a) runs the (1, 1) mesh
         torch.save(refs, os.path.join(work, "world1.pt"))
+        with open(os.path.join(work, "host_files.json"), "w") as f:
+            json.dump({MOE_ARCH: host[MOE_ARCH]}, f)
         open(os.path.join(work, "go"), "w").close()
         # (a) the (1, 1) mesh under each rule set, against one device
-        arch = "hymba-1.5b"
-        n_mamba = SERVE_MESH_LAYERS[arch]
-        for rules_name, rules in rule_sets.items():
+        for arch, (rules_name, rules) in ((a, r) for a in SERVE_WORLD1_ARCHS
+                                          for r in rule_sets.items()):
+            n_mamba = (SERVE_MESH_LAYERS[arch]
+                       if _serve_cfg(arch, "float32").uses_ssm else 0)
             long_context = rules_name == "long"
             key = _serve_key(arch, "float32", long_context)
             r = refs[key]
@@ -4566,16 +4849,18 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
             zero_counts()
             got = _serve_calls(torch, model, dev, r["pre"].numpy(),
                                r["teacher"].numpy(), r["teacher"].shape[1],
-                               mesh, rules, count_comms=True)
-            counts = read_counts(f"mesh_serve_world1_{rules_name}",
-                                 ("selective_scan_fwd",))
-            new = generate(model, r["teacher"][:, :SERVE_PROMPT].numpy(),
-                           SERVE_MESH_NEW, mesh=mesh, rules=rules)
+                               mesh, rules, count_comms=True,
+                               frames=r["frames"])
+            counts = read_counts(f"mesh_serve_world1_{arch}_{rules_name}",
+                                 ("selective_scan_fwd",) if n_mamba else ())
             same = {"prefill": bool(torch.equal(got["prefill"],
                                                 r["prefill"])),
-                    "steps": bool(torch.equal(got["steps"], r["steps"])),
-                    "tokens": bool(np.array_equal(
-                        new, r["teacher"][:, SERVE_PROMPT:].numpy()))}
+                    "steps": bool(torch.equal(got["steps"], r["steps"]))}
+            if r["frames"] is None:     # generate serves decoder-only archs
+                new = generate(model, r["teacher"][:, :SERVE_PROMPT].numpy(),
+                               SERVE_MESH_NEW, mesh=mesh, rules=rules)
+                same["tokens"] = bool(np.array_equal(
+                    new, r["teacher"][:, SERVE_PROMPT:].numpy()))
             dec = got["step_s"][1:]
             world1[key][rules_name] = {
                 "bit_equal": same, "b7_launches":
@@ -4586,11 +4871,12 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
                 "decode_tokens_per_s": r["teacher"].shape[0] /
                 statistics.median(dec),
                 "comms_decode_step": got["comms"],
+                "encode_s": got.get("encode_s"),
                 "param_bytes": got["param_bytes"],
                 "cache_bytes": got["cache_bytes"]}
             if not all(same.values()):
-                fail(f"phase 26: the (1, 1) mesh under {rules_name} differs "
-                     f"from one device: {same}")
+                fail(f"phase 26: the (1, 1) mesh's {arch} under {rules_name} "
+                     f"differs from one device: {same}")
             if counts["selective_scan_fwd"] != n_mamba:
                 fail(f"phase 26: the (1, 1) mesh's prefill under "
                      f"{rules_name} launched B7 {counts['selective_scan_fwd']}"
@@ -4598,11 +4884,12 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
             del model
             torch.cuda.empty_cache()
         rec["world1"] = world1
-        log("phase 26: the (1, 1) mesh bit-equal to one device under "
-            "default, serving and long-context rules (prefill, every decode "
-            "step, generate's tokens); B7 " + ", ".join(
+        log("phase 26: the (1, 1) mesh's hymba and whisper bit-equal to one "
+            "device under default, serving and long-context rules (prefill, "
+            "every decode step, hymba's generate tokens); hymba's B7 " +
+            ", ".join(
                 f"{k} {v['b7_launches']}" for k, v in
-                world1[_serve_key(arch, "float32", False)].items()
+                world1[_serve_key("hymba-1.5b", "float32", False)].items()
                 if k != "one_device") + " a prefill; decode ms a step " +
             ", ".join(f"{k} {v[n]['decode_ms']:.2f}" for k, v in
                       world1.items() for n in v))
@@ -4638,6 +4925,15 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
                      f"largest decode difference {run['decode_worst']} "
                      f"(held {run['decode_held']}), greedy tokens equal "
                      f"{run['greedy_equal']}, past {SERVE_MESH_TOL}")
+            cfg = _serve_cfg(arch, dtype)
+            if cfg.is_moe and run["experts_a_rank"] != \
+                    cfg.n_experts // cards["mesh"][1]:
+                fail(f"phase 26: rank {r}, {name}: {run['experts_a_rank']} "
+                     f"routed experts a rank; {cfg.n_experts} over "
+                     f"{cards['mesh'][1]} model ranks")
+            whole = world1[_serve_key(arch, "float32", rules_name == "long")][
+                "one_device"]["param_bytes"]
+            run["param_share"] = run["param_bytes"] / whole
     shard = cards["b7_shard"]
     if not shard["held"]:
         fail(f"phase 26: B7 on the shard {shard['shape']} differs from its "
@@ -4650,9 +4946,17 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
             f"{name} prefill diff {run['prefill'][0]:.3g}, decode diff "
             f"{run['decode_worst']:.3g} over {run['steps']} steps, greedy "
             f"equal {run['greedy_equal']}, decode {run['decode_ms']:.1f} ms "
-            f"a step, prefill {run['prefill_tokens_per_s']:.0f} tokens/s, "
-            f"bytes a rank {run['param_bytes']} / {run['cache_bytes']}, "
-            f"collectives {run['comms_decode_step']}"
+            f"a step ({run['decode_tokens_per_s']:.1f} tokens/s), prefill "
+            f"{run['prefill_tokens_per_s']:.0f} tokens/s, bytes a rank "
+            f"{run['param_bytes']} ({run['param_share']:.4f} of the "
+            f"parameters) / {run['cache_bytes']}, collectives "
+            f"{run['comms_decode_step']}"
+            + (f", {run['experts_a_rank']} experts a rank"
+               if run["experts_a_rank"] else "")
+            + (f", encoder and cross cache {run['encode_s']:.2f} s"
+               if run["encode_s"] is not None else "")
+            + f"; its place and run {run['place_s']:.1f} / "
+            f"{run['run_s']:.1f} s"
             for name, run in runs0.items()) +
         f"; B7 on the shard {shard['shape']} {shard['ms']:.4f} ms (device "
         f"{shard['device_ms']:.4f}, bound {shard['bound_ms']:.4g}, plain "

@@ -78,7 +78,7 @@ def generate(model: Model, prompts: np.ndarray, max_new: int,
             return model.decode_step(cache, tokens, pos, params)[0], False
     else:
         # each rank's rows, its run of a vocabulary split over "model"
-        ctx = model._serving(mesh, b, rules)
+        ctx = SP.spmd(mesh, b, rules)
         spec = batch_specs({"tokens": host[:, :1]}, mesh, rules)["tokens"]
         tokens = SP.place(host, NamedSharding(mesh, spec))
         cache = model.init_cache(b, prompt_len + max_new, rules=rules)

@@ -207,10 +207,12 @@ def main(argv=None):
     ap.add_argument("--data", default=None, help="binary token file")
     ap.add_argument("--production-mesh", action="store_true",
                     help="use the 16x16 production mesh (needs 256 ranks); "
-                         "its 'model' axis runs attention and dense MLPs "
-                         "tensor-parallel and repeats the other products "
-                         "(MLA, MoE experts, Mamba projections) on every "
-                         "model rank")
+                         "its 'model' axis splits every product the "
+                         "sharding rules split (heads, MLA heads, MLP "
+                         "units, experts, Mamba channels, vocabulary) and "
+                         "repeats on every model rank only what they keep "
+                         "whole (norms, router, MLA's wq_a / wkv_a) or "
+                         "what it does not divide")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for the host)")
     args = ap.parse_args(argv)

@@ -78,7 +78,8 @@ class ModelConfig:
     attn_chunk_threshold: int = 2048   # chunk when seq >= threshold
     logit_softcap: float = 0.0
 
-    # --- sharding hints (src/repro/sharding/rules.py; not ported yet) ---
+    # --- sharding hints (the reference's field, kept for its configs;
+    # neither package's sharding rules read it) ---
     seq_shard_threshold: int = 16384   # sequence-parallel residual stream
 
     def __post_init__(self):

@@ -10,10 +10,11 @@ Functions take a param dict and activations, as the reference's do; the
 reference's logical-axis ``shard`` annotations are dropped. Under a mesh
 (``sharding.spmd``) they run on each rank's rows with the weights whole,
 or, for the MLP and attention (``split``), with this rank's part of a
-tensor-parallel product over "model". The decode step's attention
-(``decode_attention``) meets the three cache layouts of the reference's
-rule sets there, the embedding and the unembedding take a vocabulary split
-over "model" (``embed_part``, ``unembed``).
+tensor-parallel product over "model". The decode step's self- and
+cross-attention (``decode_attention``, ``cross_decode_attention``) meet
+the three cache layouts of the reference's rule sets there, the embedding
+and the unembedding take a vocabulary split over "model" (``embed_part``,
+``unembed``).
 A product the reference asks in float32 of lower-precision operands
 (``preferred_element_type=float32``) is an f32 product of the operands
 rounded to their dtype here: products of bf16 values are exact in f32, so
@@ -299,20 +300,24 @@ def attention_scores(q, k, v, q_positions, kv_positions, *, causal: bool,
     return out.reshape(b, sq, h, dv)
 
 
-def attention_over_split_keys(q, k, v, kv_mask) -> torch.Tensor:
+def attention_over_split_keys(q, k, v, kv_mask,
+                              scale_dim: int = 0) -> torch.Tensor:
     """One query position's attention (no causal or window mask: decode)
     over keys split over "model" (a cache's slots, "seq_kv"): each rank's
     softmax statistics over its keys k, v [B, Skv/tp, Hkv, D] with their
     validity ``kv_mask`` [B, Skv/tp], combined over "model"
     (``sharding.spmd.combine_softmax_over_model``). Scores in f32, the
     probabilities cast to q's dtype before the PV product; the output
-    [B, Sq, H, Dv] in q's dtype."""
+    [B, Sq, H, Dv] in q's dtype. ``scale_dim``: the head dim the scores
+    are scaled by, where it is not q's (MLA's queries absorbed into its
+    latent space)."""
     b, sq, h, dh = q.shape
     hk = k.shape[2]
     g = h // hk
     dv = v.shape[-1]
     qg = q.reshape(b, sq, hk, g, dh)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", _f32(qg), _f32(k)) / math.sqrt(dh)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", _f32(qg), _f32(k)) / \
+        math.sqrt(scale_dim or dh)
     s = torch.where(kv_mask[:, None, None, None, :], s, MASKED)
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
@@ -382,17 +387,34 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
         if local is not None:
             k_cache[:, local] = k[:, 0]
             v_cache[:, local] = v[:, 0]
-        o = attention_over_split_keys(q, k_cache, v_cache,
-                                      model_slice(kv_mask, 1))
     elif cache_dim == 3:
         k_cache[:, slot] = model_slice(k[:, 0], -1)
         v_cache[:, slot] = model_slice(v[:, 0], -1)
+    else:
+        k_cache[:, slot] = k[:, 0]
+        v_cache[:, slot] = v[:, 0]
+    return _attend_cache(p, q, k_cache, v_cache, kv_mask, dims, cache_dim)
+
+
+def _attend_cache(p: Params, q, k_cache, v_cache, kv_mask, dims: dict,
+                  cache_dim: int | None) -> torch.Tensor:
+    """The query ``q`` (this rank's heads where the cache holds them,
+    every head otherwise) against a cache in one of ``decode_attention``'s
+    layouts, and the output projection (row-parallel where ``wo`` holds
+    this rank's heads). ``kv_mask`` [B, S] over the whole cache's slots,
+    or None: every slot valid."""
+    if cache_dim == 1:
+        if kv_mask is None:
+            kv_mask = torch.ones(k_cache.shape[:2], dtype=torch.bool,
+                                 device=k_cache.device)
+        else:
+            kv_mask = model_slice(kv_mask, 1)
+        o = attention_over_split_keys(q, k_cache, v_cache, kv_mask)
+    elif cache_dim == 3:
         o = gather_over_model(attention_scores(
             model_slice(q, -1), k_cache, v_cache, None, None, causal=False,
             kv_mask=kv_mask, head_dim=q.shape[-1]), -1)
     else:
-        k_cache[:, slot] = k[:, 0]
-        v_cache[:, slot] = v[:, 0]
         o = attention_scores(q, k_cache, v_cache, None, None, causal=False,
                              kv_mask=kv_mask)
     if dims.get("wo") is not None:
@@ -402,6 +424,33 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if cache_dim == 2:
         o = gather_over_model(o, 2)
     return merge_heads(o, p["wo"])
+
+
+def cross_decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                           positions: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, *, dims: dict | None = None,
+                           cache_dim: int | None = None) -> torch.Tensor:
+    """One token's cross-attention sublayer against a layer's cross cache
+    [B, T, H, Dh] (the encoder's keys and values, every frame valid, no
+    causal mask; nothing written): the query projected and roped as the
+    decoder's cross-attention does it (``model._cross_attention``). Under
+    a mesh ``p``, ``dims`` and ``cache_dim`` are ``decode_attention``'s:
+    the cache holds this rank's heads (2), its run of each head's columns
+    (3), its run of the frames (1, ``SERVING_RULES``' "seq_kv": the
+    softmax statistics combined over "model") or all of it (None)."""
+    dims = dims or {}
+    q = project_heads(x, p["wq"])
+    if cfg.qkv_bias:
+        bias = p["bq"]
+        if dims.get("wq") is not None and dims.get("bq") is None:
+            bias = model_slice(bias, 0)
+        q = q + bias.to(x.dtype)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+    if cache_dim == 2:
+        q = q if dims.get("wq") is not None else model_slice(q, 2)
+    elif dims.get("wq") is not None:
+        q = gather_over_model(q, 2)
+    return _attend_cache(p, q, k_cache, v_cache, None, dims, cache_dim)
 
 
 def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool,
@@ -580,4 +629,5 @@ __all__ = ["Params", "_dense_init", "init_rmsnorm", "rmsnorm",
            "MLP_SPLIT", "ATTN_SPLIT",
            "init_attention", "project_heads", "merge_heads", "qkv_project",
            "attention_scores", "attention_over_split_keys", "owned_slot",
-           "decode_attention", "embed_part", "flash_attention", "attention"]
+           "decode_attention", "cross_decode_attention", "embed_part",
+           "flash_attention", "attention"]

@@ -10,10 +10,21 @@ Queries split into a NoPE part (matched against the expanded no-rope keys)
 and a RoPE part (matched against the shared rope key, broadcast across the
 heads). The softmax scale comes from the concatenated nope + rope head dim;
 the value head dim may differ from the key's. V2-Lite projects q directly
-(q_lora_rank = 0). Under a mesh the weights are whole on every rank, and
-a decode step against a cache split on its slots over "model"
-(``SERVING_RULES``) combines each rank's softmax statistics
-(``mla_decode``).
+(q_lora_rank = 0).
+
+Under a mesh (``sharding.spmd``) the heads run tensor-parallel over
+"model" where they divide it (``MLA_SPLIT``): ``wq`` (or ``wq_b``),
+``wk_b`` and ``wv_b`` hold this rank's heads and ``wo`` is row-parallel,
+while ``wq_a`` and ``wkv_a``, whole over "model" by their specs, run on
+every rank and their outputs (the latent, the rope key, the query's
+low-rank input) enter the region, their gradients summed over "model".
+A decode step against a cache split on its slots over "model"
+(``SERVING_RULES``) holds this rank's heads and only its own slots: it
+absorbs ``wk_b`` into its heads' queries, gathers every head's absorbed
+queries (``[B, 1, H, r + dr]``, small), scores them against its slots in
+the latent space, combines the softmax statistics over "model" and
+expands its own heads' latent outputs with ``wv_b`` (``mla_decode``); no
+cache entry and no weight moves.
 """
 from __future__ import annotations
 
@@ -23,7 +34,13 @@ from .config import ModelConfig
 from .layers import (Params, _dense_init, apply_rope,
                      attention_over_split_keys, attention_scores,
                      flash_attention, merge_heads, owned_slot, project_heads)
-from ..sharding.spmd import model_slice
+from ..sharding.spmd import (gather_over_model, model_slice,
+                              sum_grads_over_model, sum_over_model)
+
+# the tensor dim of each leaf that the heads split over "model"
+# (``sharding.spmd.split_over_model``), and the leaves whole there
+MLA_SPLIT = {"wq": 1, "wq_b": 1, "wk_b": 1, "wv_b": 1, "wo": 0}
+MLA_WHOLE = ("wq_a", "wkv_a")
 
 
 def init_mla(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
@@ -55,12 +72,16 @@ def mla_compress(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def mla_queries(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                positions: torch.Tensor):
+                positions: torch.Tensor, split: bool = False):
+    """(q_nope, q_rope) of the heads ``p`` holds; ``split``: this rank's
+    heads of a tensor-parallel product, whose input (x, or ``wq_a``'s
+    output) is whole over "model"."""
     if cfg.q_lora_rank:
         qa = torch.matmul(x, p["wq_a"].to(x.dtype))
-        q = project_heads(qa, p["wq_b"])
+        q = project_heads(sum_grads_over_model(qa) if split else qa,
+                          p["wq_b"])
     else:
-        q = project_heads(x, p["wq"])
+        q = project_heads(sum_grads_over_model(x) if split else x, p["wq"])
     q_nope, q_rope = torch.split(
         q, [cfg.nope_head_dim, cfg.rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -97,19 +118,47 @@ def mla_attend(p: Params, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope,
 
 
 def mla_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, *,
-                  causal: bool = True) -> torch.Tensor:
-    """Training / prefill path (self-attention, no external cache)."""
-    q_nope, q_rope = mla_queries(p, cfg, x, positions)
+                  positions: torch.Tensor, *, causal: bool = True,
+                  split: bool = False) -> torch.Tensor:
+    """Training / prefill path (self-attention, no external cache).
+    ``split``: ``p`` holds this rank's heads (``MLA_SPLIT``) and x is whole
+    over "model"; each rank's output is its part of the sum, added up over
+    the axis."""
+    q_nope, q_rope = mla_queries(p, cfg, x, positions, split)
     c_kv, k_rope = mla_compress(p, cfg, x, positions)
-    return mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope,
-                      positions, positions, causal=causal)
+    if split:
+        c_kv, k_rope = sum_grads_over_model(c_kv), sum_grads_over_model(
+            k_rope)
+    out = mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope,
+                     positions, positions, causal=causal)
+    return sum_over_model(out) if split else out
+
+
+def _absorbed_over_split_slots(p: Params, cfg: ModelConfig, q_nope, q_rope,
+                               c_kv, k_rope, kv_mask) -> torch.Tensor:
+    """This rank's heads' attention outputs [B, 1, H/tp, dv] when it holds
+    its heads' weights and only its run of the cache's slots: its queries
+    absorbed into the latent (``q_nope @ wk_b^T``, ``[B, 1, H/tp, r]``)
+    and gathered over "model" with the rope queries, every head scored
+    against this rank's slots (one latent key head of ``r + dr`` columns,
+    scaled as the expanded heads' ``dn + dr``), the softmax statistics
+    combined over "model", and this rank's heads' latent outputs expanded
+    by ``wv_b``."""
+    q_lat = torch.einsum("bshn,rhn->bshr", q_nope, p["wk_b"].to(q_nope.dtype))
+    q = gather_over_model(torch.cat([q_lat, q_rope], dim=-1), 2)
+    k = torch.cat([c_kv[:, :, None, :], k_rope], dim=-1)     # [B,S,1,r+dr]
+    o_lat = attention_over_split_keys(
+        q, k, c_kv[:, :, None, :], kv_mask,
+        scale_dim=cfg.nope_head_dim + cfg.rope_head_dim)     # [B,1,H,r]
+    o_lat = model_slice(o_lat, 2)
+    return torch.einsum("bshr,rhv->bshv", o_lat, p["wv_b"].to(o_lat.dtype))
 
 
 def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
                positions: torch.Tensor, c_kv_cache: torch.Tensor,
                k_rope_cache: torch.Tensor, slot: int, kv_positions,
-               kv_mask, *, cache_dim: int | None = None) -> torch.Tensor:
+               kv_mask, *, cache_dim: int | None = None,
+               dims: dict | None = None) -> torch.Tensor:
     """One token's MLA sublayer against a layer's compressed cache
     (c_kv [B, S, r], k_rope [B, S, 1, dr]), which it updates in place: the
     token's latent and rope key go into ``slot`` and the query attends to
@@ -117,7 +166,13 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     model rank's run of the slots ("seq_kv" over "model",
     ``SERVING_RULES``): the rank that owns ``slot`` writes it, each scores
     its own slots, and the softmax statistics are combined over "model".
-    The weights are whole on every rank."""
+    Under a mesh ``p`` holds each leaf's "model" part
+    (``sharding.spmd.model_parts``) and ``dims`` the tensor dim each is
+    split on there: where ``wo`` holds this rank's heads, so do the other
+    head leaves (``MLA_SPLIT``), the heads attend on this rank (against a
+    cache split on its slots through their absorbed queries) and the
+    output is summed over "model"."""
+    split = (dims or {}).get("wo") is not None
     q_nope, q_rope = mla_queries(p, cfg, x, positions)
     c_kv, k_rope = mla_compress(p, cfg, x, positions)
     if cache_dim == 1:
@@ -125,14 +180,19 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
         if local is not None:
             c_kv_cache[:, local] = c_kv[:, 0]
             k_rope_cache[:, local] = k_rope[:, 0]
+        mask = model_slice(kv_mask, 1)
+        if split:
+            return sum_over_model(merge_heads(_absorbed_over_split_slots(
+                p, cfg, q_nope, q_rope, c_kv_cache, k_rope_cache, mask),
+                p["wo"]))
         q, k, v = _expand(p, cfg, q_nope, q_rope, c_kv_cache, k_rope_cache)
-        return merge_heads(attention_over_split_keys(
-            q, k, v, model_slice(kv_mask, 1)), p["wo"])
+        return merge_heads(attention_over_split_keys(q, k, v, mask), p["wo"])
     c_kv_cache[:, slot] = c_kv[:, 0]
     k_rope_cache[:, slot] = k_rope[:, 0]
-    return mla_attend(p, cfg, q_nope, q_rope, c_kv_cache, k_rope_cache,
-                      positions, kv_positions, causal=False, kv_mask=kv_mask)
+    out = mla_attend(p, cfg, q_nope, q_rope, c_kv_cache, k_rope_cache,
+                     positions, kv_positions, causal=False, kv_mask=kv_mask)
+    return sum_over_model(out) if split else out
 
 
-__all__ = ["init_mla", "mla_compress", "mla_queries", "mla_attend",
-           "mla_attention", "mla_decode"]
+__all__ = ["MLA_SPLIT", "MLA_WHOLE", "init_mla", "mla_compress",
+           "mla_queries", "mla_attend", "mla_attention", "mla_decode"]

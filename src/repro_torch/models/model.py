@@ -28,16 +28,21 @@ as the reference recomputes its Pallas call.
 Under a ``DeviceMesh`` (parameters placed by
 ``sharding.rules.distribute_params``, a batch by ``distribute_batch``)
 ``forward`` and ``loss`` run once a rank (``sharding.spmd``): each rank
-takes its rows of the batch, gathers each block's parameters just before
-the block runs (inside its remat, so backward gathers them again): whole,
-but for the attention and the dense MLP, which keep this rank's heads or
-hidden units of the "model" axis where their layouts allow and run as
-tensor-parallel products (``block_params``), and returns DTensors: the hidden states split by rows, and the loss as the
-sum of the ranks' parts (each rank's cross-entropy over the whole batch's
-label count, its share of the aux loss). ``prefill`` and ``decode_step``
-serve on a mesh the same way under any of the reference's three rule sets
-(``rules=``): the cache comes placed by ``cache_specs`` (``init_cache``),
-the tokens by ``batch_specs``, and a decode step computes with each
+takes its rows of the batch, gathers each block's parameters over the data
+axes just before the block runs (inside its remat, so backward gathers
+them again) and keeps its "model" part of every leaf the rules split
+there (``block_params``): the heads of the attention, the
+cross-attention and MLA, the hidden units of the dense MLP and the shared
+expert, the routed experts, the Mamba mixer's channels, and the
+vocabulary of the embedding and of the cross-entropy's unembedding, each
+a tensor-parallel product. It returns DTensors: the hidden states split
+by rows, and the loss as the sum of the ranks' parts (each rank's
+cross-entropy over the whole batch's label count, its share of the aux
+loss). ``prefill`` and ``decode_step`` serve on a mesh the same way under
+any of the reference's three rule sets (``rules=``), whisper included
+(``encode`` and ``cross_kv`` give its cross cache in ``cache_specs``'
+layout): the cache comes placed by ``cache_specs`` (``init_cache``), the
+tokens by ``batch_specs``, and a decode step computes with each
 parameter's "model" part (``_decode_params``), each rank writing only its
 part of the new token's cache entries; the logits come back split by rows
 and whole over the vocabulary.
@@ -48,7 +53,7 @@ from typing import Any
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -57,8 +62,8 @@ from . import mla as MLA
 from . import moe as MOE
 from . import ssm as SSM
 from ..sharding import spmd as SP
-from ..sharding.annotate import DEFAULT_RULES
-from ..sharding.rules import distribute_cache
+from ..sharding.annotate import DEFAULT_RULES, placements
+from ..sharding.rules import cache_specs, distribute_cache
 from ..utils.device import resolve_device
 from .config import ModelConfig
 
@@ -126,19 +131,22 @@ def _init_encoder_block(gen: torch.Generator, cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 
 def _mixer(p: Params, cfg: ModelConfig, x, positions, *, causal=True,
-           split: bool = False):
+           split: dict | None = None):
     """Attention and/or SSM sublayer output at full sequence length (the
-    hybrid sums the two heads, attention first); ``split``: the attention
-    is tensor-parallel over "model" (``L.attention``)."""
+    hybrid sums the two heads, attention first); ``split`` (``block_params``'
+    flags): which of the two runs tensor-parallel over "model"."""
+    split = split or {}
     y = None
     if cfg.uses_attention:
         if cfg.attention == "mla":
-            y = MLA.mla_attention(p["attn"], cfg, x, positions, causal=causal)
+            y = MLA.mla_attention(p["attn"], cfg, x, positions, causal=causal,
+                                  split=split.get("attn", False))
         else:
             y = L.attention(p["attn"], cfg, x, positions, causal=causal,
-                            split=split)
+                            split=split.get("attn", False))
     if cfg.uses_ssm:
-        ys = SSM.mamba_forward(p["ssm"], cfg, x)
+        ys = SSM.mamba_forward(p["ssm"], cfg, x,
+                               split=split.get("ssm", False))
         y = ys if y is None else y + ys
     return y
 
@@ -148,11 +156,19 @@ def _norm(cfg: ModelConfig):
 
 
 def _cross_attention(p: Params, cfg: ModelConfig, h: torch.Tensor,
-                    positions: torch.Tensor, k: torch.Tensor,
-                    v: torch.Tensor) -> torch.Tensor:
+                     positions: torch.Tensor, enc_out: torch.Tensor,
+                     split: bool = False) -> torch.Tensor:
     """The decoder's attention to the encoder: queries from h [B, S, D]
-    (projected as ``qkv_project`` projects them), keys and values k, v
-    [B, T, H, Dh] from the encoder output, no causal mask."""
+    (projected as ``qkv_project`` projects them), keys and values
+    [B, T, H, Dh] projected from the encoder output [B, T, D], no causal
+    mask. ``split``: ``p`` holds this rank's heads (``L.ATTN_SPLIT``), h and
+    the encoder output are whole over "model"; each rank's output is its
+    part of the sum, added up over the axis."""
+    if split:
+        h, enc_out = SP.sum_grads_over_model(h), SP.sum_grads_over_model(
+            enc_out)
+    k = L.project_heads(enc_out, p["wk"])
+    v = L.project_heads(enc_out, p["wv"])
     q = L.project_heads(h, p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"].to(h.dtype)
@@ -160,21 +176,35 @@ def _cross_attention(p: Params, cfg: ModelConfig, h: torch.Tensor,
     b, t = k.shape[:2]
     enc_pos = torch.arange(t, device=k.device).expand(b, t)
     o = L.attention_scores(q, k, v, positions, enc_pos, causal=False)
-    return L.merge_heads(o, p["wo"])
+    out = L.merge_heads(o, p["wo"])
+    return SP.sum_over_model(out) if split else out
 
 
 def block_params(p: Params, cfg: ModelConfig, moe_layer: bool):
     """A block's parameters for this rank under a mesh (``sharding.spmd``;
-    as they are without one): the attention's and the dense MLP's split
-    over "model" for tensor-parallel products where their layouts allow
-    (``L.ATTN_SPLIT``, ``L.MLP_SPLIT``), every other leaf gathered whole.
-    Returns (params, {"attn": split, "mlp": split})."""
+    as they are without one): each sublayer split over "model" for
+    tensor-parallel products where its layout allows, the heads of the
+    attention and the cross-attention (``L.ATTN_SPLIT``) and of MLA
+    (``MLA.MLA_SPLIT``, its ``wq_a`` / ``wkv_a`` whole), the dense MLP's
+    hidden units (``L.MLP_SPLIT``), the Mamba mixer's channels
+    (``SSM.SSM_SPLIT``), a MoE layer's routed experts and shared expert
+    (``MOE.moe_parts``); the norms gathered whole. Returns (params,
+    {"attn", "cross", "ssm", "mlp" (the dense MLP), "experts", "shared":
+    split})."""
     out, split = {}, {"attn": False, "mlp": False}
     for k, v in p.items():
-        if k == "attn" and cfg.attention != "mla":
+        if k == "attn" and cfg.attention == "mla":
+            out[k], split[k] = SP.split_over_model(v, MLA.MLA_SPLIT,
+                                                   MLA.MLA_WHOLE)
+        elif k in ("attn", "cross"):
             out[k], split[k] = SP.split_over_model(v, L.ATTN_SPLIT)
+        elif k == "ssm":
+            out[k], split[k] = SP.split_over_model(v, SSM.SSM_SPLIT)
         elif k == "mlp" and not moe_layer:
             out[k], split[k] = SP.split_over_model(v, L.MLP_SPLIT)
+        elif k == "mlp":
+            out[k], flags = MOE.moe_parts(v)
+            split.update(flags)
         else:
             out[k] = SP.whole_params(v)
     return out, split
@@ -192,17 +222,18 @@ def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     norm = _norm(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     x = x + _mixer(p, cfg, norm(p["ln1"], x), positions, causal=causal,
-                   split=split.get("attn", False))
+                   split=split)
     if cfg.family == "ssm":
         return x, aux
     if cfg.family == "encdec" and enc_out is not None:
-        c = p["cross"]
-        x = x + _cross_attention(c, cfg, norm(p["ln_cross"], x), positions,
-                                 L.project_heads(enc_out, c["wk"]),
-                                 L.project_heads(enc_out, c["wv"]))
+        x = x + _cross_attention(p["cross"], cfg, norm(p["ln_cross"], x),
+                                 positions, enc_out,
+                                 split=split.get("cross", False))
     h = norm(p["ln2"], x)
     if moe_layer:
-        y, aux = MOE.moe_ffn(p["mlp"], cfg, h)
+        y, aux = MOE.moe_ffn(p["mlp"], cfg, h,
+                             shared_split=split.get("shared", False),
+                             experts_split=split.get("experts", False))
     else:
         y = L.mlp(p["mlp"], cfg, h, split=split.get("mlp", False))
     return x + y, aux
@@ -336,33 +367,75 @@ class Model(nn.Module):
         x = frames + whole(params["pos_embed"])[None, :t].to(frames.dtype)
 
         def attn(p_, x_):
-            p_ = whole(p_)
-            return x_ + L.attention(p_["attn"], cfg,
-                                    L.layernorm(p_["ln1"], x_), pos,
-                                    causal=False)
+            a, split = SP.split_over_model(p_["attn"], L.ATTN_SPLIT)
+            return x_ + L.attention(a, cfg, L.layernorm(whole(p_["ln1"]), x_),
+                                    pos, causal=False, split=split)
 
         attn_half = _remat(attn, cfg)
         for p in params["enc_blocks"]:
             x = attn_half({"attn": p["attn"], "ln1": p["ln1"]}, x)
-            x = x + L.mlp(whole(p["mlp"]), cfg,
-                          L.layernorm(whole(p["ln2"]), x))
+            m, split = SP.split_over_model(p["mlp"], L.MLP_SPLIT)
+            x = x + L.mlp(m, cfg, L.layernorm(whole(p["ln2"]), x),
+                          split=split)
         return L.layernorm(whole(params["enc_ln_f"]), x), pos
 
     def cross_kv(self, enc_out: torch.Tensor,
-                 params: Params | None = None):
+                 params: Params | None = None, *, rules=DEFAULT_RULES):
         """Every decoder layer's cross-attention keys and values of an
         encoder output, stacked as ``init_cache``'s ``cross_k`` /
         ``cross_v`` [L, B, T, H, Dh]. Nothing in the reference fills its
         cross-KV cache; its smoke test computes these by hand
         (``tests/test_models_smoke.py``), as callers of the port do with
-        this."""
+        this.
+
+        On a meshed model ``enc_out`` is ``encode``'s DTensor (rows placed
+        by ``batch_specs(rules)``) and the two come back as DTensors in the
+        layout ``cache_specs(rules)`` gives them, each rank computing only
+        its shard: its heads from ``wk`` / ``wv``'s "model" part (heads on
+        "model"), its run of the frames (``SERVING_RULES``' "seq_kv") or of
+        each head's columns (the head-dim fallback), under no gradient."""
         params = self.params() if params is None else params
         dt = self.cfg.compute_dtype
-        enc_out = enc_out.to(dt)
-        return (torch.stack([L.project_heads(enc_out, p["cross"]["wk"])
-                             for p in params["blocks"]]),
-                torch.stack([L.project_heads(enc_out, p["cross"]["wv"])
-                             for p in params["blocks"]]))
+        mesh = self._mesh()
+        if mesh is None:
+            enc_out = enc_out.to(dt)
+            return (torch.stack([L.project_heads(enc_out, p["cross"]["wk"])
+                                 for p in params["blocks"]]),
+                    torch.stack([L.project_heads(enc_out, p["cross"]["wv"])
+                                 for p in params["blocks"]]))
+        rows = self._placed(enc_out, "encoder outputs").shape[0]
+        b, t, _ = enc_out.shape
+        cfg = self.cfg
+        shape = (len(params["blocks"]), b, t, cfg.n_heads, cfg.d_head)
+        spec = cache_specs({"cross_k": torch.empty(shape, device="meta")},
+                           mesh, rules)["cross_k"]
+        layout = placements(spec, mesh)
+        with torch.no_grad(), SP.spmd(mesh, rows, rules):
+            enc = SP.local_batch(enc_out).to(dt)
+            m = mesh.mesh_dim_names.index("model")
+            cache_dim = (layout[m].dim - 1 if isinstance(layout[m], Shard)
+                         and mesh.size(m) > 1 else None)
+            if cache_dim == 1:          # this rank's frames
+                enc = SP.model_slice(enc, 1)
+
+            def project(w):
+                w, dim = SP.model_part(w)
+                y = L.project_heads(enc, w)
+                if dim is not None and cache_dim != 2:
+                    y = SP.gather_over_model(y, 2)
+                elif dim is None and cache_dim == 2:
+                    y = SP.model_slice(y, 2)
+                return SP.model_slice(y, -1) if cache_dim == 3 else y
+
+            out = []
+            for name in ("wk", "wv"):
+                local = torch.stack([project(p["cross"][name])
+                                     for p in params["blocks"]])
+                out.append(DTensor.from_local(
+                    local.contiguous(), mesh, layout, run_check=False,
+                    shape=torch.Size(shape),
+                    stride=torch.empty(shape, device="meta").stride()))
+            return tuple(out)
 
     # ---------------- forward (training / prefill) ----------------
     def forward(self, tokens: torch.Tensor, params: Params | None = None, *,
@@ -392,7 +465,9 @@ class Model(nn.Module):
         params = self.params() if params is None else params
         dt = cfg.compute_dtype
         whole = SP.whole_params
-        x = L.embed(whole(params["embed"]), tokens, dt)
+        # this rank's run of a vocabulary split over "model", summed there
+        x = L.embed_part(*SP.model_part(params["embed"]["table"]), tokens,
+                         dt)
         enc_out = None
         if cfg.family == "vlm":
             x = torch.cat([extra["patches"].to(dt), x], dim=1)
@@ -460,7 +535,19 @@ class Model(nn.Module):
                 chunk: int = 512) -> tuple[torch.Tensor, torch.Tensor]:
         """Mean next-token cross-entropy of hidden states x [B, S, D] over
         the labels >= 0, one sequence chunk of logits at a time; returns
-        (ce, number of valid labels)."""
+        (ce, number of valid labels).
+
+        Under a mesh whose "model" axis splits the vocabulary (the rules'
+        "vocab": wherever the axis divides it), the unembedding is
+        vocabulary-parallel: each rank takes its columns of ``unembed.w``
+        (gathered over the data axes only) and computes its ``[B, chunk,
+        V / tp]`` logits, softcap included; the log-sum-exp shifts by the
+        max over "model" and sums the exponentials over "model", and the
+        gold logit comes from the rank whose run holds the label, summed
+        over "model". Each rank's gradient is its slice of ``softmax -
+        one_hot``, the input's summed over "model". A vocabulary the axis
+        does not divide (whisper's 51865, hymba's 32001) stays whole, as
+        the resolver leaves it."""
         cfg = self.cfg
         b, s, d = x.shape
         chunk = min(chunk, s)
@@ -468,16 +555,21 @@ class Model(nn.Module):
         if pad:
             x = torch.nn.functional.pad(x, (0, 0, 0, pad))
             labels = torch.nn.functional.pad(labels, (0, pad), value=-1)
-        unembed_c = {"w": SP.whole_params(params["unembed"]["w"]).to(
-            cfg.compute_dtype)}
+        w, vocab_split = SP.split_over_model({"w": params["unembed"]["w"]},
+                                             {"w": 1})
+        unembed_c = {"w": w["w"].to(cfg.compute_dtype)}
 
         def ce_chunk(xi, li):
-            logits = L.unembed(unembed_c, xi, cfg.logit_softcap)
-            logz = torch.logsumexp(logits, dim=-1)
-            idx = torch.clamp_min(li, 0).long()[..., None]
-            gold = torch.gather(logits, -1, idx)[..., 0]
             valid = li >= 0
-            ce = torch.where(valid, logz - gold, 0.0)
+            if vocab_split:
+                ce = _vocab_parallel_ce(unembed_c, cfg, xi, li)
+            else:
+                logits = L.unembed(unembed_c, xi, cfg.logit_softcap)
+                logz = torch.logsumexp(logits, dim=-1)
+                idx = torch.clamp_min(li, 0).long()[..., None]
+                gold = torch.gather(logits, -1, idx)[..., 0]
+                ce = logz - gold
+            ce = torch.where(valid, ce, 0.0)
             return ce.sum(), valid.sum()
 
         fn = _remat(ce_chunk, cfg)
@@ -591,7 +683,8 @@ class Model(nn.Module):
                 y = MLA.mla_decode(p["attn"], cfg, x, positions,
                                    layer_cache["c_kv"],
                                    layer_cache["k_rope"], slot, kv_pos,
-                                   kv_mask, cache_dim=cache_dims.get("c_kv"))
+                                   kv_mask, cache_dim=cache_dims.get("c_kv"),
+                                   dims=dims.get("attn"))
             else:
                 y = L.decode_attention(p["attn"], cfg, x, positions,
                                        layer_cache["k"], layer_cache["v"],
@@ -608,27 +701,25 @@ class Model(nn.Module):
 
     def _decode_params(self, p: Params, moe_layer: bool):
         """A block's parameters for one decode step: as they are on one
-        device; under a mesh the attention's (not MLA's) and the Mamba
-        mixer's "model" parts (``SP.model_parts``), the dense MLP's (and a
-        MoE layer's shared expert's) tensor-parallel split
-        (``SP.split_over_model``), every other leaf whole (the norms, MLA's
-        weights and the routed experts). Returns (params, "model" dims of
-        the parts, whether the (shared) MLP is split)."""
-        cfg = self.cfg
-        out, dims, mlp_split = {}, {}, False
+        device; under a mesh the "model" parts (``SP.model_parts``) of the
+        attention's, MLA's, the cross-attention's and the Mamba mixer's
+        leaves, the dense MLP's tensor-parallel split
+        (``SP.split_over_model``), a MoE layer's routed experts and shared
+        expert (``MOE.moe_parts``), the norms whole: no leaf the rules split
+        over "model" is gathered there. Returns (params, "model" dims of the
+        parts, {"mlp", "experts", "shared": split})."""
+        out, dims, split = {}, {}, {}
         for k, v in p.items():
-            if k == "ssm" or (k == "attn" and cfg.attention != "mla"):
+            if k in ("ssm", "attn", "cross"):
                 out[k], dims[k] = SP.model_parts(v)
             elif k == "mlp" and not moe_layer:
-                out[k], mlp_split = SP.split_over_model(v, L.MLP_SPLIT)
-            elif k == "mlp" and "shared" in v:
-                out[k] = SP.whole_params({n: w for n, w in v.items()
-                                          if n != "shared"})
-                out[k]["shared"], mlp_split = SP.split_over_model(
-                    v["shared"], L.MLP_SPLIT)
+                out[k], split["mlp"] = SP.split_over_model(v, L.MLP_SPLIT)
+            elif k == "mlp":
+                out[k], flags = MOE.moe_parts(v)
+                split.update(flags)
             else:
                 out[k] = SP.whole_params(v)
-        return out, dims, mlp_split
+        return out, dims, split
 
     @staticmethod
     def _stack_cache(stack: Params, rows: int):
@@ -665,33 +756,41 @@ class Model(nn.Module):
             x = x + whole(params["pos_embed"])[pos][None, None].to(dt)
 
         def one_layer(p, x, lc, kv_len, cache_dims, moe_layer, cross=None):
-            p, dims, mlp_split = self._decode_params(p, moe_layer)
+            p, dims, split = self._decode_params(p, moe_layer)
             x = x + self._decode_mixer(p, norm(p["ln1"], x), pos, lc,
                                        kv_len=kv_len, dims=dims,
                                        cache_dims=cache_dims)
             if cross is not None:
                 positions = torch.full((x.shape[0], 1), pos,
                                        dtype=torch.int64, device=x.device)
-                x = x + _cross_attention(p["cross"], cfg,
-                                         norm(p["ln_cross"], x), positions,
-                                         *cross)
+                x = x + L.cross_decode_attention(
+                    p["cross"], cfg, norm(p["ln_cross"], x), positions,
+                    *cross, dims=dims.get("cross"),
+                    cache_dim=cross_dims.get("cross_k"))
             if cfg.family != "ssm":
                 h2 = norm(p["ln2"], x)
                 if moe_layer:
-                    y2, _ = MOE.moe_ffn(p["mlp"], cfg, h2, mlp_split)
+                    y2, _ = MOE.moe_ffn(
+                        p["mlp"], cfg, h2, split.get("shared", False),
+                        split.get("experts", False))
                 else:
-                    y2 = L.mlp(p["mlp"], cfg, h2, split=mlp_split)
+                    y2 = L.mlp(p["mlp"], cfg, h2,
+                               split=split.get("mlp", False))
                 x = x + y2
             return x
 
         rows = tokens.shape[0]
+        cross_dims = {}
+        if cfg.family == "encdec":
+            cross_local, cross_dims, _ = self._stack_cache(
+                {k: cache[k] for k in ("cross_k", "cross_v")}, rows)
         for i, p in enumerate(params.get("dense_blocks", [])):
             lc, cache_dims, kv_len = self._stack_cache(cache["dense"][i], rows)
             x = one_layer(p, x, {k: v[0] for k, v in lc.items()}, kv_len,
                           cache_dims, False)
         lc, cache_dims, kv_len = self._stack_cache(cache["scan"], rows)
         for i, p in enumerate(params["blocks"]):
-            cross = ((cache["cross_k"][i], cache["cross_v"][i])
+            cross = ((cross_local["cross_k"][i], cross_local["cross_v"][i])
                      if cfg.family == "encdec" else None)
             x = one_layer(p, x, {k: v[i] for k, v in lc.items()}, kv_len,
                           cache_dims, cfg.is_moe, cross)
@@ -699,22 +798,29 @@ class Model(nn.Module):
         w, vdim = SP.model_part(params["unembed"]["w"])
         return L.unembed({"w": w}, x, cfg.logit_softcap), vdim is not None
 
-    def _serving(self, mesh, rows: int, rules):
-        """The ``spmd`` context of a meshed serving call on a batch of
-        ``rows`` rows placed by ``rules``."""
-        if self.cfg.family == "encdec":
-            raise NotImplementedError(
-                "meshed serving covers the decoder-only families, as the "
-                "reference's serving launcher does; whisper's meshed decode "
-                "is not ported")
-        return SP.spmd(mesh, rows, rules)
-
     @staticmethod
-    def _placed(tokens):
+    def _placed(tokens, what: str = "tokens"):
         if not isinstance(tokens, DTensor):
-            raise TypeError("under a mesh the tokens are a DTensor placed "
+            raise TypeError(f"under a mesh the {what} are a DTensor placed "
                             "by batch_specs (sharding.rules.distribute_batch)")
         return tokens
+
+    @torch.no_grad()
+    def encode(self, frames: torch.Tensor, params: Params | None = None, *,
+               rules=DEFAULT_RULES) -> torch.Tensor:
+        """Whisper's encoder output [B, T, D] of stub frame embeddings
+        [B, T, D] (serving: no gradient), in the compute dtype; what
+        ``cross_kv`` projects. On a meshed model the encoder runs once a
+        rank on frames placed by ``batch_specs(rules)``, its attention and
+        MLP tensor-parallel over "model", and the output comes back as a
+        DTensor split by rows as the frames are."""
+        dt = self.cfg.compute_dtype
+        mesh = self._mesh()
+        if mesh is None:
+            return self._encode(frames.to(dt), params)[0]
+        with SP.spmd(mesh, self._placed(frames, "frames").shape[0], rules):
+            enc, _ = self._encode(SP.local_batch(frames).to(dt), params)
+            return SP.as_batch_rows(enc)
 
     @torch.no_grad()
     def decode_step(self, cache: Params, tokens: torch.Tensor, pos: int,
@@ -740,7 +846,7 @@ class Model(nn.Module):
         mesh = self._mesh()
         if mesh is None:
             return self._decode(cache, tokens, pos, params)[0], cache
-        with self._serving(mesh, self._placed(tokens).shape[0], rules):
+        with SP.spmd(mesh, self._placed(tokens).shape[0], rules):
             logits, split = self._decode(cache, SP.local_batch(tokens), pos,
                                          params)
             if split:
@@ -768,7 +874,7 @@ class Model(nn.Module):
             # when the weight needs no gradient (the meshed one below)
             return L.unembed(params["unembed"], x[:, -1:].contiguous(),
                              self.cfg.logit_softcap)
-        with self._serving(mesh, self._placed(tokens).shape[0], rules):
+        with SP.spmd(mesh, self._placed(tokens).shape[0], rules):
             x, _ = self._forward(
                 SP.local_batch(tokens), params,
                 extra={k: SP.local_batch(v) for k, v in (extra or {}).items()})
@@ -778,6 +884,24 @@ class Model(nn.Module):
             if vdim is not None:
                 logits = SP.gather_over_model(logits, -1)
             return SP.as_batch_rows(logits)
+
+
+def _vocab_parallel_ce(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                       labels: torch.Tensor) -> torch.Tensor:
+    """Each position's ``logsumexp(logits) - logits[label]`` from this
+    model rank's run of the vocabulary (``p["w"]``, [D, V / tp]); x is
+    whole over "model" (``Model.ce_loss``)."""
+    x = SP.sum_grads_over_model(x)
+    logits = L.unembed(p, x, cfg.logit_softcap)               # [B, c, V/tp]
+    n = logits.shape[-1]
+    top = SP.max_over_model(logits.amax(dim=-1))
+    logz = top + torch.log(SP.sum_over_model(
+        torch.exp(logits - top[..., None]).sum(dim=-1)))
+    local = labels.long() - SP.model_axis()[1] * n
+    inside = (local >= 0) & (local < n)
+    gold = torch.gather(logits, -1, torch.clamp(local, 0, n - 1)[..., None])
+    gold = SP.sum_over_model(torch.where(inside, gold[..., 0], 0.0))
+    return logz - gold
 
 
 def _map_tree(fn, tree):

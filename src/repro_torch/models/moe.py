@@ -20,9 +20,15 @@ from __future__ import annotations
 
 import torch
 
-from ..sharding.spmd import batch_shards, gather_rows, take_rows
+from ..sharding.spmd import (batch_shards, gather_rows, model_slice,
+                              split_over_model, sum_grads_over_model,
+                              sum_over_model, take_rows, whole_params)
 from .config import ModelConfig
-from .layers import Params, _dense_init, activate, init_mlp, mlp
+from .layers import MLP_SPLIT, Params, _dense_init, activate, init_mlp, mlp
+
+# the tensor dim of each routed expert leaf that expert parallelism splits
+# over "model" (``sharding.spmd.split_over_model``): the expert axis
+EXPERT_SPLIT = {"wi": 0, "wg": 0, "wo": 0}
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
@@ -58,8 +64,26 @@ def _top_k(probs: torch.Tensor, k: int):
     return torch.gather(probs, -1, order), order
 
 
+def moe_parts(p: Params) -> tuple[Params, dict]:
+    """A MoE layer's parameters for this rank under a mesh
+    (``sharding.spmd``; as they are without one): the router gathered
+    whole (its spec keeps it whole over "model"), the routed experts this
+    rank's ``E / tp`` of them where the experts divide "model"
+    (``EXPERT_SPLIT``), the shared expert its hidden units of a
+    tensor-parallel MLP (``MLP_SPLIT``). Returns (params, {"experts":
+    split, "shared": split}), ``moe_ffn``'s flags."""
+    experts, ep = split_over_model(
+        {k: v for k, v in p.items() if k in EXPERT_SPLIT}, EXPERT_SPLIT)
+    out = {"router": whole_params(p["router"]), **experts}
+    shared = False
+    if "shared" in p:
+        out["shared"], shared = split_over_model(p["shared"], MLP_SPLIT)
+    return out, {"experts": ep, "shared": shared}
+
+
 def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
-            shared_split: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+            shared_split: bool = False, experts_split: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, D] -> (y, aux_loss).
 
     Tokens are reshaped into groups of ``min(moe_group_size, B*S)``; within
@@ -71,9 +95,16 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     multiple of one device's group size; otherwise (a decode step's
     ``[B/dp, 1, D]``, fewer tokens than a group) the rows are gathered over
     the data axes, the whole batch is routed as on one device, so the same
-    tokens are dropped, and each rank keeps its rows. The expert weights
-    are whole on every rank; ``shared_split``: the shared expert holds this
-    rank's hidden units of a tensor-parallel MLP over "model"
+    tokens are dropped, and each rank keeps its rows. Routing, the aux loss
+    and the capacity assignment run whole on every model rank, so every
+    model rank of a data group drops the same tokens. ``experts_split``
+    (expert parallelism, the dense form of the reference's dispatch with
+    the expert axis on "model"): ``p`` holds this rank's ``E / tp``
+    experts, which take this rank's slice of the dispatch and the combine;
+    the tokens and the gate values enter the region (their gradients
+    summed over "model") and each rank's output, its experts' part of the
+    sum, is summed over "model". ``shared_split``: the shared expert holds
+    this rank's hidden units of a tensor-parallel MLP over "model"
     (``layers.mlp``)."""
     gathered = False
     shards = batch_shards()
@@ -111,8 +142,15 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     pos = pos.reshape(n_groups, g_size, k, e) * disp_onehot - 1.0
     in_cap = ((pos >= 0) & (pos < cap)).to(torch.float32)
     gate_vals = gate_vals * in_cap.amax(dim=-1)                # drop overflow
-    pos_onehot = _one_hot(pos.to(torch.int32), cap)            # [G,T,k,E,C]
     routed = disp_onehot * in_cap
+    xin = xt
+    if experts_split:
+        # this rank's experts: its slice of the expert axis, whose
+        # gradients of the gate values and the tokens are partial
+        routed, pos = model_slice(routed, 3), model_slice(pos, 3)
+        gate_vals = sum_grads_over_model(gate_vals)
+        xin = sum_grads_over_model(xt)
+    pos_onehot = _one_hot(pos.to(torch.int32), cap)            # [G,T,k,E,C]
     dispatch = torch.einsum("gtke,gtkec->gtec", routed, pos_onehot)
     combine = torch.einsum("gtke,gtkec->gtec",
                            gate_vals[..., None] * routed, pos_onehot)
@@ -120,13 +158,15 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     combine = combine.to(dt)
 
     # --- expert computation ---
-    xe = torch.einsum("gtec,gtd->gecd", dispatch, xt)          # [G,E,C,D]
+    xe = torch.einsum("gtec,gtd->gecd", dispatch, xin)         # [G,E,C,D]
     h = torch.einsum("gecd,edf->gecf", xe, p["wi"].to(dt))
     hg = (torch.einsum("gecd,edf->gecf", xe, p["wg"].to(dt))
           if cfg.mlp == "swiglu" else None)
     h = activate(cfg, h, hg)
     ye = torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt))     # [G,E,C,D]
     y = torch.einsum("gtec,gecd->gtd", combine, ye)            # [G,T,D]
+    if experts_split:
+        y = sum_over_model(y)
 
     if cfg.n_shared_experts:
         y = y + mlp(p["shared"], cfg, xt, split=shared_split)
@@ -134,4 +174,5 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return (take_rows(y) if gathered else y), aux.to(torch.float32)
 
 
-__all__ = ["init_moe", "moe_ffn", "_capacity", "_one_hot", "_top_k"]
+__all__ = ["EXPERT_SPLIT", "init_moe", "moe_parts", "moe_ffn", "_capacity",
+           "_one_hot", "_top_k"]

@@ -13,12 +13,28 @@ Two routes through the scan, as in the reference:
   ``torch.utils.checkpoint`` when remat is on. This is the default config's
   path and the model-level plain version of the kernel route.
 
-Under a mesh (``sharding.spmd``) the scan runs once a shard, as the
+Under a mesh (``sharding.spmd``) the mixer runs tensor-parallel over
+"model" where its channels divide the axis (``SSM_SPLIT``): each rank
+holds its run of ``Di / tp`` channels of every leaf, takes its channels of
+x and z from ``in_proj`` (``mamba_forward``), convolves them, sums its
+part of ``x_proj``'s product ``[dt | B | C]`` over "model", expands dt to
+its channels with ``dt_proj``, scans them and sums its part of
+``out_proj``'s product. The scan thus runs once a shard, as the
 reference's ``shard_map`` runs its kernel: each rank scans its own batch
 rows and channels, with no collective inside. Decode is the O(1)
 recurrence step on a carried (conv window, f32 state) cache:
 ``init_mamba_cache`` and ``mamba_decode_step``, plain PyTorch as in the
 reference (no kernel), on this rank's channels under a mesh.
+
+``in_proj`` keeps the reference's layout, one ``[D, 2 Di]`` leaf split on
+its columns, so a rank's columns are not its channels of both x and z (on
+a model axis of 2, rank 0 holds all of x and rank 1 all of z). Training
+and prefill exchange the weight's columns over "model" after the FSDP
+gather (``sharding.spmd.halves_over_model``, an all-to-all of ``D x
+2 Di / tp`` elements a layer, the reverse exchange on its gradient): that
+costs the same at any batch and leaves one product of this rank's
+columns. A decode step exchanges the product instead (``[B, 1, 2 Di /
+tp]``, far smaller than the weight at one token a row).
 """
 from __future__ import annotations
 
@@ -27,10 +43,17 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import selective_scan
-from ..sharding.spmd import (gather_over_model, model_axis, model_slice,
-                              sum_grads_over_model, sum_over_model)
+from ..sharding.spmd import (gather_over_model, halves_over_model,
+                              model_slice, sum_grads_over_model,
+                              sum_over_model)
 from .config import ModelConfig
 from .layers import Params, _dense_init
+
+# the tensor dim of each leaf that the channels split over "model"
+# (``sharding.spmd.split_over_model``): the rules' "ssm_inner"
+SSM_SPLIT = {"in_proj": 1, "conv_w": 1, "conv_b": 0, "x_proj": 0,
+             "dt_proj": 1, "dt_bias": 0, "a_log": 0, "d_skip": 0,
+             "out_proj": 0}
 
 
 def init_mamba(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
@@ -59,9 +82,15 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(x, 0.0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def _ssm_params_from_x(p: Params, cfg: ModelConfig, xc: torch.Tensor):
-    """xc: [..., Di] post-conv activations -> (dt, B, C) selective params."""
+def _ssm_params_from_x(p: Params, cfg: ModelConfig, xc: torch.Tensor,
+                       split: bool = False):
+    """xc: [..., Di] post-conv activations -> (dt, B, C) selective params.
+    ``split``: xc holds this rank's channels and ``p`` their leaves;
+    ``x_proj``'s partial product is summed over "model" (and its gradient,
+    which this rank's channels give in part, too)."""
     dt_bc = torch.matmul(xc, p["x_proj"].to(xc.dtype))
+    if split:
+        dt_bc = sum_grads_over_model(sum_over_model(dt_bc))
     r, n = cfg.ssm_dt_rank, cfg.ssm_state
     dt, b_mat, c_mat = torch.split(dt_bc, [r, n, n], dim=-1)
     # contiguous: a strided operand's product takes another path when the
@@ -154,36 +183,31 @@ def _chunked_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a):
 
 
 def _selective_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a):
-    """The scan by the config's route. Under a mesh (``sharding.spmd``) it
-    runs once a shard, as the reference's ``shard_map`` runs its kernel: on
-    this rank's rows, xc and dt as [B/dp, S, Di/tp] (its run of channels on
-    "model"), B and C as [B/dp, S, N] whole, A as [Di/tp, N], no collective
-    inside; the ranks' outputs are gathered along the channels, and the
-    gradients of B and C (each model rank's part of their sum) are summed
-    over "model"."""
+    """The scan by the config's route, on the channels it is given: under a
+    mesh (``mamba_forward(..., split=True)``) this rank's rows and run of
+    channels, xc and dt as [B/dp, S, Di/tp], B and C as [B/dp, S, N], A as
+    [Di/tp, N], as the reference's ``shard_map`` runs its kernel once a
+    shard, with no collective inside."""
     route = _fused_selective_scan if cfg.ssm_kernel else _chunked_scan
-    axis = model_axis()
-    di = xc32.shape[-1]
-    if axis is None or di % axis[2]:
-        return route(cfg, xc32, dt, b_mat, c_mat, a)
-    _, rank, tp = axis
-    xc32, dt, b_mat, c_mat, a = (sum_grads_over_model(t) for t in
-                                 (xc32, dt, b_mat, c_mat, a))
-    ch = slice(rank * (di // tp), (rank + 1) * (di // tp))
-    y = route(cfg, xc32[..., ch], dt[..., ch], b_mat, c_mat, a[ch])
-    return gather_over_model(y, -1)
+    return route(cfg, xc32, dt, b_mat, c_mat, a)
 
 
-def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
-                  ) -> torch.Tensor:
+def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  split: bool = False) -> torch.Tensor:
     """Training/prefill path. x: [B, S, D] -> [B, S, D].
 
-    S must be divisible by cfg.ssm_chunk (callers pad)."""
+    S must be divisible by cfg.ssm_chunk (callers pad). ``split``: ``p``
+    holds this rank's channels of every leaf (``SSM_SPLIT``) and x is
+    whole over "model"; each rank's output is its part of the sum, added
+    up over the axis."""
     s = x.shape[1]
-    di, kc = cfg.d_inner, cfg.ssm_conv
+    kc = cfg.ssm_conv
     dt_ = x.dtype
-    xz = torch.matmul(x, p["in_proj"].to(dt_))
-    xin, z = torch.split(xz, di, dim=-1)
+    w_in = p["in_proj"]
+    if split:
+        x, w_in = sum_grads_over_model(x), halves_over_model(w_in, 1)
+    xz = torch.matmul(x, w_in.to(dt_))
+    xin, z = torch.split(xz, xz.shape[-1] // 2, dim=-1)
 
     # depthwise causal conv over sequence
     xpad = F.pad(xin, (0, 0, kc - 1, 0))
@@ -193,7 +217,7 @@ def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
         xc = xc + xpad[:, i:i + s, :] * conv_w[i]
     xc = F.silu(xc + p["conv_b"].to(dt_))
 
-    dt, b_mat, c_mat = _ssm_params_from_x(p, cfg, xc)
+    dt, b_mat, c_mat = _ssm_params_from_x(p, cfg, xc, split)
     a = -torch.exp(p["a_log"])                                   # [Di, N]
 
     chunk = min(cfg.ssm_chunk, s)
@@ -204,7 +228,8 @@ def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor
     y = _selective_scan(cfg, xc32, dt, b_mat, c_mat, a)
     y = y + xc32 * p["d_skip"]
     y = y.to(dt_) * F.silu(z)
-    return torch.matmul(y, p["out_proj"].to(dt_))
+    out = torch.matmul(y, p["out_proj"].to(dt_))
+    return sum_over_model(out) if split else out
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
@@ -229,9 +254,10 @@ def mamba_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     split on there, and the cache may hold this rank's channels
     ("ssm_inner" over "model"): then the step runs on them. ``in_proj``
     holds x and z side by side, so its "model" part is not one rank's
-    channels of both: its product ([B, 1, 2 Di], small at decode) is
-    gathered instead of the weight, and each rank keeps its channels of x
-    and z. ``x_proj`` and ``out_proj`` are row-parallel (their partial
+    channels of both: its product ([B, 1, 2 Di / tp], small at decode) is
+    exchanged over "model" into this rank's channels of x and z
+    (``halves_over_model``), or gathered where the cache holds every
+    channel. ``x_proj`` and ``out_proj`` are row-parallel (their partial
     products summed over "model"), ``dt_proj`` column-parallel; the conv,
     ``a_log`` and ``d_skip`` stay local. No leaf is gathered over
     "model"."""
@@ -251,11 +277,14 @@ def mamba_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
     dt_ = x.dtype
     xz = torch.matmul(x, p["in_proj"].to(dt_))
-    if dims.get("in_proj") is not None:
+    if dims.get("in_proj") is not None and split:
+        xz = halves_over_model(xz, -1)              # this rank's x and z
+    elif dims.get("in_proj") is not None:
         xz = gather_over_model(xz, -1)
-    xin, z = torch.split(xz, di, dim=-1)                        # [B,1,Di]
-    if split:
-        xin, z = model_slice(xin, -1), model_slice(z, -1)
+    elif split:
+        xz = torch.cat([model_slice(h, -1) for h in xz.chunk(2, dim=-1)],
+                       dim=-1)
+    xin, z = torch.split(xz, xz.shape[-1] // 2, dim=-1)         # [B,1,Di]
 
     conv_win = torch.cat([cache["conv"], xin], dim=1)           # [B,kc,Di]
     xc = (conv_win * chan("conv_w", 1).to(dt_)).sum(dim=1)
@@ -279,6 +308,7 @@ def mamba_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     return out, {"conv": conv_win[:, 1:], "state": h}
 
 
-__all__ = ["init_mamba", "mamba_forward", "softplus", "_ssm_params_from_x",
-           "_fused_selective_scan", "_chunked_scan", "_selective_scan", "_scan_chunk", "_largest_divisor",
+__all__ = ["SSM_SPLIT", "init_mamba", "mamba_forward", "softplus",
+           "_ssm_params_from_x", "_fused_selective_scan", "_chunked_scan",
+           "_selective_scan", "_scan_chunk", "_largest_divisor",
            "init_mamba_cache", "mamba_decode_step"]

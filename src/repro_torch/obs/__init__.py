@@ -20,7 +20,8 @@ Three layers:
   output (``REPRO_LOG=debug|info|quiet``).
 
 Enable tracing with ``REPRO_TRACE=1`` or ``obs.enable_tracing()``.
-(``obs.report`` and its CLI are not ported yet.)
+``obs.report`` loads, validates and summarizes a run's trace; its CLI is
+``python -m repro_torch.obs``.
 """
 from .trace import (TRACER, Tracer, disable_tracing, enable_tracing, span,
                     tracing_enabled)

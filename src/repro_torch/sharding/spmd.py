@@ -11,31 +11,43 @@ local tensors, once a rank, as the reference's ``shard_map`` regions do:
   an all-gather over every mesh dim a leaf is split on, FSDP's gather;
   its gradient comes back as each rank's part of the sum over the data
   axes, which the train step reduce-scatters into the parameter's shards);
-* the attention, where its heads divide "model", and the dense MLP, where
-  its hidden units do, keep this rank's part there
-  (``split_over_model``: gathered over the other mesh dims only) and run
-  as tensor-parallel products, Megatron's pair: the input whole over
-  "model" passes ``sum_grads_over_model`` and the output, each rank's
-  part of the sum, ``sum_over_model`` (an all-reduce forward);
-* every other product runs whole over "model", repeated on each model
-  rank, except in the two places the reference splits its work there:
-  the context-parallel flash attention (each rank's query positions) and
-  the selective scan (each rank's channels). Each region's inputs pass
-  ``sum_grads_over_model`` (the identity forward; its gradient summed over
-  "model" backward, as ``shard_map``'s transpose sums a replicated input)
-  and its output ``gather_over_model`` (an all-gather forward; each rank's
-  slice of the gradient backward).
+* every product whose leaves the rules split over "model" keeps this
+  rank's part there (``split_over_model``: gathered over the other mesh
+  dims only) and runs as a tensor-parallel product, Megatron's pair: the
+  input whole over "model" passes ``sum_grads_over_model`` and the output,
+  each rank's part of the sum, ``sum_over_model`` (an all-reduce forward).
+  These are the attention's and the cross-attention's heads, MLA's heads
+  (``wq`` / ``wq_b``, ``wk_b``, ``wv_b``, ``wo``; its ``wq_a`` and
+  ``wkv_a`` stay whole, as their specs say, and their outputs enter the
+  region), the dense MLP's and the shared expert's hidden units, the
+  routed experts (each rank its ``E / tp`` experts' slice of the dispatch
+  and the combine), the Mamba mixer's channels (its ``in_proj`` columns
+  exchanged into this rank's channels of x and z, ``halves_over_model``;
+  ``x_proj`` and ``out_proj`` row-parallel, ``dt_proj`` column-parallel),
+  and the unembedding's vocabulary in the cross-entropy (each rank's
+  logits, their log-sum-exp from ``max_over_model`` and ``sum_over_model``);
+* what the specs keep whole over "model" runs whole, repeated on each
+  model rank: the norms, the router, MLA's ``wq_a`` and ``wkv_a``, the
+  embeddings, and any dimension the axis does not divide (the resolver
+  leaves it whole: whisper's vocabulary of 51865, hymba's 25 heads). Two
+  such places still split their work, as the reference does: the
+  context-parallel flash attention (each rank's query positions) and the
+  selective scan of whole channels (each rank's channels). Each region's
+  inputs pass ``sum_grads_over_model`` (the identity forward; its gradient
+  summed over "model" backward, as ``shard_map``'s transpose sums a
+  replicated input) and its output ``gather_over_model`` (an all-gather
+  forward; each rank's slice of the gradient backward).
 
 Serving (``Model.prefill``, ``Model.decode_step``) runs the same way,
 under no gradient, with the batch placed by any of the reference's rule
 sets (``spmd(mesh, rows, rules)``: under ``LONG_CONTEXT_RULES`` every rank
 holds the whole batch). A decode step never gathers a leaf that the rules
-split over "model" (but MLA's weights and the routed experts, whole as in
-training): it computes with the leaf's "model" part (``model_part``) and
-gathers or sums the small activations instead; attention over a cache
-split on its slots combines each rank's softmax statistics in rank order
-(``combine_softmax_over_model``), and the greedy token is the argmax over
-the ranks' runs of the vocabulary (``argmax_over_model``).
+split over "model": it computes with the leaf's "model" part
+(``model_part``) and gathers, exchanges or sums the small activations
+instead; attention over a cache split on its slots combines each rank's
+softmax statistics in rank order (``combine_softmax_over_model``), and
+the greedy token is the argmax over the ranks' runs of the vocabulary
+(``argmax_over_model``).
 
 DTensor holds the layouts (placing, ``to_local`` / ``from_local``, the
 optimizer's elementwise formulas), not the model's ops, and the
@@ -270,19 +282,24 @@ def whole_params(tree):
                              tuple(layout))
 
 
-def split_over_model(tree: dict, dims: dict):
+def split_over_model(tree: dict, dims: dict, whole: tuple = ()):
     """A sublayer's parameters for a tensor-parallel product over "model"
     (Megatron's column- then row-parallel pair): ``(tree, True)`` with each
-    leaf gathered over every mesh dim but "model" and this rank's part
-    kept there, when ``dims`` names every leaf of ``tree`` and each is a
-    DTensor split over "model" on that tensor dim and on no other mesh
-    dim (so a rank's part is one contiguous block); else
-    ``(whole_params(tree), False)``. Without a model axis of two or more
-    it is always the latter."""
-    if model_axis() is None or not set(tree) <= set(dims) or any(
-            _own_model_dim(x) != dims[k] for k, x in tree.items()):
+    leaf that ``dims`` names gathered over every mesh dim but "model" and
+    this rank's part kept there, and each leaf that ``whole`` names
+    gathered whole (its spec keeps it whole over "model": MLA's ``wq_a``
+    and ``wkv_a``), when every other leaf of ``tree`` is a DTensor split
+    over "model" on its ``dims`` tensor dim and on no other mesh dim (so a
+    rank's part is one contiguous block: a head axis, an expert axis, a
+    run of channels or of the vocabulary); else ``(whole_params(tree),
+    False)``. Without a model axis of two or more it is always the
+    latter."""
+    parts = {k: x for k, x in tree.items() if k not in whole}
+    if model_axis() is None or not set(parts) <= set(dims) or any(
+            _own_model_dim(x) != dims[k] for k, x in parts.items()):
         return whole_params(tree), False
-    return {k: _keep_model_part(x) for k, x in tree.items()}, True
+    return {k: whole_params(x) if k in whole else _keep_model_part(x)
+            for k, x in tree.items()}, True
 
 
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
@@ -398,6 +415,80 @@ def sum_grads_over_model(x: torch.Tensor) -> torch.Tensor:
     gradient (each rank's part) summed over the axis."""
     axis = model_axis()
     return x if axis is None else _SumGrads.apply(x, axis[0])
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over "model" (``x`` itself without a
+    model axis), with no gradient: the shift of a log-sum-exp, whose
+    gradient does not depend on it. Taken from every rank's ``x`` gathered
+    in rank order, so every rank holds the same bits."""
+    x = x.detach()
+    return x if model_axis() is None else _stack_over_model(x).amax(dim=0)
+
+
+def _halves_chunks(rank: int, tp: int, inverse: bool):
+    """The bookkeeping of ``halves_over_model``: a dim of two halves in
+    ``2 tp`` equal chunks, chunk ``j`` of the leaf's layout held by rank
+    ``j // 2`` and wanted by rank ``j % tp`` (chunk ``s`` is rank ``s``'s
+    part of the first half, chunk ``tp + s`` of the second). Returns (the
+    chunks this rank holds, those it wants, each chunk's sender, each
+    chunk's receiver), forward or ``inverse``."""
+    layout, chans = [2 * rank, 2 * rank + 1], [rank, tp + rank]
+    owner, user = (lambda j: j // 2), (lambda j: j % tp)
+    if inverse:
+        return chans, layout, user, owner
+    return layout, chans, owner, user
+
+
+def _exchange_halves(t, dim: int, group, rank: int, tp: int,
+                     inverse: bool) -> torch.Tensor:
+    """One all-to-all over "model" of ``t``'s chunks along ``dim``
+    (``_halves_chunks``), in the rank order of the group on every rank."""
+    have, want, sender, receiver = _halves_chunks(rank, tp, inverse)
+    u = t.shape[dim] // len(have)
+    t = t.movedim(dim, 0)
+    pieces = dict(zip(have, t.split(u)))
+    send = sorted(have, key=lambda j: (receiver(j), j))
+    recv = sorted(want, key=lambda j: (sender(j), j))
+    inp = torch.cat([pieces[j] for j in send]).contiguous()
+    out = inp.new_empty((len(want) * u, *inp.shape[1:]))
+    dist.all_to_all_single(
+        out, inp, [sum(sender(j) == q for j in want) * u for q in range(tp)],
+        [sum(receiver(j) == q for j in have) * u for q in range(tp)],
+        group=group)
+    got = dict(zip(recv, out.split(u)))
+    return torch.cat([got[j] for j in want]).movedim(0, dim)
+
+
+class _Halves(torch.autograd.Function):
+    """``_exchange_halves`` forward; the reverse exchange of the gradient
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, rank, size):
+        ctx.args = (dim, group, rank, size)
+        return _exchange_halves(x, dim, group, rank, size, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_exchange_halves(g, *ctx.args, True).contiguous(), None,
+                None, None, None)
+
+
+def halves_over_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """A tensor split over "model" along ``dim`` in the rules' layout of a
+    dim made of two halves (Mamba's ``in_proj`` columns ``[x | z]``, or
+    their product): this rank's contiguous block in, this rank's run of
+    channels of each half side by side out, ``[x_r | z_r]``. On a model
+    axis of 2, rank 0's block is all of x and rank 1's all of z; an
+    all-to-all over "model" sends each run to its rank (a quarter of the
+    block each way there), and the gradient goes back by the reverse
+    exchange. ``x`` itself without a model axis."""
+    axis = model_axis()
+    if axis is None:
+        return x
+    group, rank, size = axis
+    return _Halves.apply(x, dim % x.dim(), group, rank, size)
 
 
 def gather_over_model(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -568,6 +659,7 @@ __all__ = ["place", "replicas", "local_shard", "local_shape", "batch_layout",
            "whole_params", "split_over_model", "full_value", "batch_sum",
            "batch_shards", "as_batch_partial", "as_batch_rows",
            "model_axis", "sum_grads_over_model", "sum_over_model",
-           "gather_over_model", "model_dim", "model_part", "model_parts",
+           "max_over_model", "halves_over_model", "gather_over_model",
+           "model_dim", "model_part", "model_parts",
            "model_slice", "combine_softmax_over_model", "argmax_over_model",
            "row_shard_index", "gather_rows", "take_rows"]

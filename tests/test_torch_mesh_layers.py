@@ -186,37 +186,46 @@ for name, cfg, tokens in (
     x_mesh, _ = forward_and_grads(cfg, tokens, True)
     out[name] = {"calls": spied["cp"], "x_rel": rel(x_mesh, x_one)}
 
-# the scan once a shard: this rank's rows, its channels on "model", B and C
-# whole; their gradients (each model rank's part) summed over "model"
+# the scan once a shard: a Mamba layer on this rank's rows with its
+# channels of every leaf on "model" (the part ``block_params`` keeps), B
+# and C whole; their gradients (each model rank's part) summed over
+# "model", which x_proj's gradient (B's and C's columns) and x's show
 rng = np.random.default_rng(4)
-b_, s_, di, n = 4, 32, 24, 8
-leaves = {"xc": rng.normal(0, 1, (b_, s_, di)),
-          "dt": rng.uniform(0.01, 0.2, (b_, s_, di)),
-          "bm": rng.normal(0, 1, (b_, s_, n)),
-          "cm": rng.normal(0, 1, (b_, s_, n)),
-          "a": -rng.uniform(0.5, 2.0, (di, n))}
-dy = rng.normal(0, 1, (b_, s_, di))
+b_, s_, n = 4, 32, 8
+scfg = reduced(get_config("falcon-mamba-7b"), d_model=12, ssm_state=n,
+               ssm_chunk=8, ssm_kernel=True)
+layer = S.init_mamba(torch.Generator().manual_seed(4), scfg)
+x_all = torch.tensor(rng.normal(0, 1, (b_, s_, 12)), dtype=torch.float32)
+dy = torch.tensor(rng.normal(0, 1, (b_, s_, 12)), dtype=torch.float32)
 rows = slice(mesh.get_local_rank("data") * 2,
              mesh.get_local_rank("data") * 2 + 2)
-scfg = reduced(get_config("falcon-mamba-7b"), ssm_state=n, ssm_chunk=8,
-               ssm_kernel=True)
+model_rank = mesh.get_local_rank("model")
+
+
+def channels(k, t):
+    """this model rank's block of a leaf along its SSM_SPLIT dim"""
+    dim = S.SSM_SPLIT[k]
+    size = t.shape[dim] // 2
+    return t.narrow(dim, model_rank * size, size)
+
+
 scan_out = {}
 for meshed in (False, True):
     spied["scan"] = []
-    ts = {k: torch.tensor(v[rows] if k != "a" else v, dtype=torch.float32,
-                          requires_grad=True) for k, v in leaves.items()}
+    ps = {k: (channels(k, v) if meshed else v).clone().requires_grad_()
+          for k, v in layer.items()}
+    xs = x_all[rows].clone().requires_grad_()
     ctx = SP.spmd(mesh, b_) if meshed else contextlib.nullcontext()
     with ctx:
-        y = S._selective_scan(scfg, *ts.values())
-        grads = torch.autograd.grad(
-            (y * torch.tensor(dy[rows], dtype=torch.float32)).sum(),
-            list(ts.values()))
-    scan_out[meshed] = (y.detach(), [g.detach() for g in grads],
+        y = S.mamba_forward(ps, scfg, xs, split=meshed)
+        grads = torch.autograd.grad((y * dy[rows]).sum(),
+                                    [xs, *ps.values()])
+    scan_out[meshed] = (y.detach(), dict(zip(["x", *ps], grads)),
                         list(spied["scan"]))
 (y0, g0, _), (y1, g1_, shapes) = scan_out[False], scan_out[True]
 out["scan"] = {"shapes": shapes, "y_err": float((y1 - y0).abs().max()),
-               "grad_err": {k: rel(b, a) for k, a, b in
-                            zip(leaves, g0, g1_)}}
+               "grad_err": {k: rel(g1_[k], g0[k] if k == "x" else
+                                   channels(k, g0[k])) for k in g0}}
 
 # three meshed steps of each optimizer from the reference's parameters
 ocfg = OptConfig(learning_rate=1e-3, warmup_steps=1, decay_steps=10)
@@ -338,9 +347,12 @@ def test_scan_runs_once_a_shard_on_its_local_tensors(world):
 
 
 def test_scan_gradients_of_b_and_c_are_summed_over_the_model_axis(world):
+    """B and C come out of ``x_proj`` (their columns): its gradient and the
+    input's hold one device's only where B's and C's are summed over
+    "model"; every other leaf's too."""
     got = world["scan"]
     assert got["y_err"] <= 1e-6
-    assert got["grad_err"]["bm"] <= 1e-6 and got["grad_err"]["cm"] <= 1e-6
+    assert got["grad_err"]["x_proj"] <= 1e-6 and got["grad_err"]["x"] <= 1e-6
     assert max(got["grad_err"].values()) <= 1e-6
 
 

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 import subprocess
 import sys
 
@@ -419,15 +418,10 @@ def test_decode_attention_takes_the_layout_of_its_cache(world, case):
 def test_serving_decode_gathers_no_parameter_split_over_model(world, case):
     """Under ``SERVING_RULES`` the parameters are repeated over "data"
     (fsdp -> None) and a decode step gathers none of those split over
-    "model", but for the two exceptions ROADMAP names: MLA's weights and
-    the MoE experts."""
+    "model": MLA's heads and the routed experts included."""
     got = world[case]
     assert got["serving_repeats_over_data"]
-    allowed = [n for n in got["gathered_over_model"]
-               if (".attn." in n and case.startswith("deepseek"))
-               or (re.fullmatch(r"blocks\.\d+\.mlp\.w[igo]", n)
-                   and case.startswith(("olmoe", "deepseek")))]
-    assert got["gathered_over_model"] == allowed, got["gathered_over_model"]
+    assert got["gathered_over_model"] == [], got["gathered_over_model"]
 
 
 @pytest.mark.parametrize("arch,over,rules", REF_CASES,

@@ -437,17 +437,22 @@ def test_launcher_places_each_microbatch_of_the_host_batch(world):
 @pytest.mark.parametrize("arch", TP_ARCHS)
 def test_attention_and_dense_mlp_run_tensor_parallel_over_model(world,
                                                                 arch):
-    """On (2, 2) every block's attention (its heads dividing "model") and
-    dense MLP hold half their heads / hidden units and are marked split;
-    MLA (deepseek) and the MoE experts (olmoe, deepseek's routed layers)
-    are gathered whole; on (4, 1) nothing is split."""
+    """On (2, 2) every block's attention (its heads dividing "model"; MLA's
+    too, its ``wkv_a`` whole) and dense MLP hold half their heads / hidden
+    units and are marked split, and a MoE layer (olmoe, deepseek's routed
+    layers) holds half its experts; on (4, 1) nothing is split."""
     got = world[f"tp_{arch}_2"]
     d, ff, h, hk = got["d_model"], got["d_ff"], got["heads"], got["kv_heads"]
     mla = arch.startswith("deepseek")
     for i, block in enumerate(got["blocks"]):
         split, shapes = block["attn"]
-        assert split is not mla
-        if not mla:
+        assert split
+        if mla:     # wq, wkv_a, wk_b, wv_b, wo
+            assert [s[:2] for s in shapes] == [[d, h // 2], [d, shapes[1][1]],
+                                               [shapes[2][0], h // 2],
+                                               [shapes[3][0], h // 2],
+                                               [h // 2, shapes[4][1]]]
+        else:
             assert shapes[:4] == [[d, h // 2, d // h], [d, hk // 2, d // h],
                                   [d, hk // 2, d // h], [h // 2, d // h, d]]
         split, shapes = block["mlp"]
@@ -455,5 +460,7 @@ def test_attention_and_dense_mlp_run_tensor_parallel_over_model(world,
         assert split is dense
         if dense:
             assert shapes[0] == [d, ff // 2] and shapes[-1] == [ff // 2, d]
+        else:       # router, wi, wg, wo: half the 8 experts
+            assert shapes[0] == [d, 8] and [s[0] for s in shapes[1:]] == [4] * 3
     assert not any(split for block in world[f"tp_{arch}_1"]["blocks"]
                    for split, _ in block.values())
