@@ -212,7 +212,11 @@ Phases, each fatal on error (exit code 1, no result line):
     trace, its step ms and TFLOP/s, and its peak memory beside the
     dry-run's argument and temp bytes on one device; (e) the dry-run cells
     of ``dryrun_tasks`` on host worker processes during (a)-(d), each
-    record sane, seconds per cell.
+    record rank 0 of its production mesh (``launch.mesh.counting_world``)
+    and sane, with the rank's FLOPs over an ideal split of one device's
+    (not a gate: the port repeats on every model rank what the rules keep
+    whole), its temp bytes and its collectives by kind, seconds per
+    cell.
 24. population sharding: engines over ``["cuda:0"] * k`` for k in {2, 4}
     (and over every visible card where there are several), each shard its
     own dispatch, adaptive loops and kernel launches: ``evaluate_genomes``
@@ -252,7 +256,11 @@ Phases, each fatal on error (exit code 1, no result line):
     ranks map, 2 AdamW steps in world 1 and in the same (2, 2) world (MLA's
     heads, 32 experts a model rank, a vocabulary-parallel cross-entropy
     over 102400 words), held to world 1 by (c)'s gates, each rank's bytes
-    of parameters and AdamW state logged. ``python3 chip_smoke.py --phase
+    of parameters and AdamW state logged; rank 0 counts its first step
+    as the dry-run counts (``FlopCounterMode`` and ``StepCounter``), and
+    its FLOPs and each collective's count and result bytes by kind must
+    equal exactly the meta count of the same rank, step and mesh, taken
+    on a spawned host process meanwhile. ``python3 chip_smoke.py --phase
     25`` runs this phase alone.
 26. serving on a ``torch.distributed`` device mesh: hymba-1.5b at its
     published widths cut to 4 layers (the scan kernels), qwen2.5-3b and
@@ -276,8 +284,10 @@ Phases, each fatal on error (exit code 1, no result line):
     1e-4 and every greedy token equal, bfloat16 reported; decode ms a step,
     tokens/s, prefill tokens/s, each rank's bytes of parameters and cache,
     a decode step's collectives by kind, and B7 held against its plain
-    version and timed at the shard's shape beside its bound. ``python3
-    chip_smoke.py --phase 26`` runs this phase alone.
+    version and timed at the shard's shape beside its bound; rank 0 counts
+    one more ``SERVING_RULES`` decode step of deepseek, held exactly to the
+    dry-run's meta count as in phase 25. ``python3 chip_smoke.py --phase
+    26`` runs this phase alone.
 
 Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20, 21, 22,
 23, 24, 25, 26)
@@ -424,7 +434,7 @@ REMAT_ARCH = "hymba-1.5b"
 ICI_BYTES, ICI_RTOL, RING_ALLGATHER_REL = 4e9, 1e-5, 1e-6
 ICI_KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all")
 RANK_SHAPE = {"data": 16, "model": 16}
-DRYRUN_WORKERS = 6
+DRYRUN_WORKERS = 7
 # the cells (dryrun_tasks): every arch at decode_32k (and long_500k where
 # it runs) on 16x16; train_4k on 16x16 for the archs whose trace fits the
 # phase (falcon-mamba-7b, hymba-1.5b, llava-next-34b and nemotron-4-15b
@@ -3241,35 +3251,57 @@ def train_families_path(torch, dev, zero_counts, read_counts, clock_hz,
 
 def dryrun_tasks() -> list:
     """Phase 23's host work, longest first: dry-run cells as ("dryrun",
-    arch, shape, variant, meshes) and the CPU side of the card's
-    interconnect checks."""
+    arch, shape, variant, multi_pod), rank 0 of the production mesh each;
+    the one-device count of each cell's step as ("ideal", arch, shape,
+    variant), once for every variant that changes the step's products
+    (``ideal_variant``); and the CPU side of the card's interconnect
+    checks."""
     from repro_torch.configs import ARCH_IDS
     from repro_torch.launch.dryrun import VARIANTS
 
     both, single = (False, True), (False,)
-    tasks = [("dryrun", DRYRUN_ARCH, "prefill_32k", "baseline", both)]
-    tasks += [("dryrun", a, "train_4k", "baseline",
+    cells = [(DRYRUN_ARCH, "prefill_32k", "baseline", both)]
+    cells += [(a, "train_4k", "baseline",
                both if a == DRYRUN_ARCH else single) for a in DRYRUN_TRAIN]
     # each variant where it changes the step: the accumulation buffer's
     # layout and the bf16 gather at train_4k, the fused scan on the SSM
     # arch's train step; every variant at decode_32k (serve_tp's rules)
-    tasks += [("dryrun", DRYRUN_ARCH, "train_4k", v, single)
+    cells += [(DRYRUN_ARCH, "train_4k", v, single)
               for v in ("accum_rs", "bf16_gather")]
-    tasks += [("dryrun", "falcon-mamba-7b", "train_4k", "ssm_fused", single)]
-    tasks += [("dryrun", DRYRUN_ARCH, "decode_32k", v, both)
-              for v in VARIANTS]
-    tasks += [("dryrun", DRYRUN_ARCH, "long_500k", "baseline", both)]
-    tasks += [("dryrun", a, s, "baseline", single) for a in ARCH_IDS
+    cells += [("falcon-mamba-7b", "train_4k", "ssm_fused", single)]
+    cells += [(DRYRUN_ARCH, "decode_32k", v, both) for v in VARIANTS]
+    cells += [(DRYRUN_ARCH, "long_500k", "baseline", both)]
+    cells += [(a, s, "baseline", single) for a in ARCH_IDS
               if a != DRYRUN_ARCH for s in ("decode_32k", "long_500k")]
+    order = {"prefill_32k": 0, "train_4k": 1}
+    work = [("dryrun", a, s, v, multi) for a, s, v, meshes in cells
+            for multi in meshes]
+    work += sorted({("ideal", a, s, ideal_variant(a, v))
+                    for a, s, v, _ in cells})
+    # the pool takes the tasks in this order, so the last to start are
+    # short: a shape's rank counts before its one-device count (a train
+    # step's is traced as one microbatch)
+    tasks = sorted(work, key=lambda t: (order.get(t[2], 2), t[0] == "ideal"))
     tasks += [("rank", a) for a in ARCH_IDS]
     tasks += [("estimates", rows, wrap) for rows in (16, 4)
               for wrap in (True, False)]
     return tasks
 
 
+def ideal_variant(arch: str, variant: str) -> str:
+    """The variant whose one-device step has ``variant``'s products: the
+    baseline's, but for the fused scan of an SSM arch (the rules, the
+    accumulation buffer's layout and a bf16 cast change no product)."""
+    from repro_torch.configs import get_config
+    if variant == "ssm_fused" and get_config(arch).uses_ssm:
+        return variant
+    return "baseline"
+
+
 def host_task(task):
     """One unit of phase 23's host work, in a worker process (one thread):
-    a dry-run task's records, each with its wall seconds, or the CPU's
+    a dry-run cell's record with its wall seconds, the one-device FLOPs of
+    a cell's step (None where the shape does not apply), or the CPU's
     ``rank_layouts`` / ``estimate_collective`` results."""
     if os.path.join(ROOT, "src") not in sys.path:
         sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -3278,18 +3310,24 @@ def host_task(task):
     import repro_torch.core  # noqa: F401  (the routing package's order)
     from repro_torch.configs import get_config
     from repro_torch.core.ici_model import estimate_collective
-    from repro_torch.launch.dryrun import lower_cell
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models import SHAPES_BY_NAME, shape_applicable
     from repro_torch.sharding.autoshard import rank_layouts
 
     t0 = time.perf_counter()
     if task[0] == "dryrun":
-        _, arch, shape, variant, meshes = task
-        traces, out = {}, []
-        for multi in meshes:
-            t1 = time.perf_counter()
-            rec = lower_cell(arch, shape, multi, variant=variant,
-                             traces=traces)
-            out.append(dict(rec, cell_s=time.perf_counter() - t1))
+        _, arch, shape, variant, multi = task
+        out = D.lower_cell(arch, shape, multi, variant=variant)
+    elif task[0] == "ideal":
+        _, arch, shape, variant = task
+        cfg = D.variant_config(get_config(arch), variant)
+        spec = SHAPES_BY_NAME[shape]
+        out = None
+        if shape_applicable(cfg, spec)[0]:
+            # one device's products do not depend on the microbatch count
+            # (the same FLOPs at every train_4k cell; a single microbatch
+            # is traced in a quarter to an eighth of the time)
+            out = D.count_step(cfg, spec)["flops"]
     elif task[0] == "rank":
         out = rank_layouts(get_config(task[1]), 256, 4096, RANK_SHAPE,
                            device="cpu")
@@ -3508,7 +3546,7 @@ def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
         pool.join()
 
     worst = 0.0
-    records, task_s = [], {}
+    records, ideal, task_s = [], {}, {}
     for task, out, secs in results:
         task_s["/".join(str(t) for t in task)] = secs
         if task[0] == "estimates":
@@ -3537,13 +3575,19 @@ def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
                          f"{g['total_s']} on the card, {w['total_s']} on "
                          f"the host")
                 worst = max(worst, abs(g["total_s"] / w["total_s"] - 1))
+        elif task[0] == "ideal":
+            ideal[task[1:]] = out
         else:
-            records += out
+            records.append(dict(out, cell_s=secs))
+    cells = {}
     for r in records:
+        name = f"{r['arch']}/{r['shape']}/{r['mesh']}/" \
+               f"{r.get('variant', 'baseline')}"
         if r["skipped"]:
             if "full-attention" not in r["reason"]:
                 fail(f"phase 23: {r['arch']} {r['shape']} skipped: "
                      f"{r['reason']}")
+            cells[name] = None
             continue
         vals = [r["flops_per_device"], r["bytes_per_device"],
                 r["collective_bytes_per_device"],
@@ -3551,22 +3595,34 @@ def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
         if not all(np.isfinite(v) and v > 0 for v in vals):
             fail(f"phase 23: the dry-run record of {r['arch']} {r['shape']} "
                  f"{r['mesh']} {r['variant']} is not sane: {vals}")
+        # the rank's FLOPs against an ideal split of one device's
+        whole = ideal[(r["arch"], r["shape"],
+                       ideal_variant(r["arch"], r["variant"]))]
+        cells[name] = {
+            "cell_s": r["cell_s"], "lower_s": r["lower_s"],
+            "flops_per_device": r["flops_per_device"],
+            "ideal_ratio": r["flops_per_device"] / (whole / r["n_devices"]),
+            "temp_bytes": r["memory"]["temp_bytes"],
+            "collective_op_counts": r["collective_op_counts"],
+            "collective_breakdown": r["collective_breakdown"]}
+    for name, c in sorted(cells.items()):
+        if c is None:
+            continue
+        log(f"phase 23: rank 0 of {name}: {c['flops_per_device']:.4g} "
+            f"FLOPs, {c['ideal_ratio']:.4f} x the ideal split, temp "
+            f"{c['temp_bytes'] / 2**30:.3f} GiB, collectives " + ", ".join(
+                f"{k} {n} ({c['collective_breakdown'][k] / 2**30:.4g} GiB)"
+                for k, n in c["collective_op_counts"].items() if n) +
+            f" ({c['cell_s']:.1f} s)")
     rec.update(
         estimates_on_card=calls, max_rel_err_vs_host=worst,
         rankings={a: [r["rules"] for r in v] for a, v in ranked.items()},
-        dryrun_cells={f"{r['arch']}/{r['shape']}/{r['mesh']}/"
-                      f"{r.get('variant', 'baseline')}":
-                      (None if r["skipped"] else
-                       {"cell_s": r["cell_s"], "lower_s": r["lower_s"],
-                        "flops_per_device": r["flops_per_device"],
-                        "temp_bytes": r["memory"]["temp_bytes"]})
-                      for r in records},
-        host_task_s=task_s)
-    log(f"phase 23: {len(records)} dry-run records on {DRYRUN_WORKERS} host "
-        f"workers ({sum(task_s.values()):.1f} s of host work, "
-        f"{rec['host_wait_s']:.1f} s waited after the card's part); every "
-        f"estimate and ranking within {worst:.3g} of the host's; rankings "
-        f"{rec['rankings']} ({card})")
+        dryrun_cells=cells, host_task_s=task_s)
+    log(f"phase 23: {len(records)} dry-run records (rank 0 of each mesh) on "
+        f"{DRYRUN_WORKERS} host workers ({sum(task_s.values()):.1f} s of "
+        f"host work, {rec['host_wait_s']:.1f} s waited after the card's "
+        f"part); every estimate and ranking within {worst:.3g} of the "
+        f"host's; rankings {rec['rankings']} ({card})")
     return rec
 
 
@@ -3774,10 +3830,15 @@ def _mesh_batches(torch, dev, cfg) -> list:
     return [to_device(source.batch_at(i), dev) for i in range(MESH_STEPS)]
 
 
-def _mesh_steps(torch, state, step, batches, mesh, comm_on_last=False):
+def _mesh_steps(torch, state, step, batches, mesh, comm_on_last=False,
+                count_first=None):
     """``MESH_STEPS`` steps; returns (state, [(loss, grad_norm)], step
-    seconds, the collectives of the last step by kind or None)."""
+    seconds, the collectives of the last step by kind or None). With
+    ``count_first`` (a dict) the first step, whose time no rate uses, runs
+    under the dry-run's counters (``launch.dryrun.trace_counts``) and its
+    FLOPs and collectives go into ``count_first``."""
     from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.launch.dryrun import trace_counts
     from repro_torch.sharding.rules import distribute_batch
     metrics, secs, comms = [], [], None
     for i, b in enumerate(batches):
@@ -3792,6 +3853,12 @@ def _mesh_steps(torch, state, step, batches, mesh, comm_on_last=False):
                 state, m = step(state, b)
             comms = {str(k).rsplit(".", 1)[-1]: v
                      for k, v in mode.get_comm_counts().items()}
+        elif count_first is not None and i == 0:
+            out = {}
+            count_first.update(_count_summary(trace_counts(
+                lambda: out.update(zip(("state", "m"), step(state, b))),
+                (state, b))))
+            state, m = out["state"], out["m"]
         else:
             state, m = step(state, b)
         metrics.append((m["loss"].item(), m["grad_norm"].item()))
@@ -3899,7 +3966,7 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
                             **({"device_id": dev} if backend == "nccl"
                                else {}))
     try:
-        sizes = (2, 2) if world == 4 else (1, world)
+        sizes = _world_mesh(world)
         mesh = make_device_mesh(sizes)
         seen = {"cp": 0, "scan": []}
         real_cp, real_scan = L._context_parallel_flash, S.selective_scan
@@ -4012,13 +4079,18 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
         model, state, step = _moe_mesh_model(torch, dev, mesh, path)
         batches = _mesh_batches(torch, dev, model.cfg)
         moe_build_s = time.perf_counter() - t0
+        # rank 0 counts its first step as the dry-run does (its FLOPs and
+        # collectives; the parent holds them to the meta count)
+        card_count = {} if rank == 0 else None
         state, metrics, secs, comms = _mesh_steps(
-            torch, state, step, batches, mesh, comm_on_last=True)
+            torch, state, step, batches, mesh, comm_on_last=True,
+            count_first=card_count)
         t0 = time.perf_counter()
         worst, moment, per_rank = _against_world1(
             torch, dist, state, os.path.join(workdir, "moe_world1.pt"),
             mesh, dev, world, {"experts_a_rank": model.blocks[-1].mlp.wi
                                .to_local().shape[0]})
+        compare_s = time.perf_counter() - t0
         if rank == 0:
             step_s = statistics.median(secs[1:]) if len(secs) > 1 \
                 else secs[0]
@@ -4028,13 +4100,83 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
                           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_s,
                           "comms_last_step": comms, "max_param_diff": worst,
                           "moment_rel_diff": moment,
-                          "compare_s": time.perf_counter() - t0,
-                          "per_rank": per_rank}
+                          "compare_s": compare_s, "per_rank": per_rank,
+                          "card_count": card_count}
             with open(os.path.join(workdir, "result.json"), "w") as f:
                 json.dump(rec, f)
         dist.all_reduce(torch.zeros(1, device=dev))
     finally:
         dist.destroy_process_group()
+
+
+def _count_summary(counts: dict) -> dict:
+    """A rank's FLOPs and collectives of ``launch.dryrun.trace_counts``'
+    counts: "flops", and "ops/<kind>/<group size>" and
+    "coll/<kind>/<group size>" (result bytes)."""
+    return {k: v for k, v in counts.items()
+            if k == "flops" or k.startswith(("ops/", "coll/"))}
+
+
+def meta_rank_count(sizes, kind: str) -> dict:
+    """The dry-run's meta count of rank 0 of a ``sizes`` ("data", "model")
+    mesh (``launch.mesh.counting_world``) running ``MOE_ARCH``'s step as
+    phases 25 and 26 run it on the card: a train step of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` under ``DEFAULT_RULES`` (``_moe_cfg``), or a
+    ``SERVING_RULES`` decode step of ``SERVE_BATCH`` rows at the last
+    position of a cache of ``SERVE_PROMPT + SERVE_MESH_NEW`` slots
+    (``_serve_cfg``). Runs in a spawned host process: a rank of a meshed
+    world has its process group, and a count needs a process without
+    one."""
+    if os.path.join(ROOT, "src") not in sys.path:
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+    torch.set_num_threads(1)
+    from repro_torch.launch import dryrun as D
+    from repro_torch.launch.mesh import counting_world
+    from repro_torch.models import ShapeSpec
+    from repro_torch.sharding import MeshShape
+    t0 = time.perf_counter()
+    if kind == "train":
+        cfg, rules = _moe_cfg(), _serve_rule_sets()["default"]
+        spec = ShapeSpec("card_count", TRAIN_SEQ, TRAIN_BATCH, "train")
+    else:
+        cfg = _serve_cfg(MOE_ARCH, "float32")
+        rules = _serve_rule_sets()["serving"]
+        spec = ShapeSpec("card_count", SERVE_PROMPT + SERVE_MESH_NEW,
+                         SERVE_BATCH, "decode")
+    with counting_world(MeshShape(("data", "model"), tuple(sizes))) as mesh:
+        counts = D.trace_counts(*D.step_program(cfg, spec, mesh=mesh,
+                                                rules=rules))
+    return dict(_count_summary(counts), count_s=time.perf_counter() - t0)
+
+
+def _start_meta_count(sizes, kind: str):
+    """(pool, pending result) of ``meta_rank_count`` in one spawned host
+    process, which runs while the meshed world does."""
+    import multiprocessing
+    pool = multiprocessing.get_context("spawn").Pool(1)
+    return pool, pool.apply_async(meta_rank_count, (tuple(sizes), kind))
+
+
+def _hold_count(phase: int, what: str, card: dict, pending) -> dict:
+    """Rank 0's count of ``what`` on the card against the dry-run's meta
+    count of the same rank, step and mesh: the FLOPs and each collective's
+    count and result bytes by kind and group size exactly, or the run
+    fails. Returns both and the meta count's seconds."""
+    meta = dict(pending.get(timeout=MESH_WORLD_TIMEOUT))
+    secs = meta.pop("count_s")
+    diff = {k: (card.get(k), meta.get(k)) for k in sorted(set(card) |
+                                                           set(meta))
+            if card.get(k) != meta.get(k)}
+    if diff:
+        fail(f"phase {phase}: rank 0's count of {what} on the card differs "
+             f"from the dry-run's meta count (card, meta): {diff}")
+    log(f"phase {phase}: rank 0's count of {what} on the card equals the "
+        f"dry-run's meta count: {card['flops']:.6g} FLOPs, " + ", ".join(
+            f"{k[4:]} {v} ({card['coll/' + k[4:]]} bytes)"
+            for k, v in card.items() if k.startswith("ops/")) +
+        f" (meta count {secs:.1f} s on the host)")
+    return {"card": card, "meta_count_s": secs}
 
 
 def _in_scratch_world(phase, torch, dev, zero_counts, read_counts) -> dict:
@@ -4098,6 +4240,9 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
     # (c)'s ranks start now and build their models while (a) runs; they
     # take their steps once (a)'s results are written
     world, backend = _start_mesh_world(torch, work, procs)
+    # the dry-run's count of the step rank 0 counts on the card
+    count_pool, meta_count = _start_meta_count(_world_mesh(world), "train")
+    procs.append(_PoolStopper(count_pool))
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1, device_id=dev)
     try:
@@ -4175,8 +4320,9 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
         dist.destroy_process_group()
 
     # (c) the meshed world's results
-    outs = [p.communicate(timeout=MESH_WORLD_TIMEOUT)[0] for p in procs]
-    codes = [p.returncode for p in procs]
+    ranks = [p for p in procs if isinstance(p, subprocess.Popen)]
+    outs = [p.communicate(timeout=MESH_WORLD_TIMEOUT)[0] for p in ranks]
+    codes = [p.returncode for p in ranks]
     if any(codes):
         fail(f"phase 25: the {world}-rank {backend} world failed (exit "
              f"codes {codes}): " + " | ".join(
@@ -4233,6 +4379,9 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
         fail(f"phase 25: {MOE_ARCH}'s ranks hold "
              f"{[r['experts_a_rank'] for r in moe['per_rank']]} routed "
              f"experts, not {experts}")
+    moe["card_count"] = _hold_count(
+        25, f"a {MOE_ARCH} train step on {cards['mesh']}",
+        moe["card_count"], meta_count)
     whole = moe1["param_bytes"] + moe1["opt_bytes"]
     for r in moe["per_rank"]:
         r["state_share"] = (r["param_bytes"] + r["opt_bytes"]) / whole
@@ -4340,6 +4489,30 @@ def _start_mesh_world(torch, work: str, procs: list,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world))
     return world, backend
+
+
+def _world_mesh(world: int) -> tuple:
+    """The ("data", "model") sizes of a meshed world of ``world`` ranks:
+    (2, 2) at four, (1, 2) at two."""
+    return (2, 2) if world == 4 else (1, world)
+
+
+class _PoolStopper:
+    """A process pool in ``_in_scratch_world``'s list of processes,
+    stopped as they are however the phase ends."""
+
+    def __init__(self, pool):
+        self.pool, self.done = pool, False
+
+    def poll(self):
+        return 0 if self.done else None
+
+    def kill(self):
+        self.pool.terminate()
+
+    def wait(self):
+        self.pool.join()
+        self.done = True
 
 
 def _free_port() -> int:
@@ -4610,7 +4783,9 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
     import repro_torch.models.layers as L
     import repro_torch.models.ssm as S
     from repro_torch.kernels import selective_scan as ss
+    from repro_torch.launch.dryrun import trace_counts
     from repro_torch.launch.mesh import make_device_mesh
+    from repro_torch.sharding.rules import distribute_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4621,7 +4796,7 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                             **({"device_id": dev} if backend == "nccl"
                                else {}))
     try:
-        sizes = (2, 2) if world == 4 else (1, world)
+        sizes = _world_mesh(world)
         mesh = make_device_mesh(sizes)
         rule_sets = _serve_rule_sets()
         seen = {"cp": 0, "args": None}
@@ -4697,6 +4872,24 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                 "experts_a_rank": (model.blocks[-1].mlp.wi.to_local()
                                    .shape[0] if cfg.is_moe else None),
                 "place_s": place_s, "run_s": run_s}
+            if (arch, rules_name, dtype) == (MOE_ARCH, "serving", "float32"):
+                # one more decode step, at the cache's last slot, which
+                # rank 0 counts as the dry-run does (the parent holds its
+                # FLOPs and collectives to the meta count)
+                b, n = r["teacher"].shape
+                cache = model.init_cache(b, n, rules=rule_sets[rules_name])
+                tok = distribute_batch({"tokens": torch.as_tensor(
+                    r["teacher"][:, -1:], dtype=torch.int64)}, mesh,
+                    rule_sets[rules_name])["tokens"]
+                call = lambda: model.decode_step(
+                    cache, tok, n - 1, rules=rule_sets[rules_name])
+                if rank == 0:
+                    runs["|".join((arch, rules_name, dtype))][
+                        "card_count"] = _count_summary(trace_counts(
+                            call, (cache, tok)))
+                else:
+                    call()
+                del cache
             del model, got
             torch.cuda.empty_cache()
         per_rank = [None] * world
@@ -4777,6 +4970,9 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
     torch.cuda.set_device(dev)
     torch.cuda.empty_cache()
     world, backend = _start_mesh_world(torch, work, procs, "--serve-rank")
+    # the dry-run's count of the decode step rank 0 counts on the card
+    count_pool, meta_count = _start_meta_count(_world_mesh(world), "decode")
+    procs.append(_PoolStopper(count_pool))
     rule_sets = _serve_rule_sets()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1, device_id=dev)
@@ -4898,8 +5094,9 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
         dist.destroy_process_group()
 
     # (b) the meshed world's results
-    outs = [p.communicate(timeout=MESH_WORLD_TIMEOUT)[0] for p in procs]
-    codes = [p.returncode for p in procs]
+    ranks = [p for p in procs if isinstance(p, subprocess.Popen)]
+    outs = [p.communicate(timeout=MESH_WORLD_TIMEOUT)[0] for p in ranks]
+    codes = [p.returncode for p in ranks]
     if any(codes):
         fail(f"phase 26: the {world}-rank {backend} world failed (exit "
              f"codes {codes}): " + " | ".join(
@@ -4941,6 +5138,10 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
              f"{shard['max_abs_err']}")
     rec["world"] = cards
     runs0 = cards["per_rank"][0]["runs"]
+    counted = runs0[f"{MOE_ARCH}|serving|float32"]
+    counted["card_count"] = _hold_count(
+        26, f"a {MOE_ARCH} SERVING_RULES decode step on {cards['mesh']}",
+        counted["card_count"], meta_count)
     log(f"phase 26: {world} ranks ({backend}, {cards['cards']} cards) "
         f"{cards['mesh']}: " + "; ".join(
             f"{name} prefill diff {run['prefill'][0]:.3g}, decode diff "

@@ -10,12 +10,21 @@ a ``torch.distributed`` ``DeviceMesh`` over the ranks of the process group
 initialised process group, and ``make_production_device_mesh``, which
 raises where the world is smaller than the mesh, as the reference's
 ``make_production_mesh`` does.
+
+``counting_world`` is the dry-run's stand-in for the production world: a
+process group of PyTorch's "fake" backend, as large as the mesh, in which
+this one process is one rank. Its collectives send nothing and return at
+once, so the rank's own program (``sharding.spmd``) runs on meta shards
+and can be counted, op by op and collective by collective.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
+import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from ..sharding.annotate import MeshShape
@@ -73,5 +82,53 @@ def make_host_mesh(device_type: str | None = None):
     return MeshShape(("data", "model"), (1, 1))
 
 
+@contextlib.contextmanager
+def counting_world(shape: MeshShape, rank: int = 0):
+    """Rank ``rank`` of a world of ``shape.size`` ranks that only counts:
+    a process group of the "fake" backend (no communication; every
+    collective returns at once), the ``DeviceMesh`` of ``shape`` over it
+    with device type "cpu" (DTensor's sharding propagation asks a meta
+    mesh for a device count), on which ``sharding.spmd`` keeps every shard
+    on the meta device. Yields the mesh; the group is destroyed on exit.
+    Raises where a process group exists already: one process holds one
+    default group, and a real rank's group must not be replaced."""
+    if dist.is_available() and dist.is_initialized():
+        raise RuntimeError("a counting world needs a process without a "
+                           "process group; this one has "
+                           f"{dist.get_world_size()} ranks already")
+    if not 0 <= rank < shape.size:
+        raise ValueError(f"rank {rank} of a world of {shape.size}")
+    # registers the "fake" backend (torch._C._distributed_c10d's
+    # FakeProcessGroup) under that name in every release that has it
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401
+    _forget_meshes()
+    dist.init_process_group("fake", store=dist.HashStore(), rank=rank,
+                            world_size=shape.size)
+    try:
+        yield init_device_mesh("cpu", shape.sizes,
+                               mesh_dim_names=shape.axis_names)
+    finally:
+        dist.destroy_process_group()
+        _forget_meshes()
+
+
+def _forget_meshes() -> None:
+    """Empty DTensor's sharding-propagation caches: a cached layout holds
+    its mesh, and another world's mesh of the same shape compares equal to
+    it, so a DTensor op there would come back on the groups of a world
+    that is gone."""
+    prop = DTensor._op_dispatcher.sharding_propagator
+    for name in dir(prop):
+        clear = getattr(getattr(prop, name, None), "cache_clear", None)
+        if callable(clear):
+            clear()
+    # the C++ dispatch's own cache, in the releases that have one
+    native = getattr(torch._C, "_clear_DTensor_sharding_propagator_cache",
+                     None)
+    if native is not None:
+        native()
+
+
 __all__ = ["make_device_mesh", "make_production_mesh",
-           "make_production_device_mesh", "make_host_mesh"]
+           "make_production_device_mesh", "make_host_mesh",
+           "counting_world"]

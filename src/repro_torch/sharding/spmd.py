@@ -68,10 +68,13 @@ import threading
 import torch
 import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.utils.weak import WeakIdKeyDictionary
 
 from .annotate import DEFAULT_RULES, placements, resolve_spec
 
 _state = threading.local()
+# {mesh: {mesh dim: this rank's place there}} (``local_rank``)
+_LOCAL_RANKS = WeakIdKeyDictionary()
 
 
 def place(x, sharding) -> DTensor:
@@ -79,11 +82,15 @@ def place(x, sharding) -> DTensor:
     with ``mesh`` and ``placements``): a DTensor is redistributed, a tensor
     that every rank holds whole keeps its own shard (no communication),
     cut where it lies (the host, say) so that only the shard reaches the
-    mesh's device."""
+    mesh's device and only the shard is held there."""
     mesh, layout = sharding.mesh, tuple(sharding.placements)
     if isinstance(x, DTensor):
         return x.redistribute(mesh, layout)
     local = local_shard(x, mesh, layout).to(_mesh_device(mesh))
+    if local.untyped_storage().nbytes() > local.numel() * local.element_size():
+        # a cut that stayed on x's device is a view of the whole of x: the
+        # rank keeps its shard only
+        local = local.clone(memory_format=torch.contiguous_format)
     return DTensor.from_local(local.contiguous(), mesh, layout,
                               run_check=False, shape=x.shape,
                               stride=x.contiguous().stride())
@@ -97,18 +104,32 @@ def replicas(x: DTensor) -> int:
     return x.device_mesh.size() // split
 
 
+def local_rank(mesh, dim) -> int:
+    """``mesh.get_local_rank(dim)``, looked up once a mesh and dim: the
+    lookup runs tensor ops on the mesh's table of ranks, host work that a
+    step would otherwise repeat for every leaf it gathers."""
+    ranks = _LOCAL_RANKS.setdefault(mesh, {})
+    if dim not in ranks:
+        ranks[dim] = mesh.get_local_rank(dim)
+    return ranks[dim]
+
+
 def local_shard(x: torch.Tensor, mesh, layout) -> torch.Tensor:
     """This rank's shard of the whole tensor ``x`` in ``layout``, cut where
     ``x`` lies: DTensor's chunks, the outer mesh dim's first."""
     for m, p in enumerate(layout):
         if isinstance(p, Shard):
-            x = torch.chunk(x, mesh.size(m), dim=p.dim)[
-                mesh.get_local_rank(m)]
+            x = torch.chunk(x, mesh.size(m), dim=p.dim)[local_rank(mesh, m)]
     return x
 
 
 def _mesh_device(mesh) -> torch.device:
-    """This rank's device of ``mesh`` (the current card for CUDA)."""
+    """This rank's device of ``mesh``: the current card for CUDA, and the
+    meta device on a mesh of the "fake" backend's process groups
+    (``launch.mesh.counting_world``), whose ranks only count, so that no
+    shard is allocated."""
+    if dist.get_backend(mesh.get_group(0)) == "fake":
+        return torch.device("meta")
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)
@@ -261,7 +282,7 @@ class _WholeParam(torch.autograd.Function):
                 dist.all_reduce(g, group=group)
             elif isinstance(p, Shard):
                 size = g.shape[p.dim] // n
-                g = g.narrow(p.dim, mesh.get_local_rank(m) * size, size)
+                g = g.narrow(p.dim, local_rank(mesh, m) * size, size)
         return g.contiguous(), None, None, None, None
 
 
@@ -351,10 +372,10 @@ def model_axis():
     if ctx is None or "model" not in ctx[0].mesh_dim_names:
         return None
     mesh = ctx[0]
-    size = mesh["model"].size()
+    size = mesh.size(mesh.mesh_dim_names.index("model"))
     if size == 1:
         return None
-    return mesh.get_group("model"), mesh.get_local_rank("model"), size
+    return mesh.get_group("model"), local_rank(mesh, "model"), size
 
 
 class _SumGrads(torch.autograd.Function):
@@ -622,7 +643,7 @@ def row_shard_index() -> int:
     index = 0
     for m, p in enumerate(layout):
         if isinstance(p, Shard):
-            index = index * mesh.size(m) + mesh.get_local_rank(m)
+            index = index * mesh.size(m) + local_rank(mesh, m)
     return index
 
 
@@ -637,7 +658,7 @@ def gather_rows(x: torch.Tensor) -> torch.Tensor:
     for m in reversed(range(mesh.ndim)):
         if isinstance(layout[m], Shard):
             x = _Gather.apply(x, mesh.get_group(m), 0,
-                              mesh.get_local_rank(m), mesh.size(m))
+                              local_rank(mesh, m), mesh.size(m))
     return x
 
 
@@ -650,11 +671,12 @@ def take_rows(x: torch.Tensor) -> torch.Tensor:
     for m, p in enumerate(layout):
         if isinstance(p, Shard):
             n = x.shape[0] // mesh.size(m)
-            x = x.narrow(0, mesh.get_local_rank(m) * n, n)
+            x = x.narrow(0, local_rank(mesh, m) * n, n)
     return x
 
 
-__all__ = ["place", "replicas", "local_shard", "local_shape", "batch_layout",
+__all__ = ["place", "replicas", "local_rank", "local_shard", "local_shape",
+           "batch_layout",
            "spmd", "within", "current", "local_batch",
            "whole_params", "split_over_model", "full_value", "batch_sum",
            "batch_shards", "as_batch_partial", "as_batch_rows",
