@@ -260,8 +260,13 @@ Phases, each fatal on error (exit code 1, no result line):
     as the dry-run counts (``FlopCounterMode`` and ``StepCounter``), and
     its FLOPs and each collective's count and result bytes by kind must
     equal exactly the meta count of the same rank, step and mesh, taken
-    on a spawned host process meanwhile. ``python3 chip_smoke.py --phase
-    25`` runs this phase alone.
+    on a spawned host process meanwhile; (e) qwen2.5-3b at its published
+    widths cut to 2 layers (bf16), drawn once on the host into a file the
+    ranks map, an AdamW step in world 1 and on a (1, 4) mesh of the same
+    four ranks, whose model axis its 2 KV heads do not divide (query heads
+    split, K and V projected whole on every rank, the query-split
+    attention counted on each rank), held to world 1 by (c)'s gates.
+    ``python3 chip_smoke.py --phase 25`` runs this phase alone.
 26. serving on a ``torch.distributed`` device mesh: hymba-1.5b at its
     published widths cut to 4 layers (the scan kernels), qwen2.5-3b and
     deepseek-v2-lite-16b cut to 2, whisper-medium cut to 2 encoder and 2
@@ -285,9 +290,13 @@ Phases, each fatal on error (exit code 1, no result line):
     tokens/s, prefill tokens/s, each rank's bytes of parameters and cache,
     a decode step's collectives by kind, and B7 held against its plain
     version and timed at the shard's shape beside its bound; rank 0 counts
-    one more ``SERVING_RULES`` decode step of deepseek, held exactly to the
-    dry-run's meta count as in phase 25. ``python3 chip_smoke.py --phase
-    26`` runs this phase alone.
+    one more ``SERVING_RULES`` decode step of deepseek and one more
+    ``SERVING_RULES`` prefill of qwen2.5-3b, each held exactly to the
+    dry-run's meta count as in phase 25; under ``SERVING_RULES`` qwen's and
+    whisper's prefills take the query-split attention (``wk`` / ``wv``
+    whole over "model": K and V projected whole on each rank, whisper's
+    cross-attention K and V for the rank's own heads), counted on every
+    rank. ``python3 chip_smoke.py --phase 26`` runs this phase alone.
 
 Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20, 21, 22,
 23, 24, 25, 26)
@@ -400,6 +409,9 @@ TRACE_CHIPLETS, TRACE_EVENTS, ORACLE_RTOL = 64, 20000, 1e-6
 # Model.prefill at 2 x 2048; qwen2.5-3b and hymba-1.5b at full depth, the
 # others cut to SERVE_LAYERS (falcon-mamba-7b to phase 13's TRAIN_LAYERS)
 SERVE_FULL_DEPTH = ("qwen2.5-3b", "hymba-1.5b")
+# models phase 21 draws on the host at once, ahead of the card: at most
+# three of its configs' float32 weights on the host (36 GB at the largest)
+DRAW_AHEAD = 3
 SERVE_LAYERS = 2
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 32
 PREFILL_BATCH, PREFILL_SEQ = 2, 2048
@@ -438,8 +450,10 @@ DRYRUN_WORKERS = 7
 # the cells (dryrun_tasks): every arch at decode_32k (and long_500k where
 # it runs) on 16x16; train_4k on 16x16 for the archs whose trace fits the
 # phase (falcon-mamba-7b, hymba-1.5b, llava-next-34b and nemotron-4-15b
-# take 60-150 s of host each); qwen2.5-3b through every shape on both
-# meshes; each variant where it changes the step
+# take 60-150 s of host each); qwen2.5-3b through every shape but
+# prefill_32k on both meshes (its three counts, about 160 s of host, are
+# the CLI's: python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape
+# prefill_32k); each variant where it changes the step
 DRYRUN_ARCH = "qwen2.5-3b"
 DRYRUN_TRAIN = ("qwen2.5-3b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
                 "glm4-9b", "codeqwen1.5-7b", "whisper-medium")
@@ -484,6 +498,13 @@ MESH_WORLD_TIMEOUT = 600
 # rounding that differs between worlds would flip top-6 choices); drawn
 # once a run on the host and shared with the ranks through a mapped file
 MOE_ARCH, MOE_LAYERS = "deepseek-v2-lite-16b", 2
+# phase 25's query-split attention: GQA_ARCH at its published widths cut to
+# GQA_LAYERS (bf16, remat "full"), GQA_STEPS AdamW steps on a (1, W) mesh of
+# the W-rank world against world 1, held by the (2, 2) world's bf16 gates;
+# at four ranks its 2 KV heads do not divide the model axis, so wq / wo
+# are split and wk / wv whole (each rank projects K and V whole); drawn
+# once a run on the host and shared with the ranks through a mapped file
+GQA_ARCH, GQA_LAYERS, GQA_STEPS = "qwen2.5-3b", 2, 1
 # whisper-medium (phase 26) at its published widths cut to ENCDEC_LAYERS
 # encoder and as many decoder layers, 1500 frames
 ENCDEC_LAYERS = 2
@@ -2592,6 +2613,30 @@ def analysis_path(torch, dev, zero_counts, read_counts) -> dict:
     return rec
 
 
+def _drawn_ahead(cfgs: list):
+    """Each of ``cfgs``' models drawn on the host from seed 0 (the weights
+    ``Model(cfg, seed=0, device=...)`` draws on any device), in order, the
+    next ``DRAW_AHEAD`` drawn at once in threads while the caller works
+    with the current one on the card: each draw is one CPU generator's,
+    single-threaded and releasing the GIL, so phase 21's host drawing runs
+    on several cores and overlaps its card work. Yields (the model on the
+    host, the seconds the caller waited for it)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.models import Model
+    with ThreadPoolExecutor(DRAW_AHEAD) as pool:
+        ahead = [pool.submit(Model, cfg, 0, "cpu")
+                 for cfg in cfgs[:DRAW_AHEAD]]
+        for i in range(len(cfgs)):
+            t0 = time.perf_counter()
+            model = ahead[i].result()
+            ahead[i] = None
+            waited_s = time.perf_counter() - t0
+            if i + DRAW_AHEAD < len(cfgs):
+                ahead.append(pool.submit(Model, cfgs[i + DRAW_AHEAD], 0,
+                                         "cpu"))
+            yield model, waited_s
+
+
 def serve_models_path(torch, dev, zero_counts, read_counts,
                       kept: dict) -> dict:
     """Phase 21: ``repro_torch.launch.serve`` for every decoder-only config
@@ -2607,9 +2652,11 @@ def serve_models_path(torch, dev, zero_counts, read_counts,
     ``DECODE_TOL`` in float32 and measured in the config's dtype; hymba's
     ring buffer at ``RING_WINDOW`` (float32); then every
     config at ``reduced(cfg, dtype="float32")`` on the card against the
-    CPU. The models of the configs that phase 22 trains at the same cut
-    (``FAMILY_ARCHS``) stay on the card in ``kept``. Returns the phase's
-    record."""
+    CPU. The models are drawn on the host ahead of the card,
+    ``DRAW_AHEAD`` at a time (``_drawn_ahead``); a model's ``build_s`` is
+    the wait for it and its move to the card. The models of the configs that phase 22 trains at the
+    same cut (``FAMILY_ARCHS``) stay on the card in ``kept``. Returns the
+    phase's record."""
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ss
@@ -2636,7 +2683,7 @@ def serve_models_path(torch, dev, zero_counts, read_counts,
                              model.cfg.logit_softcap).float()
 
     archs = [a for a in ARCH_IDS if get_config(a).family != "encdec"]
-    per: dict[str, dict] = {}
+    cuts = {}
     for arch in archs:
         published = get_config(arch)
         cfg, cut = published, {}
@@ -2646,14 +2693,20 @@ def serve_models_path(torch, dev, zero_counts, read_counts,
             cfg = cfg.replace(n_layers=layers)
         if cfg.uses_ssm:
             cfg = cfg.replace(ssm_kernel=True)
+        cuts[arch] = (cfg, cut)
+    per: dict[str, dict] = {}
+    drawn = _drawn_ahead([cfg for cfg, _ in cuts.values()])
+    for arch, (host_model, waited_s) in zip(archs, drawn):
+        cfg, cut = cuts[arch]
         vlm = cfg.family == "vlm"
         n_img = cfg.n_image_tokens if vlm else 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        model = Model(cfg, seed=0, device=dev)
+        model = host_model.to(dev)
+        del host_model
         torch.cuda.synchronize()
-        build_s = time.perf_counter() - t0
+        build_s = waited_s + time.perf_counter() - t0
         params = model.params()
         rec = {"layers": len(model.dense_blocks) + len(model.blocks),
                "first_dense_layers": len(model.dense_blocks),
@@ -2826,7 +2879,7 @@ def serve_models_path(torch, dev, zero_counts, read_counts,
                      f"windowed forward by {ring_err}")
             model.cfg = cfg
             rec["ring"] = {"window": RING_WINDOW, "steps": RING_STEPS,
-                           "reduced": {"window": [published.window,
+                           "reduced": {"window": [get_config(arch).window,
                                                   RING_WINDOW]},
                            "max_abs_err": ring_err}
             del dec, full, cache
@@ -3260,9 +3313,8 @@ def dryrun_tasks() -> list:
     from repro_torch.launch.dryrun import VARIANTS
 
     both, single = (False, True), (False,)
-    cells = [(DRYRUN_ARCH, "prefill_32k", "baseline", both)]
-    cells += [(a, "train_4k", "baseline",
-               both if a == DRYRUN_ARCH else single) for a in DRYRUN_TRAIN]
+    cells = [(a, "train_4k", "baseline",
+              both if a == DRYRUN_ARCH else single) for a in DRYRUN_TRAIN]
     # each variant where it changes the step: the accumulation buffer's
     # layout and the bf16 gather at train_4k, the fused scan on the SSM
     # arch's train step; every variant at decode_32k (serve_tp's rules)
@@ -3273,7 +3325,7 @@ def dryrun_tasks() -> list:
     cells += [(DRYRUN_ARCH, "long_500k", "baseline", both)]
     cells += [(a, s, "baseline", single) for a in ARCH_IDS
               if a != DRYRUN_ARCH for s in ("decode_32k", "long_500k")]
-    order = {"prefill_32k": 0, "train_4k": 1}
+    order = {"train_4k": 0}
     work = [("dryrun", a, s, v, multi) for a, s, v, meshes in cells
             for multi in meshes]
     work += sorted({("ideal", a, s, ideal_variant(a, v))
@@ -3823,11 +3875,11 @@ def _mesh_model(torch, dev, mesh, seed: int = 0):
     return model, state, make_train_step(model, ocfg, "adamw")
 
 
-def _mesh_batches(torch, dev, cfg) -> list:
+def _mesh_batches(torch, dev, cfg, steps: int = MESH_STEPS) -> list:
     from repro_torch.data import make_pipeline
     from repro_torch.launch.train import to_device
     source = make_pipeline(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=0)
-    return [to_device(source.batch_at(i), dev) for i in range(MESH_STEPS)]
+    return [to_device(source.batch_at(i), dev) for i in range(steps)]
 
 
 def _mesh_steps(torch, state, step, batches, mesh, comm_on_last=False,
@@ -3920,15 +3972,21 @@ def _against_world1(torch, dist, state, ref_path: str, mesh, dev,
     return worst, moment, per_rank
 
 
-def _moe_mesh_model(torch, dev, mesh, path: str):
-    """Phase 25's ``MOE_ARCH`` (``_moe_cfg``) from the shared host file:
-    placed on ``mesh`` (each rank reading only its shards), its AdamW
-    state placed like it, and its step."""
+def _gqa_cfg():
+    """``GQA_ARCH`` at its published widths cut to ``GQA_LAYERS`` (its own
+    dtype and remat: bf16, "full")."""
+    from repro_torch.configs import get_config
+    return get_config(GQA_ARCH).replace(n_layers=GQA_LAYERS)
+
+
+def _mapped_mesh_model(torch, dev, mesh, path: str, cfg):
+    """Phase 25's model of ``cfg`` (``_moe_cfg``, ``_gqa_cfg``) from the
+    shared host file: placed on ``mesh`` (each rank reading only its
+    shards), its AdamW state placed like it, and its step."""
     from repro_torch.launch.train import build_state
     from repro_torch.sharding.rules import distribute_params
     from repro_torch.train import OptConfig, make_train_step, place_train_state
-    model = distribute_params(_model_from_host_file(torch, _moe_cfg(), path),
-                              mesh)
+    model = distribute_params(_model_from_host_file(torch, cfg, path), mesh)
     state = place_train_state(build_state(model, "adamw"), mesh)
     ocfg = OptConfig(learning_rate=TRAIN_LR, warmup_steps=0,
                      decay_steps=MESH_STEPS)
@@ -4076,7 +4134,8 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
         t0 = time.perf_counter()
         with open(os.path.join(workdir, "host_files.json")) as f:
             path = json.load(f)[MOE_ARCH]
-        model, state, step = _moe_mesh_model(torch, dev, mesh, path)
+        model, state, step = _mapped_mesh_model(torch, dev, mesh, path,
+                                                _moe_cfg())
         batches = _mesh_batches(torch, dev, model.cfg)
         moe_build_s = time.perf_counter() - t0
         # rank 0 counts its first step as the dry-run does (its FLOPs and
@@ -4087,7 +4146,8 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
             count_first=card_count)
         t0 = time.perf_counter()
         worst, moment, per_rank = _against_world1(
-            torch, dist, state, os.path.join(workdir, "moe_world1.pt"),
+            torch, dist, state, os.path.join(workdir,
+                                             f"world1_{MOE_ARCH}.pt"),
             mesh, dev, world, {"experts_a_rank": model.blocks[-1].mlp.wi
                                .to_local().shape[0]})
         compare_s = time.perf_counter() - t0
@@ -4102,6 +4162,57 @@ def mesh_rank_main(rank: int, world: int, port: int, workdir: str,
                           "moment_rel_diff": moment,
                           "compare_s": compare_s, "per_rank": per_rank,
                           "card_count": card_count}
+        dist.all_reduce(torch.zeros(1, device=dev))
+        del model, state, step, batches
+        torch.cuda.empty_cache()
+        # the card is free of the ranks' models: the parent runs GQA_ARCH's
+        # world 1 now
+        dist.all_reduce(torch.zeros(1, device=dev))
+        if rank == 0:
+            open(os.path.join(workdir, "moe_done"), "w").close()
+        # GQA_ARCH on (1, world): at four ranks the query heads split, K and
+        # V projected whole on each rank, against world 1 (its file comes
+        # once the parent's world-1 run is done)
+        go = os.path.join(workdir, "gqa_go")
+        deadline = time.monotonic() + MESH_WORLD_TIMEOUT
+        while not os.path.exists(go):
+            if time.monotonic() > deadline:
+                raise TimeoutError("world 1's GQA_ARCH results never came")
+            time.sleep(0.05)
+        with open(go) as f:
+            path = json.load(f)[GQA_ARCH]
+        t0 = time.perf_counter()
+        gqa_mesh = make_device_mesh((1, world))
+        model, state, step = _mapped_mesh_model(torch, dev, gqa_mesh, path,
+                                                _gqa_cfg())
+        batches = _mesh_batches(torch, dev, model.cfg, GQA_STEPS)
+        gqa_build_s = time.perf_counter() - t0
+        seen["queries"] = 0
+        real_queries = L.split_queries
+
+        def queries(*a, **k):
+            seen["queries"] += 1
+            return real_queries(*a, **k)
+
+        L.split_queries = queries
+        state, metrics, secs, comms = _mesh_steps(
+            torch, state, step, batches, gqa_mesh, comm_on_last=True)
+        L.split_queries = real_queries
+        t0 = time.perf_counter()
+        worst, moment, per_rank = _against_world1(
+            torch, dist, state, os.path.join(workdir,
+                                             f"world1_{GQA_ARCH}.pt"),
+            gqa_mesh, dev, world, {"queries_calls": seen["queries"]})
+        compare_s = time.perf_counter() - t0
+        if rank == 0:
+            rec["gqa"] = {"arch": GQA_ARCH, "mesh": [1, world],
+                          "build_s": gqa_build_s, "metrics": metrics,
+                          "step_ms": [s * 1e3 for s in secs],
+                          "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ /
+                          statistics.median(secs),
+                          "comms_last_step": comms, "max_param_diff": worst,
+                          "moment_rel_diff": moment,
+                          "compare_s": compare_s, "per_rank": per_rank}
             with open(os.path.join(workdir, "result.json"), "w") as f:
                 json.dump(rec, f)
         dist.all_reduce(torch.zeros(1, device=dev))
@@ -4119,14 +4230,16 @@ def _count_summary(counts: dict) -> dict:
 
 def meta_rank_count(sizes, kind: str) -> dict:
     """The dry-run's meta count of rank 0 of a ``sizes`` ("data", "model")
-    mesh (``launch.mesh.counting_world``) running ``MOE_ARCH``'s step as
-    phases 25 and 26 run it on the card: a train step of ``TRAIN_BATCH`` x
-    ``TRAIN_SEQ`` under ``DEFAULT_RULES`` (``_moe_cfg``), or a
+    mesh (``launch.mesh.counting_world``) running a step as phases 25 and
+    26 run it on the card: ``MOE_ARCH``'s train step of ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ`` under ``DEFAULT_RULES`` (``_moe_cfg``) or its
     ``SERVING_RULES`` decode step of ``SERVE_BATCH`` rows at the last
     position of a cache of ``SERVE_PROMPT + SERVE_MESH_NEW`` slots
-    (``_serve_cfg``). Runs in a spawned host process: a rank of a meshed
-    world has its process group, and a count needs a process without
-    one."""
+    (``_serve_cfg``), or ("prefill") qwen2.5-3b's ``SERVING_RULES``
+    prefill of ``PREFILL_BATCH`` x ``PREFILL_SEQ`` (``_serve_cfg``, float32;
+    its query heads split, K and V whole). Runs in a spawned host process:
+    a rank of a meshed world has its process group, and a count needs a
+    process without one."""
     if os.path.join(ROOT, "src") not in sys.path:
         sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -4139,6 +4252,10 @@ def meta_rank_count(sizes, kind: str) -> dict:
     if kind == "train":
         cfg, rules = _moe_cfg(), _serve_rule_sets()["default"]
         spec = ShapeSpec("card_count", TRAIN_SEQ, TRAIN_BATCH, "train")
+    elif kind == "prefill":
+        cfg = _serve_cfg("qwen2.5-3b", "float32")
+        rules = _serve_rule_sets()["serving"]
+        spec = ShapeSpec("card_count", PREFILL_SEQ, PREFILL_BATCH, "prefill")
     else:
         cfg = _serve_cfg(MOE_ARCH, "float32")
         rules = _serve_rule_sets()["serving"]
@@ -4150,12 +4267,13 @@ def meta_rank_count(sizes, kind: str) -> dict:
     return dict(_count_summary(counts), count_s=time.perf_counter() - t0)
 
 
-def _start_meta_count(sizes, kind: str):
-    """(pool, pending result) of ``meta_rank_count`` in one spawned host
-    process, which runs while the meshed world does."""
+def _start_meta_count(sizes, *kinds: str):
+    """(pool, [pending result of each kind]) of ``meta_rank_count`` in one
+    spawned host process, which runs while the meshed world does."""
     import multiprocessing
     pool = multiprocessing.get_context("spawn").Pool(1)
-    return pool, pool.apply_async(meta_rank_count, (tuple(sizes), kind))
+    return pool, [pool.apply_async(meta_rank_count, (tuple(sizes), kind))
+                  for kind in kinds]
 
 
 def _hold_count(phase: int, what: str, card: dict, pending) -> dict:
@@ -4224,8 +4342,12 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
     gradient norm within ``MESH_CARDS_RTOL``, each leaf of AdamW's first
     moment within ``MESH_MOMENT_RTOL`` / ``MESH_MOMENT_NORM_RTOL``), the
     context-parallel branch taken, the scan launched once a shard, and B7 /
-    B8 on a shard held against their plain versions. Returns the phase's
-    record."""
+    B8 on a shard held against their plain versions. (d) ``MOE_ARCH`` in
+    world 1 and in the same world, held by (c)'s gates, rank 0's count of
+    its first step held to the dry-run's meta count. (e) ``GQA_ARCH`` in
+    world 1 and on a (1, W) mesh of the same W ranks (at four, the
+    query-split attention on every rank), held by (c)'s gates. Returns the
+    phase's record."""
     import torch.distributed as dist
     from repro_torch.ckpt import restore_checkpoint, save_checkpoint
     from repro_torch.launch.mesh import make_device_mesh
@@ -4241,7 +4363,8 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
     # take their steps once (a)'s results are written
     world, backend = _start_mesh_world(torch, work, procs)
     # the dry-run's count of the step rank 0 counts on the card
-    count_pool, meta_count = _start_meta_count(_world_mesh(world), "train")
+    count_pool, (meta_count,) = _start_meta_count(_world_mesh(world),
+                                                  "train")
     procs.append(_PoolStopper(count_pool))
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1, device_id=dev)
@@ -4291,7 +4414,11 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
                     "m": {k: full_value(m).cpu()
                           for k, m in s2["opt"]["m"].items()}},
                    os.path.join(work, "world1.pt"))
-        rec["moe_world1"] = _moe_world1(torch, dev, mesh, work)
+        rec["moe_world1"] = _mapped_world1(
+            torch, dev, mesh, work, MOE_ARCH, _moe_cfg(), MESH_STEPS,
+            _drawn_for_ranks(torch, MOE_ARCH, _moe_cfg()))
+        with open(os.path.join(work, "host_files.json"), "w") as f:
+            json.dump({MOE_ARCH: rec["moe_world1"]["host_file"]}, f)
         # (c) takes its steps while (b) saves and restores (host I/O)
         open(os.path.join(work, "go"), "w").close()
         # (b) the checkpoint under the mesh
@@ -4316,6 +4443,19 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
             f"restored with shardings bit-equal in {restore_s:.1f} s")
         del runs, s1, s2, back, fresh
         torch.cuda.empty_cache()
+        # (e) GQA_ARCH's weights drawn on the host while the ranks run (c)
+        # and (d), its world-1 step once they have let go of the card (the
+        # card holds one run at a time); they take theirs once its file is
+        # named
+        drawn = _drawn_for_ranks(torch, GQA_ARCH, _gqa_cfg())
+        _await_ranks(os.path.join(work, "moe_done"), procs,
+                     f"the end of its {MOE_ARCH} steps")
+        rec["gqa_world1"] = _mapped_world1(torch, dev, mesh, work, GQA_ARCH,
+                                           _gqa_cfg(), GQA_STEPS, drawn)
+        with open(os.path.join(work, "gqa_go.tmp"), "w") as f:
+            json.dump({GQA_ARCH: rec["gqa_world1"]["host_file"]}, f)
+        os.replace(os.path.join(work, "gqa_go.tmp"),
+                   os.path.join(work, "gqa_go"))
     finally:
         dist.destroy_process_group()
 
@@ -4385,6 +4525,27 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
     whole = moe1["param_bytes"] + moe1["opt_bytes"]
     for r in moe["per_rank"]:
         r["state_share"] = (r["param_bytes"] + r["opt_bytes"]) / whole
+    gqa, gqa1 = cards["gqa"], rec["gqa_world1"]
+    for (l_w, g_w), (l_1, g_1) in zip(gqa["metrics"], gqa1["metrics"]):
+        if not (abs(l_w - l_1) <= MESH_CARDS_RTOL * abs(l_1) and
+                abs(g_w - g_1) <= MESH_CARDS_RTOL * abs(g_1)):
+            fail(f"phase 25: {world} ranks' {GQA_ARCH} losses / grad norms "
+                 f"{gqa['metrics']} differ from world 1's {gqa1['metrics']} "
+                 f"past rtol {MESH_CARDS_RTOL}")
+    gm = gqa["moment_rel_diff"]
+    for i, (w, tol) in enumerate((("relative L2", MESH_MOMENT_RTOL),
+                                  ("relative norm", MESH_MOMENT_NORM_RTOL))):
+        top = max(gm, key=lambda k: gm[k][i])
+        if gm[top][i] > tol:
+            fail(f"phase 25: {world} ranks' {GQA_ARCH} first moment of {top} "
+                 f"differs from world 1's by {gm[top][i]} ({w}), past {tol}")
+    # the query-split attention wherever the KV heads do not divide the
+    # model axis (each layer's forward and its recomputation in backward)
+    split_kv = _gqa_cfg().n_kv_heads % gqa["mesh"][1] != 0
+    calls = [r["queries_calls"] for r in gqa["per_rank"]]
+    if split_kv and any(c < 2 * GQA_LAYERS * GQA_STEPS for c in calls):
+        fail(f"phase 25: {GQA_ARCH} on {gqa['mesh']}: the query-split "
+             f"attention ran {calls} times a rank")
     for r in cards["per_rank"]:
         r["param_share"] = r["param_bytes"] / rec["world1_param_bytes"]
     rec["world"] = cards
@@ -4401,6 +4562,19 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
         f" ({[round(r['state_share'], 4) for r in moe['per_rank']]} of world "
         f"1's {whole}); built from the mapped file in {moe['build_s']:.1f} s,"
         f" compared in {moe['compare_s']:.1f} s")
+    log(f"phase 25: {world} ranks' {GQA_ARCH} on {gqa['mesh']} (query heads "
+        f"split, K / V whole: {split_kv}; the query-split attention "
+        f"{calls} times a rank): step ms "
+        f"{[round(x, 1) for x in gqa['step_ms']]}, {gqa['tokens_per_s']:.0f} "
+        f"tokens/s, losses / grad norms {gqa['metrics']} (world 1 "
+        f"{gqa1['metrics']}), largest parameter difference "
+        f"{gqa['max_param_diff']}, largest first-moment differences "
+        f"{max(v[0] for v in gm.values()):.3g} (L2) / "
+        f"{max(v[1] for v in gm.values()):.3g} (norm), collectives of a step "
+        f"{gqa['comms_last_step']}, bytes a rank (parameters, AdamW state) "
+        f"{[(r['param_bytes'], r['opt_bytes']) for r in gqa['per_rank']]};"
+        f" built from the mapped file in {gqa['build_s']:.1f} s, compared in "
+        f"{gqa['compare_s']:.1f} s")
     log(f"phase 25: {world} ranks ({backend}, {cards['cards']} cards) "
         f"{cards['mesh']}: step ms "
         f"{[round(s, 1) for s in cards['step_ms']]}, "
@@ -4421,21 +4595,25 @@ def _mesh_training(torch, dev, zero_counts, read_counts, work: str,
     return rec
 
 
-def _moe_world1(torch, dev, mesh, work: str) -> dict:
-    """Phase 25's ``MOE_ARCH`` in world 1 (the (1, 1) mesh): its weights
-    drawn once on the host into the file the ranks map
-    (``host_files.json`` names it), ``MESH_STEPS`` AdamW steps, and the
-    parameters and first moments after them saved for the ranks
-    (``moe_world1.pt``). Returns its record."""
+def _drawn_for_ranks(torch, arch: str, cfg) -> tuple[str, float]:
+    """(path, seconds) of ``arch``'s weights (``cfg``) drawn once on the
+    host into the file the ranks map (``_shared_host_weights``)."""
+    t0 = time.perf_counter()
+    return _shared_host_weights(torch, arch, cfg), time.perf_counter() - t0
+
+
+def _mapped_world1(torch, dev, mesh, work: str, arch: str, cfg,
+                   steps: int, drawn: tuple[str, float]) -> dict:
+    """Phase 25's ``arch`` (``cfg``: ``_moe_cfg``, ``_gqa_cfg``) in world 1
+    (the (1, 1) mesh) from the file of its weights (``drawn``:
+    ``_drawn_for_ranks``), ``steps`` AdamW steps, and the parameters and
+    first moments after them saved for the ranks (``world1_<arch>.pt``).
+    Returns its record, the file's path under "host_file"."""
     from repro_torch.sharding.spmd import full_value
+    path, draw_s = drawn
     t0 = time.perf_counter()
-    path = _shared_host_weights(torch, MOE_ARCH, _moe_cfg())
-    draw_s = time.perf_counter() - t0
-    with open(os.path.join(work, "host_files.json"), "w") as f:
-        json.dump({MOE_ARCH: path}, f)
-    t0 = time.perf_counter()
-    model, state, step = _moe_mesh_model(torch, dev, mesh, path)
-    batches = _mesh_batches(torch, dev, model.cfg)
+    model, state, step = _mapped_mesh_model(torch, dev, mesh, path, cfg)
+    batches = _mesh_batches(torch, dev, model.cfg, steps)
     place_s = time.perf_counter() - t0
     state, metrics, secs, comms = _mesh_steps(torch, state, step, batches,
                                               mesh, comm_on_last=True)
@@ -4444,9 +4622,10 @@ def _moe_world1(torch, dev, mesh, work: str) -> dict:
                            for k, p in state["params"].items()},
                 "m": {k: full_value(m).cpu()
                       for k, m in state["opt"]["m"].items()}},
-               os.path.join(work, "moe_world1.pt"))
+               os.path.join(work, f"world1_{arch}.pt"))
     n_params = sum(p.numel() for p in model.parameters())
-    out = {"arch": MOE_ARCH, "layers": MOE_LAYERS, "n_params": n_params,
+    out = {"arch": arch, "layers": cfg.n_layers, "n_params": n_params,
+           "dtype": cfg.dtype, "host_file": path,
            "draw_s": draw_s, "place_s": place_s,
            "save_s": time.perf_counter() - t0, "metrics": metrics,
            "step_ms": [x * 1e3 for x in secs],
@@ -4455,8 +4634,8 @@ def _moe_world1(torch, dev, mesh, work: str) -> dict:
            "param_bytes": _local_bytes(dict(state["params"])),
            "opt_bytes": _local_bytes(state["opt"]),
            "peak_alloc_bytes": torch.cuda.max_memory_allocated(dev)}
-    log(f"phase 25: {MOE_ARCH} ({MOE_LAYERS} layers, {n_params} parameters, "
-        f"float32) in world 1: losses / grad norms {metrics}, step ms "
+    log(f"phase 25: {arch} ({cfg.n_layers} layers, {n_params} parameters, "
+        f"{cfg.dtype}) in world 1: losses / grad norms {metrics}, step ms "
         f"{[round(x, 1) for x in out['step_ms']]}, "
         f"{out['tokens_per_s']:.0f} tokens/s, parameters / AdamW state "
         f"{out['param_bytes']} / {out['opt_bytes']} bytes; drawn on the "
@@ -4465,6 +4644,21 @@ def _moe_world1(torch, dev, mesh, work: str) -> dict:
     del model, state, step, batches
     torch.cuda.empty_cache()
     return out
+
+
+def _await_ranks(path: str, procs: list, what: str) -> None:
+    """Wait for the file ``path`` that a meshed world's rank 0 writes at
+    ``what``; the run fails if a rank exits first or
+    ``MESH_WORLD_TIMEOUT`` passes."""
+    deadline = time.monotonic() + MESH_WORLD_TIMEOUT
+    while not os.path.exists(path):
+        ended = [p for p in procs if isinstance(p, subprocess.Popen) and
+                 p.poll() is not None]
+        if ended or time.monotonic() > deadline:
+            fail(f"the meshed world never reached {what}: " + " | ".join(
+                f"exit {p.returncode}: {p.stdout.read()[-1500:]}"
+                for p in ended))
+        time.sleep(0.05)
 
 
 def _start_mesh_world(torch, work: str, procs: list,
@@ -4799,8 +4993,9 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
         sizes = _world_mesh(world)
         mesh = make_device_mesh(sizes)
         rule_sets = _serve_rule_sets()
-        seen = {"cp": 0, "args": None}
+        seen = {"cp": 0, "args": None, "queries": 0}
         real_cp, real_scan = L._context_parallel_flash, S.selective_scan
+        real_queries = L.split_queries
 
         def cp(*a, **k):
             seen["cp"] += 1
@@ -4812,7 +5007,12 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                                 else t for t in a]
             return real_scan(*a)
 
+        def queries(*a, **k):
+            seen["queries"] += 1
+            return real_queries(*a, **k)
+
         L._context_parallel_flash, S.selective_scan = cp, scan
+        L.split_queries = queries
         t0 = time.perf_counter()
         # MOE_ARCH's weights come from the parent's file, named once world
         # 1's results are in
@@ -4840,7 +5040,7 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                                  rule_sets[rules_name])
             place_s = time.perf_counter() - t0
             ss.selective_scan_fwd_cuda.launches = 0
-            cp_before = seen["cp"]
+            cp_before, queries_before = seen["cp"], seen["queries"]
             t0 = time.perf_counter()
             got = _serve_calls(torch, model, dev, r["pre"], r["teacher"],
                                steps, mesh, rule_sets[rules_name],
@@ -4860,6 +5060,7 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                 "greedy_equal": greedy,
                 "b7_launches": ss.selective_scan_fwd_cuda.launches,
                 "cp_calls": seen["cp"] - cp_before,
+                "queries_calls": seen["queries"] - queries_before,
                 "prefill_s": got["prefill_s"],
                 "prefill_tokens_per_s": r["pre"].numel() / got["prefill_s"],
                 "decode_ms": statistics.median(dec) * 1e3,
@@ -4890,6 +5091,20 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                 else:
                     call()
                 del cache
+            if (arch, rules_name, dtype) == ("qwen2.5-3b", "serving",
+                                             "float32"):
+                # one more prefill, its query heads split and K and V
+                # projected whole on each rank, which rank 0 counts
+                tok = distribute_batch({"tokens": torch.as_tensor(
+                    r["pre"], dtype=torch.int64)}, mesh,
+                    rule_sets[rules_name])["tokens"]
+                call = lambda: model.prefill(tok, rules=rule_sets[rules_name])
+                if rank == 0:
+                    runs["|".join((arch, rules_name, dtype))][
+                        "prefill_count"] = _count_summary(trace_counts(
+                            call, (tok,)))
+                else:
+                    call()
             del model, got
             torch.cuda.empty_cache()
         per_rank = [None] * world
@@ -4971,7 +5186,9 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
     torch.cuda.empty_cache()
     world, backend = _start_mesh_world(torch, work, procs, "--serve-rank")
     # the dry-run's count of the decode step rank 0 counts on the card
-    count_pool, meta_count = _start_meta_count(_world_mesh(world), "decode")
+    # and of the SERVING_RULES prefill of qwen2.5-3b (query heads split)
+    count_pool, (meta_count, meta_prefill) = _start_meta_count(
+        _world_mesh(world), "decode", "prefill")
     procs.append(_PoolStopper(count_pool))
     rule_sets = _serve_rule_sets()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -5115,6 +5332,12 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
                     run["cp_calls"] == 0:
                 fail(f"phase 26: rank {r}, {name}: the prefill did not take "
                      f"the context-parallel attention")
+            # SERVING_RULES keeps wk / wv whole: the query heads split
+            if arch in ("qwen2.5-3b", ENCDEC_ARCH) and rules_name == \
+                    "serving" and cards["mesh"][1] > 1 and \
+                    run["queries_calls"] == 0:
+                fail(f"phase 26: rank {r}, {name}: the prefill did not take "
+                     f"the query-split attention")
             if dtype == "float32" and not (
                     run["prefill"][1] and run["decode_held"]
                     and run["greedy_equal"]):
@@ -5142,6 +5365,10 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
     counted["card_count"] = _hold_count(
         26, f"a {MOE_ARCH} SERVING_RULES decode step on {cards['mesh']}",
         counted["card_count"], meta_count)
+    counted = runs0["qwen2.5-3b|serving|float32"]
+    counted["prefill_count"] = _hold_count(
+        26, f"a qwen2.5-3b SERVING_RULES prefill on {cards['mesh']}",
+        counted["prefill_count"], meta_prefill)
     log(f"phase 26: {world} ranks ({backend}, {cards['cards']} cards) "
         f"{cards['mesh']}: " + "; ".join(
             f"{name} prefill diff {run['prefill'][0]:.3g}, decode diff "
@@ -5154,6 +5381,8 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
             f"{run['comms_decode_step']}"
             + (f", {run['experts_a_rank']} experts a rank"
                if run["experts_a_rank"] else "")
+            + (f", the query-split attention {run['queries_calls']} times"
+               if run["queries_calls"] else "")
             + (f", encoder and cross cache {run['encode_s']:.2f} s"
                if run["encode_s"] is not None else "")
             + f"; its place and run {run['place_s']:.1f} / "

@@ -209,10 +209,12 @@ def main(argv=None):
                     help="use the 16x16 production mesh (needs 256 ranks); "
                          "its 'model' axis splits every product the "
                          "sharding rules split (heads, MLA heads, MLP "
-                         "units, experts, Mamba channels, vocabulary) and "
-                         "repeats on every model rank only what they keep "
-                         "whole (norms, router, MLA's wq_a / wkv_a) or "
-                         "what it does not divide")
+                         "units, experts, Mamba channels, vocabulary; the "
+                         "query heads alone where the KV heads stay "
+                         "whole) and repeats on every model rank only "
+                         "what they keep whole (norms, router, MLA's "
+                         "wq_a / wkv_a, whole K/V projections) or what it "
+                         "does not divide")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' for the host)")
     args = ap.parse_args(argv)

@@ -191,6 +191,11 @@ def activate(cfg: ModelConfig, h: torch.Tensor, gate=None) -> torch.Tensor:
 # the heads of attention (column-parallel in, row-parallel out)
 MLP_SPLIT = {"wi": 1, "wg": 1, "wo": 0}
 ATTN_SPLIT = {"wq": 1, "wk": 1, "wv": 1, "wo": 0, "bq": 0, "bk": 0, "bv": 0}
+# the attention's leaves that may stay whole over "model" while its query
+# heads are split (``split_over_model``'s ``optional``): the K/V projections
+# and their biases where the KV heads do not divide the axis or
+# ``SERVING_RULES`` keeps them whole, and ``bq``, whose rule is theirs
+ATTN_OPTIONAL = ("wk", "wv", "bq", "bk", "bv")
 
 
 def mlp(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -253,6 +258,74 @@ def qkv_project(p: Params, cfg: ModelConfig, x: torch.Tensor,
         v = v + p["bv"].to(dt)
     q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+    return q, k, v
+
+
+def rank_kv_heads(k: torch.Tensor, v: torch.Tensor, n_heads: int,
+                  dim: int = 2):
+    """The KV heads of whole k, v [B, S, Hkv, D] (their heads on ``dim``)
+    that this model rank's run of ``n_heads / tp`` query heads meets: rank
+    r's head i is head ``r n_heads / tp + i`` of the layer and meets KV
+    head ``(r n_heads / tp + i) // (n_heads / Hkv)`` (``attention_scores``'
+    grouping). Where those KV heads are a run each of which serves an equal
+    run of the rank's heads, the run itself (a slice, so grouped products
+    still never repeat a KV head); where the rank's heads straddle groups
+    of unequal share (12 heads on 3 KV heads, 4 ranks: rank 1's heads 3, 4
+    and 5 meet KV heads 0, 1 and 1), each head's own KV head gathered."""
+    _, rank, tp = model_axis()
+    hl, g = n_heads // tp, n_heads // k.shape[dim]
+    idx = [(rank * hl + i) // g for i in range(hl)]
+    first, n = idx[0], idx[-1] - idx[0] + 1
+    if hl % n == 0 and idx == [first + i // (hl // n) for i in range(hl)]:
+        return k.narrow(dim, first, n), v.narrow(dim, first, n)
+    sel = torch.tensor(idx, device=k.device)
+    return k.index_select(dim, sel), v.index_select(dim, sel)
+
+
+def split_queries(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                  positions: torch.Tensor, kept: tuple,
+                  enc_out: torch.Tensor | None = None):
+    """(q, k, v) of an attention whose query heads are split over "model"
+    and whose K/V projections are whole there (``split_over_model``'s
+    form ``kept``, the whole leaves' names: ``wk`` and ``wv`` always, the
+    rules giving every K/V leaf one divisibility), as the reference's
+    partitioned program computes it. A self-attention projects K and V
+    whole on every model rank (with their biases and rope, as
+    ``qkv_project``) and passes them into the region through
+    ``sum_grads_over_model``, so the whole K/V weights' gradient is the
+    same on every rank and the gradient they pass back to x is whole. The
+    cross-attention (``enc_out``, the encoder output: no bias, no rope, as
+    ``_cross_attention`` projects them) projects only the KV heads this
+    rank's queries meet, from its columns of the whole ``wk`` / ``wv``,
+    the encoder output and the two weights entering the region. x enters
+    it once, for the queries of this rank's heads (``p["wq"]``'s part, and
+    its rows of a whole ``bq``, taken inside the region so that gradient
+    comes back whole). Returns this rank's queries and the KV heads they
+    meet (``rank_kv_heads``)."""
+    dt = x.dtype
+    if enc_out is None:
+        k = project_heads(x, p["wk"])
+        v = project_heads(x, p["wv"])
+        if cfg.qkv_bias:
+            k = k + p["bk"].to(dt)
+            v = v + p["bv"].to(dt)
+        k = apply_rope(k, positions, cfg.rope_theta, cfg.rotary_pct)
+        k, v = rank_kv_heads(sum_grads_over_model(k),
+                             sum_grads_over_model(v), cfg.n_heads)
+    else:
+        enc_out = sum_grads_over_model(enc_out)
+        wk, wv = rank_kv_heads(sum_grads_over_model(p["wk"]),
+                               sum_grads_over_model(p["wv"]), cfg.n_heads,
+                               dim=1)
+        k, v = project_heads(enc_out, wk), project_heads(enc_out, wv)
+    x = sum_grads_over_model(x)
+    q = project_heads(x, p["wq"])
+    if cfg.qkv_bias:
+        bq = p["bq"]
+        if "bq" in kept:
+            bq = model_slice(sum_grads_over_model(bq), 0)
+        q = q + bq.to(dt)
+    q = apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     return q, k, v
 
 
@@ -586,7 +659,7 @@ def _context_parallel_flash(cfg: ModelConfig, q, k, v, q_positions,
 
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, causal: bool = True,
-              split: bool = False) -> torch.Tensor:
+              split: bool | tuple = False) -> torch.Tensor:
     """Full self-attention sublayer: project, attend (flash for long
     sequences), output-project. Under a mesh with a "model" axis the
     reference's condition picks the context-parallel form: flash,
@@ -595,14 +668,22 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     head count). The reference's ``kv_override``
     / ``kv_positions`` / ``kv_mask`` arguments have no caller in either
     package (decode attends to the cache through ``attention_scores``) and
-    are not ported. ``split``: ``p`` holds this rank's heads of the "model"
-    axis (``ATTN_SPLIT``; query and key-value heads both split, so each
-    rank's query groups meet their own key-value heads), ``x`` is whole
-    there; each rank's output is its part of the sum, added up over the
-    axis."""
-    if split:
-        x = sum_grads_over_model(x)
-    q, k, v = qkv_project(p, cfg, x, positions)
+    are not ported. ``split`` (``sharding.spmd.split_over_model``'s form
+    with ``ATTN_SPLIT`` and ``ATTN_OPTIONAL``): True, ``p`` holds this
+    rank's heads of the "model" axis, query and key-value heads both, so
+    each rank's query groups meet their own key-value heads; a tuple of
+    the leaves kept whole, ``p`` holds this rank's query heads and whole
+    K/V projections (``split_queries``: K and V projected whole on every
+    model rank, as the reference's partitioned program does). Either way
+    x is whole over "model" and each rank's output is its part of the sum,
+    added up over the axis. False: the whole attention on every model
+    rank (the heads do not divide the axis: hymba's 25)."""
+    if isinstance(split, tuple):
+        q, k, v = split_queries(p, cfg, x, positions, split)
+    else:
+        if split:
+            x = sum_grads_over_model(x)
+        q, k, v = qkv_project(p, cfg, x, positions)
     use_flash = cfg.attn_chunk_q > 0 and \
         k.shape[1] >= cfg.attn_chunk_threshold
     axis = model_axis()
@@ -626,8 +707,9 @@ __all__ = ["Params", "_dense_init", "init_rmsnorm", "rmsnorm",
            "init_layernorm", "layernorm",
            "rope_frequencies", "apply_rope", "init_embedding", "embed",
            "init_unembed", "unembed", "init_mlp", "activate", "mlp",
-           "MLP_SPLIT", "ATTN_SPLIT",
+           "MLP_SPLIT", "ATTN_SPLIT", "ATTN_OPTIONAL",
            "init_attention", "project_heads", "merge_heads", "qkv_project",
+           "rank_kv_heads", "split_queries",
            "attention_scores", "attention_over_split_keys", "owned_slot",
            "decode_attention", "cross_decode_attention", "embed_part",
            "flash_attention", "attention"]

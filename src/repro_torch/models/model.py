@@ -32,7 +32,8 @@ takes its rows of the batch, gathers each block's parameters over the data
 axes just before the block runs (inside its remat, so backward gathers
 them again) and keeps its "model" part of every leaf the rules split
 there (``block_params``): the heads of the attention, the
-cross-attention and MLA, the hidden units of the dense MLP and the shared
+cross-attention (their query heads alone where the rules keep the K/V
+projections whole) and MLA, the hidden units of the dense MLP and the shared
 expert, the routed experts, the Mamba mixer's channels, and the
 vocabulary of the embedding and of the cross-entropy's unembedding, each
 a tensor-parallel product. It returns DTensors: the hidden states split
@@ -157,23 +158,29 @@ def _norm(cfg: ModelConfig):
 
 def _cross_attention(p: Params, cfg: ModelConfig, h: torch.Tensor,
                      positions: torch.Tensor, enc_out: torch.Tensor,
-                     split: bool = False) -> torch.Tensor:
+                     split: bool | tuple = False) -> torch.Tensor:
     """The decoder's attention to the encoder: queries from h [B, S, D]
     (projected as ``qkv_project`` projects them), keys and values
     [B, T, H, Dh] projected from the encoder output [B, T, D], no causal
-    mask. ``split``: ``p`` holds this rank's heads (``L.ATTN_SPLIT``), h and
-    the encoder output are whole over "model"; each rank's output is its
-    part of the sum, added up over the axis."""
-    if split:
-        h, enc_out = SP.sum_grads_over_model(h), SP.sum_grads_over_model(
-            enc_out)
-    k = L.project_heads(enc_out, p["wk"])
-    v = L.project_heads(enc_out, p["wv"])
-    q = L.project_heads(h, p["wq"])
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(h.dtype)
-    q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
-    b, t = k.shape[:2]
+    mask. ``split`` (``L.attention``'s): True, ``p`` holds this rank's
+    heads (``L.ATTN_SPLIT``); a tuple of the leaves kept whole, this rank's
+    query heads and whole ``wk`` / ``wv``, whose columns of the KV heads
+    they meet give this rank's K and V (``L.split_queries``). Either way h
+    and the encoder output are whole over "model"; each rank's output is
+    its part of the sum, added up over the axis."""
+    b, t = enc_out.shape[:2]
+    if isinstance(split, tuple):
+        q, k, v = L.split_queries(p, cfg, h, positions, split, enc_out)
+    else:
+        if split:
+            h, enc_out = SP.sum_grads_over_model(h), \
+                SP.sum_grads_over_model(enc_out)
+        k = L.project_heads(enc_out, p["wk"])
+        v = L.project_heads(enc_out, p["wv"])
+        q = L.project_heads(h, p["wq"])
+        if cfg.qkv_bias:
+            q = q + p["bq"].to(h.dtype)
+        q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     enc_pos = torch.arange(t, device=k.device).expand(b, t)
     o = L.attention_scores(q, k, v, positions, enc_pos, causal=False)
     out = L.merge_heads(o, p["wo"])
@@ -184,7 +191,8 @@ def block_params(p: Params, cfg: ModelConfig, moe_layer: bool):
     """A block's parameters for this rank under a mesh (``sharding.spmd``;
     as they are without one): each sublayer split over "model" for
     tensor-parallel products where its layout allows, the heads of the
-    attention and the cross-attention (``L.ATTN_SPLIT``) and of MLA
+    attention and the cross-attention (``L.ATTN_SPLIT``; their query heads
+    alone where ``L.ATTN_OPTIONAL``'s K/V leaves stay whole) and of MLA
     (``MLA.MLA_SPLIT``, its ``wq_a`` / ``wkv_a`` whole), the dense MLP's
     hidden units (``L.MLP_SPLIT``), the Mamba mixer's channels
     (``SSM.SSM_SPLIT``), a MoE layer's routed experts and shared expert
@@ -197,7 +205,8 @@ def block_params(p: Params, cfg: ModelConfig, moe_layer: bool):
             out[k], split[k] = SP.split_over_model(v, MLA.MLA_SPLIT,
                                                    MLA.MLA_WHOLE)
         elif k in ("attn", "cross"):
-            out[k], split[k] = SP.split_over_model(v, L.ATTN_SPLIT)
+            out[k], split[k] = SP.split_over_model(v, L.ATTN_SPLIT,
+                                                   optional=L.ATTN_OPTIONAL)
         elif k == "ssm":
             out[k], split[k] = SP.split_over_model(v, SSM.SSM_SPLIT)
         elif k == "mlp" and not moe_layer:
@@ -367,7 +376,8 @@ class Model(nn.Module):
         x = frames + whole(params["pos_embed"])[None, :t].to(frames.dtype)
 
         def attn(p_, x_):
-            a, split = SP.split_over_model(p_["attn"], L.ATTN_SPLIT)
+            a, split = SP.split_over_model(p_["attn"], L.ATTN_SPLIT,
+                                           optional=L.ATTN_OPTIONAL)
             return x_ + L.attention(a, cfg, L.layernorm(whole(p_["ln1"]), x_),
                                     pos, causal=False, split=split)
 

@@ -16,7 +16,12 @@ local tensors, once a rank, as the reference's ``shard_map`` regions do:
   dims only) and runs as a tensor-parallel product, Megatron's pair: the
   input whole over "model" passes ``sum_grads_over_model`` and the output,
   each rank's part of the sum, ``sum_over_model`` (an all-reduce forward).
-  These are the attention's and the cross-attention's heads, MLA's heads
+  These are the attention's and the cross-attention's heads (where their
+  ``wk`` / ``wv`` stay whole over "model", the KV heads not dividing it or
+  ``SERVING_RULES`` keeping them whole, the query heads alone: each model
+  rank projects the self-attention's K and V whole and the
+  cross-attention's for its own heads, as the reference's partitioned
+  program does, ``models.layers.split_queries``), MLA's heads
   (``wq`` / ``wq_b``, ``wk_b``, ``wv_b``, ``wo``; its ``wq_a`` and
   ``wkv_a`` stay whole, as their specs say, and their outputs enter the
   region), the dense MLP's and the shared expert's hidden units, the
@@ -28,8 +33,9 @@ local tensors, once a rank, as the reference's ``shard_map`` regions do:
   logits, their log-sum-exp from ``max_over_model`` and ``sum_over_model``);
 * what the specs keep whole over "model" runs whole, repeated on each
   model rank: the norms, the router, MLA's ``wq_a`` and ``wkv_a``, the
-  embeddings, and any dimension the axis does not divide (the resolver
-  leaves it whole: whisper's vocabulary of 51865, hymba's 25 heads). Two
+  self-attention's whole K/V projections, the embeddings, and any
+  dimension the axis does not divide (the resolver leaves it whole:
+  whisper's vocabulary of 51865, hymba's 25 query heads). Two
   such places still split their work, as the reference does: the
   context-parallel flash attention (each rank's query positions) and the
   selective scan of whole channels (each rank's channels). Each region's
@@ -303,24 +309,35 @@ def whole_params(tree):
                              tuple(layout))
 
 
-def split_over_model(tree: dict, dims: dict, whole: tuple = ()):
+def split_over_model(tree: dict, dims: dict, whole: tuple = (),
+                     optional: tuple = ()):
     """A sublayer's parameters for a tensor-parallel product over "model"
-    (Megatron's column- then row-parallel pair): ``(tree, True)`` with each
-    leaf that ``dims`` names gathered over every mesh dim but "model" and
-    this rank's part kept there, and each leaf that ``whole`` names
-    gathered whole (its spec keeps it whole over "model": MLA's ``wq_a``
-    and ``wkv_a``), when every other leaf of ``tree`` is a DTensor split
-    over "model" on its ``dims`` tensor dim and on no other mesh dim (so a
-    rank's part is one contiguous block: a head axis, an expert axis, a
-    run of channels or of the vocabulary); else ``(whole_params(tree),
-    False)``. Without a model axis of two or more it is always the
-    latter."""
-    parts = {k: x for k, x in tree.items() if k not in whole}
+    (Megatron's column- then row-parallel pair), in one of three forms:
+
+    * ``(tree, True)``, every leaf split: each leaf that ``dims`` names
+      gathered over every mesh dim but "model" and this rank's part kept
+      there, and each leaf that ``whole`` names gathered whole (its spec
+      keeps it whole over "model": MLA's ``wq_a`` and ``wkv_a``), when
+      every other leaf of ``tree`` is a DTensor split over "model" on its
+      ``dims`` tensor dim and on no other mesh dim (so a rank's part is one
+      contiguous block: a head axis, an expert axis, a run of channels or
+      of the vocabulary);
+    * ``(tree, kept)``, split in part: as above, but the leaves that
+      ``optional`` names and the rules keep whole over "model" are
+      gathered whole too; ``kept`` is the tuple of their names (the
+      attention's K/V projections and biases where the KV heads do not
+      divide the axis or ``SERVING_RULES`` keeps them whole, its query
+      heads split: ``models.layers.attention``);
+    * ``(whole_params(tree), False)`` otherwise, and always without a model
+      axis of two or more."""
+    kept = tuple(k for k in optional if k in tree and
+                 model_dim(tree[k]) is None)
+    parts = {k: x for k, x in tree.items() if k not in whole + kept}
     if model_axis() is None or not set(parts) <= set(dims) or any(
             _own_model_dim(x) != dims[k] for k, x in parts.items()):
         return whole_params(tree), False
-    return {k: whole_params(x) if k in whole else _keep_model_part(x)
-            for k, x in tree.items()}, True
+    return ({k: _keep_model_part(x) if k in parts else whole_params(x)
+             for k, x in tree.items()}, kept or True)
 
 
 def batch_sum(t: torch.Tensor) -> torch.Tensor:
