@@ -216,7 +216,10 @@ Phases, each fatal on error (exit code 1, no result line):
     and sane, with the rank's FLOPs over an ideal split of one device's
     (not a gate: the port repeats on every model rank what the rules keep
     whole), its temp bytes and its collectives by kind, seconds per
-    cell.
+    cell; a long_500k decode step (``LONG_CONTEXT_ARCHS`` on both meshes)
+    gathers no parameter (its all-gathers average at most one token's
+    largest activation) and falcon-mamba-7b's on 16 x 16 is under
+    ``LONG_FALCON_MAX_RATIO`` x the ideal split.
 24. population sharding: engines over ``["cuda:0"] * k`` for k in {2, 4}
     (and over every visible card where there are several), each shard its
     own dispatch, adaptive loops and kernel launches: ``evaluate_genomes``
@@ -290,13 +293,17 @@ Phases, each fatal on error (exit code 1, no result line):
     tokens/s, prefill tokens/s, each rank's bytes of parameters and cache,
     a decode step's collectives by kind, and B7 held against its plain
     version and timed at the shard's shape beside its bound; rank 0 counts
-    one more ``SERVING_RULES`` decode step of deepseek and one more
-    ``SERVING_RULES`` prefill of qwen2.5-3b, each held exactly to the
-    dry-run's meta count as in phase 25; under ``SERVING_RULES`` qwen's and
-    whisper's prefills take the query-split attention (``wk`` / ``wv``
-    whole over "model": K and V projected whole on each rank, whisper's
-    cross-attention K and V for the rank's own heads), counted on every
-    rank. ``python3 chip_smoke.py --phase 26`` runs this phase alone.
+    one more ``SERVING_RULES`` decode step of deepseek, one more
+    ``LONG_CONTEXT_RULES`` decode step of hymba and of whisper and one
+    more ``SERVING_RULES`` prefill of qwen2.5-3b, each held exactly to the
+    dry-run's meta count as in phase 25; a ``LONG_CONTEXT_RULES`` decode
+    step, whose weights keep their data shards, all-gathers over "data"
+    only one token's activation ([1, 1, d_model]); under
+    ``SERVING_RULES`` qwen's and whisper's prefills take the query-split
+    attention (``wk`` / ``wv`` whole over "model": K and V projected whole
+    on each rank, whisper's cross-attention K and V for the rank's own
+    heads), counted on every rank. ``python3 chip_smoke.py --phase 26``
+    runs this phase alone.
 
 Every path (phases 3, 4, 5, 8, 9, 10, 13, 14, 15, 16, 17, 19, 20, 21, 22,
 23, 24, 25, 26)
@@ -447,10 +454,11 @@ ICI_BYTES, ICI_RTOL, RING_ALLGATHER_REL = 4e9, 1e-5, 1e-6
 ICI_KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all")
 RANK_SHAPE = {"data": 16, "model": 16}
 DRYRUN_WORKERS = 7
-# the cells (dryrun_tasks): every arch at decode_32k (and long_500k where
-# it runs) on 16x16; train_4k on 16x16 for the archs whose trace fits the
-# phase (falcon-mamba-7b, hymba-1.5b, llava-next-34b and nemotron-4-15b
-# take 60-150 s of host each); qwen2.5-3b through every shape but
+# the cells (dryrun_tasks): every arch at decode_32k on 16x16 (and at
+# long_500k where it runs, LONG_CONTEXT_ARCHS, on both meshes); train_4k
+# on 16x16 for the archs whose trace fits the phase (falcon-mamba-7b,
+# hymba-1.5b, llava-next-34b and nemotron-4-15b take 60-150 s of host
+# each); qwen2.5-3b through every shape but
 # prefill_32k on both meshes (its three counts, about 160 s of host, are
 # the CLI's: python -m repro_torch.launch.dryrun --arch qwen2.5-3b --shape
 # prefill_32k); each variant where it changes the step
@@ -458,6 +466,11 @@ DRYRUN_ARCH = "qwen2.5-3b"
 DRYRUN_TRAIN = ("qwen2.5-3b", "olmoe-1b-7b", "deepseek-v2-lite-16b",
                 "glm4-9b", "codeqwen1.5-7b", "whisper-medium")
 FLOP_ARCH, FLOP_LAYERS = "qwen2.5-3b", 2
+# long_500k's archs; falcon-mamba-7b's decode step there on 16 x 16 keeps
+# each weight's data shard (16.0 x the ideal split where every data rank
+# gathered the weights and ran the whole step)
+LONG_CONTEXT_ARCHS = ("falcon-mamba-7b", "hymba-1.5b")
+LONG_FALCON_MAX_RATIO = 2.0
 # population sharding: shard lists ["cuda:0"] * k, the genome spaces
 # (name, n_chiplets or None for the parametric space, population), the
 # NSGA-II run and the service round, and the timed calls per shard count
@@ -491,7 +504,10 @@ MESH_WORLD_TIMEOUT = 600
 # (2, 2) world's SERVE_WORLD_RUNS (arch, rule set, dtype) within
 # SERVE_MESH_TOL in float32, teacher-forced on one device's tokens, every
 # decode step under SERVING_RULES and the first SERVE_FSDP_STEPS under the
-# rule sets whose weights are gathered over "data" every step
+# other two (DEFAULT_RULES gathers the weights over "data" every step;
+# LONG_CONTEXT_RULES, whose steps move no weight, takes as many so that
+# the phase does not grow); rank 0 counts one more decode step of each of
+# SERVE_COUNTED (arch, rule set, dtype)
 # phases 25 and 26's MLA and MoE model: deepseek-v2-lite-16b at its
 # published widths cut to MOE_LAYERS (its dense first layer and one layer
 # of 64 routed experts top-6 and 2 shared experts), in float32 (bf16
@@ -513,6 +529,9 @@ SERVE_MESH_LAYERS = {"hymba-1.5b": 4, "qwen2.5-3b": SERVE_LAYERS,
 SERVE_MESH_NEW = 16
 SERVE_MESH_TOL = dict(rtol=1e-4, atol=1e-4)
 SERVE_FSDP_STEPS = 2
+SERVE_COUNTED = ((MOE_ARCH, "serving", "float32"),
+                 ("hymba-1.5b", "long", "float32"),
+                 (ENCDEC_ARCH, "long", "float32"))
 SERVE_REFERENCES = (("hymba-1.5b", "float32", False),
                     ("hymba-1.5b", "float32", True),
                     ("hymba-1.5b", "bfloat16", False),
@@ -3323,7 +3342,9 @@ def dryrun_tasks() -> list:
     cells += [("falcon-mamba-7b", "train_4k", "ssm_fused", single)]
     cells += [(DRYRUN_ARCH, "decode_32k", v, both) for v in VARIANTS]
     cells += [(DRYRUN_ARCH, "long_500k", "baseline", both)]
-    cells += [(a, s, "baseline", single) for a in ARCH_IDS
+    cells += [(a, s, "baseline",
+               both if s == "long_500k" and a in LONG_CONTEXT_ARCHS
+               else single) for a in ARCH_IDS
               if a != DRYRUN_ARCH for s in ("decode_32k", "long_500k")]
     order = {"train_4k": 0}
     work = [("dryrun", a, s, v, multi) for a, s, v, meshes in cells
@@ -3389,6 +3410,29 @@ def host_task(task):
             k, ax, ICI_BYTES, rows=rows, cols=rows, wrap=wrap, device="cpu"))
             for k in ICI_KINDS for ax in ("data", "model")}
     return task, out, time.perf_counter() - t0
+
+
+def _long_context_held(r: dict, cell: dict) -> None:
+    """Phase 23(e)'s gates on a long_500k record ``r`` (its ``cell``): its
+    decode step gathers no parameter, each all-gather at most one token's
+    largest activation (4 bytes x the larger of d_model and the
+    vocabulary; a parameter's shard is thousands of times that), and
+    falcon-mamba-7b's on 16 x 16 is under ``LONG_FALCON_MAX_RATIO`` x the
+    ideal split."""
+    from repro_torch.configs import get_config
+    cfg = get_config(r["arch"])
+    ops = cell["collective_op_counts"]["all-gather"]
+    nbytes = cell["collective_breakdown"]["all-gather"]
+    most = 4 * max(cfg.d_model, cfg.vocab_size)
+    if nbytes > ops * most:
+        fail(f"phase 23: {r['arch']} long_500k {r['mesh']} all-gathers "
+             f"{nbytes} bytes in {ops} ops, more than one token's "
+             f"activation ({most} bytes) each: a parameter is gathered")
+    if r["arch"] == "falcon-mamba-7b" and r["mesh"] == "16x16" and \
+            cell["ideal_ratio"] >= LONG_FALCON_MAX_RATIO:
+        fail(f"phase 23: falcon-mamba-7b long_500k on 16x16 is "
+             f"{cell['ideal_ratio']:.4f} x the ideal split, not under "
+             f"{LONG_FALCON_MAX_RATIO}")
 
 
 def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
@@ -3657,6 +3701,8 @@ def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
             "temp_bytes": r["memory"]["temp_bytes"],
             "collective_op_counts": r["collective_op_counts"],
             "collective_breakdown": r["collective_breakdown"]}
+        if r["shape"] == "long_500k":
+            _long_context_held(r, cells[name])
     for name, c in sorted(cells.items()):
         if c is None:
             continue
@@ -4235,11 +4281,12 @@ def meta_rank_count(sizes, kind: str) -> dict:
     ``TRAIN_SEQ`` under ``DEFAULT_RULES`` (``_moe_cfg``) or its
     ``SERVING_RULES`` decode step of ``SERVE_BATCH`` rows at the last
     position of a cache of ``SERVE_PROMPT + SERVE_MESH_NEW`` slots
-    (``_serve_cfg``), or ("prefill") qwen2.5-3b's ``SERVING_RULES``
-    prefill of ``PREFILL_BATCH`` x ``PREFILL_SEQ`` (``_serve_cfg``, float32;
-    its query heads split, K and V whole). Runs in a spawned host process:
-    a rank of a meshed world has its process group, and a count needs a
-    process without one."""
+    (``_serve_cfg``), ("long:<arch>") that of ``arch`` (float32) under
+    ``LONG_CONTEXT_RULES`` at batch 1, or ("prefill") qwen2.5-3b's
+    ``SERVING_RULES`` prefill of ``PREFILL_BATCH`` x ``PREFILL_SEQ``
+    (``_serve_cfg``, float32; its query heads split, K and V whole). Runs
+    in a spawned host process: a rank of a meshed world has its process
+    group, and a count needs a process without one."""
     if os.path.join(ROOT, "src") not in sys.path:
         sys.path.insert(0, os.path.join(ROOT, "src"))
     import torch
@@ -4256,6 +4303,11 @@ def meta_rank_count(sizes, kind: str) -> dict:
         cfg = _serve_cfg("qwen2.5-3b", "float32")
         rules = _serve_rule_sets()["serving"]
         spec = ShapeSpec("card_count", PREFILL_SEQ, PREFILL_BATCH, "prefill")
+    elif kind.startswith("long:"):
+        cfg = _serve_cfg(kind[len("long:"):], "float32")
+        rules = _serve_rule_sets()["long"]
+        spec = ShapeSpec("card_count", SERVE_PROMPT + SERVE_MESH_NEW, 1,
+                         "decode")
     else:
         cfg = _serve_cfg(MOE_ARCH, "float32")
         rules = _serve_rule_sets()["serving"]
@@ -4884,7 +4936,8 @@ def _encdec_greedy(torch, model, dev, prompts, frames, new: int):
 
 
 def _serve_calls(torch, model, dev, pre, teacher, steps, mesh=None,
-                 rules=None, count_comms=False, frames=None) -> dict:
+                 rules=None, count_comms=False, frames=None,
+                 gathers=None) -> dict:
     """``Model.prefill`` on ``pre`` and ``steps`` decode steps fed
     ``teacher``'s tokens (a cache of ``teacher``'s length), on one device
     or, with ``mesh``, once a rank with the tokens (and whisper's
@@ -4893,8 +4946,11 @@ def _serve_calls(torch, model, dev, pre, teacher, steps, mesh=None,
     (float32), the prefill's seconds, whisper's encoder and cross-cache
     seconds, each step's seconds (synchronised, the gather for the host
     outside), the collectives of the last step by kind (``count_comms``)
-    and this rank's bytes of parameters and cache."""
+    and this rank's bytes of parameters and cache. ``gathers``: a list that
+    takes (the group's ranks, the output's elements) of every all-gather
+    the decode steps issue."""
     import contextlib
+    import torch.distributed as dist
     from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch.sharding.rules import distribute_batch
     from repro_torch.sharding.spmd import full_value
@@ -4930,11 +4986,21 @@ def _serve_calls(torch, model, dev, pre, teacher, steps, mesh=None,
         tok = placed(teacher[:, t:t + 1])
         counting = count_comms and t == steps - 1
         mode = CommDebugMode() if counting else contextlib.nullcontext()
+        real_gather = dist.all_gather_into_tensor
+        if gathers is not None:
+            def spy(out_t, t_in, group=None, **k):
+                gathers.append((dist.get_process_group_ranks(group),
+                                out_t.numel()))
+                return real_gather(out_t, t_in, group=group, **k)
+            dist.all_gather_into_tensor = spy
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        with mode:
-            lg, cache = model.decode_step(cache, tok, t, **kw)
-        torch.cuda.synchronize()
+        try:
+            with mode:
+                lg, cache = model.decode_step(cache, tok, t, **kw)
+            torch.cuda.synchronize()
+        finally:
+            dist.all_gather_into_tensor = real_gather
         secs.append(time.perf_counter() - t0)
         if counting:
             comms = {str(k).rsplit(".", 1)[-1]: v
@@ -5041,10 +5107,12 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
             place_s = time.perf_counter() - t0
             ss.selective_scan_fwd_cuda.launches = 0
             cp_before, queries_before = seen["cp"], seen["queries"]
+            gathers = [] if long_context else None
             t0 = time.perf_counter()
             got = _serve_calls(torch, model, dev, r["pre"], r["teacher"],
                                steps, mesh, rule_sets[rules_name],
-                               count_comms=True, frames=r["frames"])
+                               count_comms=True, frames=r["frames"],
+                               gathers=gathers)
             run_s = time.perf_counter() - t0
             pre_err = _held(torch, got["prefill"], r["prefill"])
             step_errs = [_held(torch, g, w) for g, w in
@@ -5073,7 +5141,14 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                 "experts_a_rank": (model.blocks[-1].mlp.wi.to_local()
                                    .shape[0] if cfg.is_moe else None),
                 "place_s": place_s, "run_s": run_s}
-            if (arch, rules_name, dtype) == (MOE_ARCH, "serving", "float32"):
+            if long_context:
+                # the output sizes of the decode steps' all-gathers over
+                # this rank's data group: one token's activation only
+                data = dist.get_process_group_ranks(mesh.get_group("data"))
+                runs["|".join((arch, rules_name, dtype))][
+                    "data_gathers"] = sorted({n for g, n in gathers
+                                              if g == data})
+            if (arch, rules_name, dtype) in SERVE_COUNTED:
                 # one more decode step, at the cache's last slot, which
                 # rank 0 counts as the dry-run does (the parent holds its
                 # FLOPs and collectives to the meta count)
@@ -5185,10 +5260,13 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
     torch.cuda.set_device(dev)
     torch.cuda.empty_cache()
     world, backend = _start_mesh_world(torch, work, procs, "--serve-rank")
-    # the dry-run's count of the decode step rank 0 counts on the card
-    # and of the SERVING_RULES prefill of qwen2.5-3b (query heads split)
-    count_pool, (meta_count, meta_prefill) = _start_meta_count(
-        _world_mesh(world), "decode", "prefill")
+    # the dry-run's count of the decode steps rank 0 counts on the card
+    # (SERVE_COUNTED) and of the SERVING_RULES prefill of qwen2.5-3b
+    # (query heads split)
+    count_pool, (meta_prefill, *meta_counts) = _start_meta_count(
+        _world_mesh(world), "prefill", *(
+            "decode" if rules_name == "serving" else f"long:{arch}"
+            for arch, rules_name, _ in SERVE_COUNTED))
     procs.append(_PoolStopper(count_pool))
     rule_sets = _serve_rule_sets()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -5346,6 +5424,12 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
                      f"(held {run['decode_held']}), greedy tokens equal "
                      f"{run['greedy_equal']}, past {SERVE_MESH_TOL}")
             cfg = _serve_cfg(arch, dtype)
+            if rules_name == "long" and cards["mesh"][0] > 1 and \
+                    run["data_gathers"] != [cfg.d_model]:
+                fail(f"phase 26: rank {r}, {name}: the decode steps' "
+                     f"all-gathers over \"data\" have {run['data_gathers']} "
+                     f"elements, not one token's {cfg.d_model}: a "
+                     f"parameter is gathered")
             if cfg.is_moe and run["experts_a_rank"] != \
                     cfg.n_experts // cards["mesh"][1]:
                 fail(f"phase 26: rank {r}, {name}: {run['experts_a_rank']} "
@@ -5361,10 +5445,11 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
              f"{shard['max_abs_err']}")
     rec["world"] = cards
     runs0 = cards["per_rank"][0]["runs"]
-    counted = runs0[f"{MOE_ARCH}|serving|float32"]
-    counted["card_count"] = _hold_count(
-        26, f"a {MOE_ARCH} SERVING_RULES decode step on {cards['mesh']}",
-        counted["card_count"], meta_count)
+    for (arch, rules_name, dtype), meta in zip(SERVE_COUNTED, meta_counts):
+        counted = runs0["|".join((arch, rules_name, dtype))]
+        counted["card_count"] = _hold_count(
+            26, f"a {arch} {rules_name} decode step on {cards['mesh']}",
+            counted["card_count"], meta)
     counted = runs0["qwen2.5-3b|serving|float32"]
     counted["prefill_count"] = _hold_count(
         26, f"a qwen2.5-3b SERVING_RULES prefill on {cards['mesh']}",
@@ -5392,6 +5477,12 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
         f"{shard['device_ms']:.4f}, bound {shard['bound_ms']:.4g}, plain "
         f"{shard['plain_ms']:.1f}), within {shard['max_abs_err']:.3g} of "
         f"plain; a rank's weights drawn in {cards['build_s']:.1f} s")
+    log(f"phase 26: decode ms a step on {cards['mesh']}, LONG_CONTEXT_RULES "
+        f"(each weight's data shard kept) against DEFAULT_RULES (weights "
+        f"gathered over \"data\"): " + "; ".join(
+            f"{a} {runs0[f'{a}|long|float32']['decode_ms']:.1f} against "
+            f"{runs0[f'{a}|default|float32']['decode_ms']:.1f}"
+            for a in ("hymba-1.5b", ENCDEC_ARCH)))
     return rec
 
 

@@ -52,7 +52,12 @@ every model rank what the rules keep whole over "model" (the norms, the
 router, an attention whose KV heads the axis does not divide), gathers
 each parameter whole before its block (FSDP) and reduce-scatters its
 gradient, where XLA may partition a product otherwise, reshard with
-all-to-alls and permutes, or sum gradients with all-reduces. FLOPs count
+all-to-alls and permutes, or sum gradients with all-reduces. A decode
+step whose rows are whole on the data axes (long_500k's batch of 1 under
+``LONG_CONTEXT_RULES``) gathers no parameter: each product runs on the
+rank's data shard of ``d_model`` and sums or gathers the one token's
+activations over "data", where XLA also gathers a few weights there (the
+MLP's ``wo`` among them: ``tests/test_torch_mesh_longctx.py``). FLOPs count
 matrix products only. Argument and output bytes come exactly from the
 sharding specs (a test holds them equal to the traced rank's entry bytes).
 

@@ -16,9 +16,12 @@ card) ``generate(..., mesh=mesh, rules=...)`` places the parameters by
 ``param_specs``, the caches by ``cache_specs`` and each step's tokens by
 ``batch_specs`` under ``rules`` (``DEFAULT_RULES``, ``SERVING_RULES`` or
 ``LONG_CONTEXT_RULES``, the reference's three), and runs the decode step
-once a rank. Under ``torchrun`` ``main`` serves on the host mesh (world,
-1) under ``DEFAULT_RULES`` with the weights drawn on the host, as the
-reference's launcher runs ``generate`` inside its host mesh.
+once a rank (under ``LONG_CONTEXT_RULES`` each weight's data shard
+computes its part and the activations are summed or gathered over
+"data": no weight moves). Under ``torchrun`` ``main`` serves on the host
+mesh (world, 1) under ``DEFAULT_RULES`` with the weights drawn on the
+host, as the reference's launcher runs ``generate`` inside its host
+mesh.
 """
 from __future__ import annotations
 

@@ -28,9 +28,10 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
-from ..sharding.spmd import (combine_softmax_over_model, gather_over_model,
-                              model_axis, model_slice, sum_grads_over_model,
-                              sum_over_model)
+from ..sharding.spmd import (combine_softmax_over_model, data_block,
+                              data_whole, gather_over_model, model_axis,
+                              model_slice, sum_grads_over_model,
+                              sum_over_data, sum_over_model)
 from .config import ModelConfig
 
 Params = dict[str, Any]
@@ -145,15 +146,33 @@ def init_unembed(gen: torch.Generator, d: int, vocab: int,
     return {"w": _dense_init(gen, (d, vocab), device=device)}
 
 
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, w.to(x.dtype))
+
+
+def contract_first(x: torch.Tensor, w: torch.Tensor,
+                   product=_matmul) -> torch.Tensor:
+    """``product(x, w)`` (x's last dim against w's first, in x's dtype by
+    default). Where ``w`` holds a decode step's data shard of ``d_model``
+    (``sharding.spmd.decode_part``: fewer rows than x has columns), the
+    product of x's columns there, summed over the data axes."""
+    xb = data_block(x, w.shape[0])
+    y = product(xb, w)
+    return sum_over_data(y)[0] if xb.shape[-1] != x.shape[-1] else y
+
+
 def unembed(p: Params, x: torch.Tensor, softcap: float = 0.0) -> torch.Tensor:
     """Logits in float32 from operands rounded to x's dtype. The values are
     the reference's (a bf16 product with ``preferred_element_type=float32``:
     products of bf16 values are exact in f32), but the product here is an
     f32 GEMM standing in for that bf16 tensor-core product, so it costs an
     f32 GEMM's time. A ``w`` that holds a rank's run of the vocabulary
-    gives that run's logits."""
-    w = p["w"].to(x.dtype)
-    logits = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    gives that run's logits; one that holds its data shard of ``d_model``
+    (a decode step's, ``sharding.spmd.decode_part``) takes x's columns
+    there, and the partial logits are summed over the data axes before
+    the softcap."""
+    logits = contract_first(x, p["w"].to(x.dtype), lambda a, w: torch.matmul(
+        a.to(torch.float32), w.to(torch.float32)))
     if softcap > 0:
         logits = softcap * torch.tanh(logits / softcap)
     return logits
@@ -199,17 +218,25 @@ ATTN_OPTIONAL = ("wk", "wv", "bq", "bk", "bv")
 
 
 def mlp(p: Params, cfg: ModelConfig, x: torch.Tensor,
-        split: bool = False) -> torch.Tensor:
+        split: bool = False, gather: bool = True) -> torch.Tensor:
     """The MLP. ``split``: ``p`` holds this rank's hidden units of the
     "model" axis (``MLP_SPLIT``), ``x`` is whole there; each rank's output
-    is its part of the sum, added up over the axis."""
+    is its part of the sum, added up over the axis. Leaves that hold a
+    decode step's data shard of ``d_model`` (``sharding.spmd.decode_part``)
+    contract x's columns there (``wi``, ``wg``: the hidden units summed
+    over the data axes) and give this rank's output columns (``wo``),
+    gathered over the data axes unless ``gather`` is False."""
     dt = x.dtype
     if split:
         x = sum_grads_over_model(x)
-    h = torch.matmul(x, p["wi"].to(dt))
-    g = torch.matmul(x, p["wg"].to(dt)) if cfg.mlp == "swiglu" else None
+    xb = data_block(x, p["wi"].shape[0])
+    h = torch.matmul(xb, p["wi"].to(dt))
+    g = torch.matmul(xb, p["wg"].to(dt)) if cfg.mlp == "swiglu" else None
+    if xb.shape[-1] != x.shape[-1]:
+        h, g = sum_over_data(h, g)
     y = torch.matmul(activate(cfg, h, g), p["wo"].to(dt))
-    return sum_over_model(y) if split else y
+    y = sum_over_model(y) if split else y
+    return data_whole(y, x.shape[-1]) if gather else y
 
 
 # ---------------------------------------------------------------------------
@@ -435,12 +462,24 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     * None: the whole cache on every rank.
 
     The output projection is row-parallel (this rank's heads, summed over
-    "model") where ``wo`` is split over heads."""
+    "model") where ``wo`` is split over heads.
+
+    Where the rows are whole on the data axes, every projection holds this
+    rank's data shard of ``d_model`` (``sharding.spmd.decode_part``): the
+    Q/K/V projections contract x's columns there and are summed over the
+    data axes in one all-reduce before their biases are added, so the new
+    key and value are whole, as the cache is there; ``wo`` gives this
+    rank's columns of the output, which are gathered."""
     dims = dims or {}
     dt = x.dtype
+    names, proj = ("wq", "wk", "wv"), {}
+    xb = data_block(x, p["wq"].shape[0])
+    if xb.shape[-1] != x.shape[-1]:
+        proj = dict(zip(names, sum_over_data(
+            *(project_heads(xb, p[w]) for w in names))))
 
     def heads(w: str, b: str, rope: bool):
-        y = project_heads(x, p[w])
+        y = proj.pop(w) if proj else project_heads(x, p[w])
         if cfg.qkv_bias:
             bias = p[b]
             if dims.get(w) is not None and dims.get(b) is None:
@@ -466,16 +505,18 @@ def decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     else:
         k_cache[:, slot] = k[:, 0]
         v_cache[:, slot] = v[:, 0]
-    return _attend_cache(p, q, k_cache, v_cache, kv_mask, dims, cache_dim)
+    return _attend_cache(p, q, k_cache, v_cache, kv_mask, dims, cache_dim,
+                         x.shape[-1])
 
 
 def _attend_cache(p: Params, q, k_cache, v_cache, kv_mask, dims: dict,
-                  cache_dim: int | None) -> torch.Tensor:
+                  cache_dim: int | None, width: int) -> torch.Tensor:
     """The query ``q`` (this rank's heads where the cache holds them,
     every head otherwise) against a cache in one of ``decode_attention``'s
     layouts, and the output projection (row-parallel where ``wo`` holds
-    this rank's heads). ``kv_mask`` [B, S] over the whole cache's slots,
-    or None: every slot valid."""
+    this rank's heads; its output columns gathered over the data axes where
+    it holds a data shard of the ``width`` of ``d_model``). ``kv_mask``
+    [B, S] over the whole cache's slots, or None: every slot valid."""
     if cache_dim == 1:
         if kv_mask is None:
             kv_mask = torch.ones(k_cache.shape[:2], dtype=torch.bool,
@@ -493,10 +534,10 @@ def _attend_cache(p: Params, q, k_cache, v_cache, kv_mask, dims: dict,
     if dims.get("wo") is not None:
         if cache_dim != 2:
             o = model_slice(o, 2)
-        return sum_over_model(merge_heads(o, p["wo"]))
+        return data_whole(sum_over_model(merge_heads(o, p["wo"])), width)
     if cache_dim == 2:
         o = gather_over_model(o, 2)
-    return merge_heads(o, p["wo"])
+    return data_whole(merge_heads(o, p["wo"]), width)
 
 
 def cross_decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -510,9 +551,13 @@ def cross_decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     a mesh ``p``, ``dims`` and ``cache_dim`` are ``decode_attention``'s:
     the cache holds this rank's heads (2), its run of each head's columns
     (3), its run of the frames (1, ``SERVING_RULES``' "seq_kv": the
-    softmax statistics combined over "model") or all of it (None)."""
+    softmax statistics combined over "model") or all of it (None). A
+    ``wq`` / ``wo`` that holds this rank's data shard of ``d_model``
+    contracts x's columns there (summed over the data axes before the bias)
+    / gives this rank's output columns (gathered), as in
+    ``decode_attention``."""
     dims = dims or {}
-    q = project_heads(x, p["wq"])
+    q = contract_first(x, p["wq"], project_heads)
     if cfg.qkv_bias:
         bias = p["bq"]
         if dims.get("wq") is not None and dims.get("bq") is None:
@@ -523,7 +568,8 @@ def cross_decode_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
         q = q if dims.get("wq") is not None else model_slice(q, 2)
     elif dims.get("wq") is not None:
         q = gather_over_model(q, 2)
-    return _attend_cache(p, q, k_cache, v_cache, None, dims, cache_dim)
+    return _attend_cache(p, q, k_cache, v_cache, None, dims, cache_dim,
+                         x.shape[-1])
 
 
 def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool,

@@ -33,8 +33,9 @@ import torch
 from .config import ModelConfig
 from .layers import (Params, _dense_init, apply_rope,
                      attention_over_split_keys, attention_scores,
-                     flash_attention, merge_heads, owned_slot, project_heads)
-from ..sharding.spmd import (gather_over_model, model_slice,
+                     contract_first, flash_attention, merge_heads,
+                     owned_slot, project_heads)
+from ..sharding.spmd import (data_whole, gather_over_model, model_slice,
                               sum_grads_over_model, sum_over_model)
 
 # the tensor dim of each leaf that the heads split over "model"
@@ -64,7 +65,7 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
 def mla_compress(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  positions: torch.Tensor):
     """x -> (c_kv [B,S,r], k_rope [B,S,1,dr]): what the cache stores."""
-    kv_a = torch.matmul(x, p["wkv_a"].to(x.dtype))
+    kv_a = contract_first(x, p["wkv_a"])
     c_kv, k_rope = torch.split(kv_a, [cfg.kv_lora_rank, cfg.rope_head_dim],
                                dim=-1)
     k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
@@ -77,11 +78,12 @@ def mla_queries(p: Params, cfg: ModelConfig, x: torch.Tensor,
     heads of a tensor-parallel product, whose input (x, or ``wq_a``'s
     output) is whole over "model"."""
     if cfg.q_lora_rank:
-        qa = torch.matmul(x, p["wq_a"].to(x.dtype))
+        qa = contract_first(x, p["wq_a"])
         q = project_heads(sum_grads_over_model(qa) if split else qa,
                           p["wq_b"])
     else:
-        q = project_heads(sum_grads_over_model(x) if split else x, p["wq"])
+        q = contract_first(sum_grads_over_model(x) if split else x, p["wq"],
+                           project_heads)
     q_nope, q_rope = torch.split(
         q, [cfg.nope_head_dim, cfg.rope_head_dim], dim=-1)
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
@@ -171,7 +173,11 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     split on there: where ``wo`` holds this rank's heads, so do the other
     head leaves (``MLA_SPLIT``), the heads attend on this rank (against a
     cache split on its slots through their absorbed queries) and the
-    output is summed over "model"."""
+    output is summed over "model". Where the rows are whole on the data
+    axes, ``wq`` (or ``wq_a``) and ``wkv_a`` contract x's columns of their
+    data shard of ``d_model`` (summed over the data axes) and ``wo`` gives
+    this rank's output columns (gathered); ``wq_b``, ``wk_b`` and ``wv_b``
+    have no data shard."""
     split = (dims or {}).get("wo") is not None
     q_nope, q_rope = mla_queries(p, cfg, x, positions)
     c_kv, k_rope = mla_compress(p, cfg, x, positions)
@@ -191,7 +197,7 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     k_rope_cache[:, slot] = k_rope[:, 0]
     out = mla_attend(p, cfg, q_nope, q_rope, c_kv_cache, k_rope_cache,
                      positions, kv_positions, causal=False, kv_mask=kv_mask)
-    return sum_over_model(out) if split else out
+    return data_whole(sum_over_model(out) if split else out, x.shape[-1])
 
 
 __all__ = ["MLA_SPLIT", "MLA_WHOLE", "init_mla", "mla_compress",

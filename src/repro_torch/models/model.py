@@ -714,18 +714,22 @@ class Model(nn.Module):
         device; under a mesh the "model" parts (``SP.model_parts``) of the
         attention's, MLA's, the cross-attention's and the Mamba mixer's
         leaves, the dense MLP's tensor-parallel split
-        (``SP.split_over_model``), a MoE layer's routed experts and shared
+        (``SP.decode_split``), a MoE layer's routed experts and shared
         expert (``MOE.moe_parts``), the norms whole: no leaf the rules split
-        over "model" is gathered there. Returns (params, "model" dims of the
-        parts, {"mlp", "experts", "shared": split})."""
+        over "model" is gathered there. Where the rows are whole on the data
+        axes (``LONG_CONTEXT_RULES``) each leaf also keeps its data shard of
+        ``d_model`` (``SP.decode_part``), which the products contract or
+        give their output columns from: no leaf is gathered at all. Returns
+        (params, "model" dims of the parts, {"mlp", "experts", "shared":
+        split})."""
         out, dims, split = {}, {}, {}
         for k, v in p.items():
             if k in ("ssm", "attn", "cross"):
                 out[k], dims[k] = SP.model_parts(v)
             elif k == "mlp" and not moe_layer:
-                out[k], split["mlp"] = SP.split_over_model(v, L.MLP_SPLIT)
+                out[k], split["mlp"] = SP.decode_split(v, L.MLP_SPLIT)
             elif k == "mlp":
-                out[k], flags = MOE.moe_parts(v)
+                out[k], flags = MOE.moe_parts(v, decode=True)
                 split.update(flags)
             else:
                 out[k] = SP.whole_params(v)
@@ -760,10 +764,14 @@ class Model(nn.Module):
         dt = cfg.compute_dtype
         norm = _norm(cfg)
         whole = SP.whole_params
-        x = L.embed_part(*SP.model_part(params["embed"]["table"]), tokens,
-                         dt)
+        # a table or a row that holds this rank's data shard of d_model
+        # gives its columns, gathered (SP.decode_part)
+        x = SP.data_whole(L.embed_part(
+            *SP.decode_part(params["embed"]["table"]), tokens, dt),
+            cfg.d_model)
         if cfg.family == "encdec":
-            x = x + whole(params["pos_embed"])[pos][None, None].to(dt)
+            x = x + SP.data_whole(SP.decode_part(params["pos_embed"])[0][
+                pos][None, None], cfg.d_model).to(dt)
 
         def one_layer(p, x, lc, kv_len, cache_dims, moe_layer, cross=None):
             p, dims, split = self._decode_params(p, moe_layer)
@@ -805,7 +813,7 @@ class Model(nn.Module):
             x = one_layer(p, x, {k: v[i] for k, v in lc.items()}, kv_len,
                           cache_dims, cfg.is_moe, cross)
         x = norm(whole(params["ln_f"]), x)
-        w, vdim = SP.model_part(params["unembed"]["w"])
+        w, vdim = SP.decode_part(params["unembed"]["w"])
         return L.unembed({"w": w}, x, cfg.logit_softcap), vdim is not None
 
     @staticmethod
@@ -848,11 +856,15 @@ class Model(nn.Module):
         whose batch is whole on every rank), each block takes its
         parameters' "model" parts or gathers the leaves its layout needs
         whole (``_decode_params``), and each rank writes its own part of
-        the new token's cache entries. The logits come back as a DTensor
-        [B, 1, V] split by rows as the tokens are and whole over the
-        vocabulary (the ranks' runs of a vocabulary split over "model"
-        gathered); ``launch.serve.generate`` takes the greedy token from the
-        runs instead (``SP.argmax_over_model``)."""
+        the new token's cache entries. Where the rows are whole on the data
+        axes, each leaf keeps its data shard of ``d_model`` as well: the
+        embedding's and every output projection's columns are gathered,
+        every product that contracts ``d_model`` (the unembedding's too)
+        is summed over the data axes, and no parameter is gathered. The
+        logits come back as a DTensor [B, 1, V] split by rows as the tokens
+        are and whole over the vocabulary (the ranks' runs of a vocabulary
+        split over "model" gathered); ``launch.serve.generate`` takes the
+        greedy token from the runs instead (``SP.argmax_over_model``)."""
         mesh = self._mesh()
         if mesh is None:
             return self._decode(cache, tokens, pos, params)[0], cache

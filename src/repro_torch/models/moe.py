@@ -20,11 +20,14 @@ from __future__ import annotations
 
 import torch
 
-from ..sharding.spmd import (batch_shards, gather_rows, model_slice,
-                              split_over_model, sum_grads_over_model,
+from ..sharding.spmd import (batch_shards, data_block, data_whole,
+                              decode_part, decode_split, gather_rows,
+                              model_slice, split_over_model,
+                              sum_grads_over_model, sum_over_data,
                               sum_over_model, take_rows, whole_params)
 from .config import ModelConfig
-from .layers import MLP_SPLIT, Params, _dense_init, activate, init_mlp, mlp
+from .layers import (MLP_SPLIT, Params, _dense_init, activate,
+                     contract_first, init_mlp, mlp)
 
 # the tensor dim of each routed expert leaf that expert parallelism splits
 # over "model" (``sharding.spmd.split_over_model``): the expert axis
@@ -64,20 +67,25 @@ def _top_k(probs: torch.Tensor, k: int):
     return torch.gather(probs, -1, order), order
 
 
-def moe_parts(p: Params) -> tuple[Params, dict]:
+def moe_parts(p: Params, decode: bool = False) -> tuple[Params, dict]:
     """A MoE layer's parameters for this rank under a mesh
     (``sharding.spmd``; as they are without one): the router gathered
     whole (its spec keeps it whole over "model"), the routed experts this
     rank's ``E / tp`` of them where the experts divide "model"
     (``EXPERT_SPLIT``), the shared expert its hidden units of a
-    tensor-parallel MLP (``MLP_SPLIT``). Returns (params, {"experts":
+    tensor-parallel MLP (``MLP_SPLIT``). ``decode``: a decode step's, each
+    leaf keeping its data shard where the rows are whole on the data axes
+    (``decode_part``, ``decode_split``). Returns (params, {"experts":
     split, "shared": split}), ``moe_ffn``'s flags."""
-    experts, ep = split_over_model(
+    split = decode_split if decode else split_over_model
+    experts, ep = split(
         {k: v for k, v in p.items() if k in EXPERT_SPLIT}, EXPERT_SPLIT)
-    out = {"router": whole_params(p["router"]), **experts}
+    router = (decode_part(p["router"])[0] if decode
+              else whole_params(p["router"]))
+    out = {"router": router, **experts}
     shared = False
     if "shared" in p:
-        out["shared"], shared = split_over_model(p["shared"], MLP_SPLIT)
+        out["shared"], shared = split(p["shared"], MLP_SPLIT)
     return out, {"experts": ep, "shared": shared}
 
 
@@ -105,7 +113,11 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     summed over "model") and each rank's output, its experts' part of the
     sum, is summed over "model". ``shared_split``: the shared expert holds
     this rank's hidden units of a tensor-parallel MLP over "model"
-    (``layers.mlp``)."""
+    (``layers.mlp``). Where the leaves hold a decode step's data shard of
+    ``d_model`` (``moe_parts(..., decode=True)`` with the rows whole on
+    the data axes), the router's logits and the experts' hidden units are
+    summed over the data axes from x's columns there, and the output
+    columns of the experts and the shared expert are gathered once."""
     gathered = False
     shards = batch_shards()
     if shards > 1:
@@ -123,7 +135,7 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     xt = x.reshape(n_groups, g_size, d)
 
     # --- routing ---
-    logits = torch.matmul(xt, p["router"].to(dt))
+    logits = contract_first(xt, p["router"])
     probs = torch.softmax(logits.to(torch.float32), dim=-1)
     gate_vals, expert_idx = _top_k(probs, k)                   # [G,T,k]
     gate_vals = gate_vals / torch.clamp_min(
@@ -158,10 +170,15 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     combine = combine.to(dt)
 
     # --- expert computation ---
+    # experts that hold a data shard of d_model take the tokens' columns
+    # there (d stays the whole width)
+    xin = data_block(xin, p["wi"].shape[1])
     xe = torch.einsum("gtec,gtd->gecd", dispatch, xin)         # [G,E,C,D]
     h = torch.einsum("gecd,edf->gecf", xe, p["wi"].to(dt))
     hg = (torch.einsum("gecd,edf->gecf", xe, p["wg"].to(dt))
           if cfg.mlp == "swiglu" else None)
+    if xin.shape[-1] != d:
+        h, hg = sum_over_data(h, hg)
     h = activate(cfg, h, hg)
     ye = torch.einsum("gecf,efd->gecd", h, p["wo"].to(dt))     # [G,E,C,D]
     y = torch.einsum("gtec,gecd->gtd", combine, ye)            # [G,T,D]
@@ -169,8 +186,8 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
         y = sum_over_model(y)
 
     if cfg.n_shared_experts:
-        y = y + mlp(p["shared"], cfg, xt, split=shared_split)
-    y = y.reshape(b, s, d)
+        y = y + mlp(p["shared"], cfg, xt, split=shared_split, gather=False)
+    y = data_whole(y, d).reshape(b, s, d)
     return (take_rows(y) if gathered else y), aux.to(torch.float32)
 
 

@@ -43,11 +43,11 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.ops import selective_scan
-from ..sharding.spmd import (gather_over_model, halves_over_model,
-                              model_slice, sum_grads_over_model,
-                              sum_over_model)
+from ..sharding.spmd import (data_whole, gather_over_model,
+                              halves_over_model, model_slice,
+                              sum_grads_over_model, sum_over_model)
 from .config import ModelConfig
-from .layers import Params, _dense_init
+from .layers import Params, _dense_init, contract_first
 
 # the tensor dim of each leaf that the channels split over "model"
 # (``sharding.spmd.split_over_model``): the rules' "ssm_inner"
@@ -260,7 +260,11 @@ def mamba_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     channel. ``x_proj`` and ``out_proj`` are row-parallel (their partial
     products summed over "model"), ``dt_proj`` column-parallel; the conv,
     ``a_log`` and ``d_skip`` stay local. No leaf is gathered over
-    "model"."""
+    "model". Where the rows are whole on the data axes, ``in_proj`` and
+    ``out_proj`` hold this rank's data shard of ``d_model`` too: the first
+    contracts x's columns there (summed over the data axes), the second
+    gives this rank's output columns (gathered); the other leaves have no
+    data shard."""
     di = cfg.d_inner
     dims = dims or {}
     split = cache["state"].shape[1] != di       # this rank's channels
@@ -276,7 +280,7 @@ def mamba_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
         return sum_over_model(y) if split else y
 
     dt_ = x.dtype
-    xz = torch.matmul(x, p["in_proj"].to(dt_))
+    xz = contract_first(x, p["in_proj"])
     if dims.get("in_proj") is not None and split:
         xz = halves_over_model(xz, -1)              # this rank's x and z
     elif dims.get("in_proj") is not None:
@@ -305,7 +309,8 @@ def mamba_decode_step(p: Params, cfg: ModelConfig, x: torch.Tensor,
     y = y + xc32 * chan("d_skip", 0)
     y = y[:, None, :].to(dt_) * F.silu(z)
     out = rows(torch.matmul(y, chan("out_proj", 0).to(dt_)))
-    return out, {"conv": conv_win[:, 1:], "state": h}
+    return data_whole(out, x.shape[-1]), {"conv": conv_win[:, 1:],
+                                          "state": h}
 
 
 __all__ = ["SSM_SPLIT", "init_mamba", "mamba_forward", "softplus",

@@ -53,7 +53,17 @@ split over "model": it computes with the leaf's "model" part
 instead; attention over a cache split on its slots combines each rank's
 softmax statistics in rank order (``combine_softmax_over_model``), and
 the greedy token is the argmax over the ranks' runs of the vocabulary
-(``argmax_over_model``).
+(``argmax_over_model``). Where the rows are whole on the data axes
+(``data_axes``: ``LONG_CONTEXT_RULES``' batch of 1), a decode step gathers
+no leaf over them either: each keeps its data shard of ``d_model``
+(``decode_part``), as the reference's partitioned program keeps each
+weight where ``param_specs`` put it; a product whose contracting dim it
+is takes x's columns there (``data_block``) and sums the partial
+products over the data axes (``sum_over_data``), one whose output dim it
+is gives this rank's columns, gathered (``data_whole``). The attention
+over the cache, which the rules keep whole over "data", and the leaves
+without a data shard (Mamba's ``x_proj`` / ``dt_proj`` / conv, MLA's
+``w*_b``, the norms) run whole on every data rank.
 
 DTensor holds the layouts (placing, ``to_local`` / ``from_local``, the
 optimizer's elementwise formulas), not the model's ops, and the
@@ -578,18 +588,136 @@ def model_part(x):
     with this rank's part kept there along tensor dim ``dim``, where the
     leaf is split over "model" on a dim no other mesh dim splits; else
     ``(whole_params(x), None)``. A decode step computes with the part and
-    never gathers such a leaf over "model"."""
+    never gathers such a leaf over "model" (``decode_part``, which keeps
+    its data shard as well where the rows are whole on the data axes)."""
     dim = _own_model_dim(x)
     return (whole_params(x), None) if dim is None else (_keep_model_part(x),
                                                          dim)
 
 
 def model_parts(tree: dict) -> tuple[dict, dict]:
-    """``model_part`` of every leaf of a sublayer's parameters: ({name:
-    tensor}, {name: dim or None})."""
-    parts = {k: model_part(v) for k, v in tree.items()}
+    """``model_part`` of every leaf of a sublayer's parameters for a decode
+    step, each leaf's data shard kept where the rows are whole on the data
+    axes (``decode_part``): ({name: tensor}, {name: "model" dim or
+    None})."""
+    parts = {k: decode_part(v) for k, v in tree.items()}
     return ({k: t for k, (t, _) in parts.items()},
             {k: d for k, (_, d) in parts.items()})
+
+
+# ---------------------------------------------------------------------------
+# serving: a decode step whose rows are whole on the data axes
+# ---------------------------------------------------------------------------
+
+def data_axes() -> tuple:
+    """The mesh dims, "model" aside, of two or more ranks on which the
+    batch's rows are whole inside ``spmd`` (every data axis under
+    ``LONG_CONTEXT_RULES``, whose "batch" maps to none); () where the rows
+    are split on every such dim, and without a context."""
+    ctx = current()
+    if ctx is None:
+        return ()
+    mesh, layout = ctx
+    return tuple(m for m in range(mesh.ndim)
+                 if mesh.mesh_dim_names[m] != "model" and mesh.size(m) > 1
+                 and not isinstance(layout[m], Shard))
+
+
+def _data_dim(x) -> int | None:
+    """The tensor dim of the DTensor ``x`` that every data axis splits (its
+    ``fsdp`` dim, ``d_model``) and no other mesh dim does, so that a rank's
+    shard there is one contiguous block, DTensor's chunks nested outer
+    axis first; None otherwise, and for a plain tensor."""
+    axes = data_axes()
+    if not axes or not isinstance(x, DTensor):
+        return None
+    ps, sizes = x.placements, x.device_mesh.shape
+    d = ps[axes[0]].dim if isinstance(ps[axes[0]], Shard) else None
+    if d is None or any(ps[m] != Shard(d) for m in axes) or any(
+            ps[m] == Shard(d) and sizes[m] > 1 and m not in axes
+            for m in range(len(ps))):
+        return None
+    return d
+
+
+def decode_part(x, keep_model: bool = True):
+    """``model_part(x)`` for a decode step: ``(t, dim)``, ``dim`` the tensor
+    dim of this rank's part over "model" (None: whole there). Where the
+    rows are whole on the data axes and the leaf is split over them
+    (``_data_dim``), the rank keeps its data shard as well (a block of
+    ``d_model``, which the products recognise by its width) and the leaf is
+    gathered only over the mesh dims where the rows are split, as the
+    reference's partitioned program keeps each weight where
+    ``param_specs`` put it; otherwise ``model_part``. ``keep_model`` False:
+    gathered over "model" too (a product that the rules do not split
+    there)."""
+    if _data_dim(x) is None:
+        return model_part(x) if keep_model else (whole_params(x), None)
+    mesh = x.device_mesh
+    mdim = _own_model_dim(x) if keep_model else None
+    keep = set(data_axes())
+    if mdim is not None:
+        keep.add(mesh.mesh_dim_names.index("model"))
+    t = x.to_local()
+    for m in reversed(range(mesh.ndim)):
+        p = x.placements[m]
+        if isinstance(p, Shard) and m not in keep:
+            t = _gather_along(t, p.dim, mesh.get_group(m), mesh.size(m))
+    return t, mdim
+
+
+def decode_split(tree: dict, dims: dict):
+    """``split_over_model(tree, dims)`` for a decode step: ``(tree,
+    split)``, each leaf's data shard kept as ``decode_part`` keeps it."""
+    if not data_axes():
+        return split_over_model(tree, dims)
+    split = model_axis() is not None and set(tree) <= set(dims) and all(
+        _own_model_dim(x) == dims[k] for k, x in tree.items())
+    return {k: decode_part(x, split)[0] for k, x in tree.items()}, split
+
+
+def _data_index() -> int:
+    """This rank's place among the data axes' blocks (outer axis first)."""
+    mesh, _ = current()
+    index = 0
+    for m in data_axes():
+        index = index * mesh.size(m) + local_rank(mesh, m)
+    return index
+
+
+def data_block(x: torch.Tensor, n: int) -> torch.Tensor:
+    """This rank's block of ``n`` of the last dim of ``x``, which is whole
+    on the data axes: the columns that meet a leaf's data shard of ``n``
+    rows of a contracting dim; ``x`` itself where ``n`` is its width."""
+    if x.shape[-1] == n:
+        return x
+    return x.narrow(-1, _data_index() * n, n)
+
+
+def sum_over_data(*ts) -> list:
+    """Each of ``ts`` (partial products over a contracting dim split over
+    the data axes, one dtype) summed over those axes, by one all-reduce an
+    axis for all of them; a None stays None."""
+    mesh, _ = current()
+    parts = [t for t in ts if t is not None]
+    flat = torch.cat([t.reshape(-1) for t in parts])
+    for m in data_axes():
+        dist.all_reduce(flat, group=mesh.get_group(m))
+    sums = iter(f.view(t.shape) for f, t in zip(
+        flat.split([t.numel() for t in parts]), parts))
+    return [None if t is None else next(sums) for t in ts]
+
+
+def data_whole(y: torch.Tensor, width: int) -> torch.Tensor:
+    """``y`` with its last dim whole: where it holds this rank's block of
+    ``width`` (the product of a leaf split over the data axes on its output
+    dim), every rank's block gathered over those axes, inner axis first."""
+    if y.shape[-1] == width:
+        return y
+    mesh, _ = current()
+    for m in reversed(data_axes()):
+        y = _gather_along(y, y.dim() - 1, mesh.get_group(m), mesh.size(m))
+    return y
 
 
 def model_slice(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -700,5 +828,7 @@ __all__ = ["place", "replicas", "local_rank", "local_shard", "local_shape",
            "model_axis", "sum_grads_over_model", "sum_over_model",
            "max_over_model", "halves_over_model", "gather_over_model",
            "model_dim", "model_part", "model_parts",
+           "data_axes", "decode_part", "decode_split", "data_block",
+           "sum_over_data", "data_whole",
            "model_slice", "combine_softmax_over_model", "argmax_over_model",
            "row_shard_index", "gather_rows", "take_rows"]
