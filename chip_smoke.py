@@ -4282,9 +4282,11 @@ def meta_rank_count(sizes, kind: str) -> dict:
     ``SERVING_RULES`` decode step of ``SERVE_BATCH`` rows at the last
     position of a cache of ``SERVE_PROMPT + SERVE_MESH_NEW`` slots
     (``_serve_cfg``), ("long:<arch>") that of ``arch`` (float32) under
-    ``LONG_CONTEXT_RULES`` at batch 1, or ("prefill") qwen2.5-3b's
-    ``SERVING_RULES`` prefill of ``PREFILL_BATCH`` x ``PREFILL_SEQ``
-    (``_serve_cfg``, float32; its query heads split, K and V whole). Runs
+    ``LONG_CONTEXT_RULES`` at batch 1, ("longprefill:<arch>") its prefill
+    of 1 x ``PREFILL_SEQ`` there (the sequence split over "data"), or
+    ("prefill") qwen2.5-3b's ``SERVING_RULES`` prefill of
+    ``PREFILL_BATCH`` x ``PREFILL_SEQ`` (``_serve_cfg``, float32; its
+    query heads split, K and V whole). Runs
     in a spawned host process: a rank of a meshed world has its process
     group, and a count needs a process without one."""
     if os.path.join(ROOT, "src") not in sys.path:
@@ -4308,6 +4310,10 @@ def meta_rank_count(sizes, kind: str) -> dict:
         rules = _serve_rule_sets()["long"]
         spec = ShapeSpec("card_count", SERVE_PROMPT + SERVE_MESH_NEW, 1,
                          "decode")
+    elif kind.startswith("longprefill:"):
+        cfg = _serve_cfg(kind[len("longprefill:"):], "float32")
+        rules = _serve_rule_sets()["long"]
+        spec = ShapeSpec("card_count", PREFILL_SEQ, 1, "prefill")
     else:
         cfg = _serve_cfg(MOE_ARCH, "float32")
         rules = _serve_rule_sets()["serving"]
@@ -5033,7 +5039,9 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
     prefill and the decode steps teacher-forced on world 1's tokens, held
     against world 1's logits; B7's launches and the context-parallel calls
     counted, B7 held against its plain version and timed at the shard's
-    shape; rank 0 writes ``result.json`` under ``workdir``."""
+    shape (and on data rank 1, from a carried state, at its block of the
+    long-context prefill); rank 0 writes ``result.json`` under
+    ``workdir``."""
     import faulthandler
 
     import torch
@@ -5041,7 +5049,7 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
     faulthandler.enable()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch.models.layers as L
-    import repro_torch.models.ssm as S
+    from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.launch.dryrun import trace_counts
     from repro_torch.launch.mesh import make_device_mesh
@@ -5059,25 +5067,31 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
         sizes = _world_mesh(world)
         mesh = make_device_mesh(sizes)
         rule_sets = _serve_rule_sets()
-        seen = {"cp": 0, "args": None, "queries": 0}
-        real_cp, real_scan = L._context_parallel_flash, S.selective_scan
+        # the first f32 scan's operands (a prefill calls B7's forward route
+        # itself, under no gradient), and data rank 1's first of the
+        # long-context prefill, which starts from data rank 0's state
+        seen = {"cp": 0, "args": None, "queries": 0, "long": False,
+                "carried": None}
+        data_rank = mesh.get_coordinate()[0]
+        real_cp, real_scan = L._context_parallel_flash, ops.selective_scan_fwd
         real_queries = L.split_queries
 
         def cp(*a, **k):
             seen["cp"] += 1
             return real_cp(*a, **k)
 
-        def scan(*a):
-            if seen["args"] is None and a[0].dtype == torch.float32:
-                seen["args"] = [t.detach().clone() if torch.is_tensor(t)
-                                else t for t in a]
-            return real_scan(*a)
+        def scan(*a, chunk):
+            for key, want in (("args", a[0].dtype == torch.float32),
+                              ("carried", seen["long"] and data_rank == 1)):
+                if want and seen[key] is None:
+                    seen[key] = [t.detach().clone() for t in a] + [chunk]
+            return real_scan(*a, chunk=chunk)
 
         def queries(*a, **k):
             seen["queries"] += 1
             return real_queries(*a, **k)
 
-        L._context_parallel_flash, S.selective_scan = cp, scan
+        L._context_parallel_flash, ops.selective_scan_fwd = cp, scan
         L.split_queries = queries
         t0 = time.perf_counter()
         # MOE_ARCH's weights come from the parent's file, named once world
@@ -5108,12 +5122,14 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
             ss.selective_scan_fwd_cuda.launches = 0
             cp_before, queries_before = seen["cp"], seen["queries"]
             gathers = [] if long_context else None
+            seen["long"] = long_context and dtype == "float32"
             t0 = time.perf_counter()
             got = _serve_calls(torch, model, dev, r["pre"], r["teacher"],
                                steps, mesh, rule_sets[rules_name],
                                count_comms=True, frames=r["frames"],
                                gathers=gathers)
             run_s = time.perf_counter() - t0
+            seen["long"] = False
             pre_err = _held(torch, got["prefill"], r["prefill"])
             step_errs = [_held(torch, g, w) for g, w in
                          zip(got["steps"], r["steps"][:steps])]
@@ -5122,8 +5138,10 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
             dec = got["step_s"][1:] or got["step_s"]
             runs["|".join((arch, rules_name, dtype))] = {
                 "batch": int(r["pre"].shape[0]), "steps": steps,
-                "prefill": pre_err, "decode_worst": max(
-                    e for e, _ in step_errs),
+                "prefill": pre_err, "prefill_greedy_equal": bool(
+                    torch.equal(got["prefill"].argmax(-1),
+                                r["prefill"].argmax(-1))),
+                "decode_worst": max(e for e, _ in step_errs),
                 "decode_held": all(ok for _, ok in step_errs),
                 "greedy_equal": greedy,
                 "b7_launches": ss.selective_scan_fwd_cuda.launches,
@@ -5166,6 +5184,24 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                 else:
                     call()
                 del cache
+            if long_context and (arch, rules_name, dtype) in SERVE_COUNTED:
+                # one more long-context prefill, its sequence split over
+                # "data", which rank 0 counts
+                b = distribute_batch({"tokens": torch.as_tensor(
+                    r["pre"], dtype=torch.int64), **({} if r["frames"] is None
+                    else {"frames": torch.as_tensor(
+                        r["frames"][:1], dtype=torch.float32)})}, mesh,
+                    rule_sets[rules_name])
+                call = lambda: model.prefill(b["tokens"], extra={
+                    k: v for k, v in b.items() if k != "tokens"},
+                    rules=rule_sets[rules_name])
+                if rank == 0:
+                    runs["|".join((arch, rules_name, dtype))][
+                        "prefill_count"] = _count_summary(trace_counts(
+                            call, (b,)))
+                else:
+                    call()
+                del b
             if (arch, rules_name, dtype) == ("qwen2.5-3b", "serving",
                                              "float32"):
                 # one more prefill, its query heads split and K and V
@@ -5182,8 +5218,11 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                     call()
             del model, got
             torch.cuda.empty_cache()
+        mine = {"device": str(dev), "runs": runs}
+        if seen["carried"] is not None and mesh.get_coordinate()[1] == 0:
+            mine["b7_carried"] = _b7_held(torch, ss, seen["carried"])
         per_rank = [None] * world
-        dist.all_gather_object(per_rank, {"device": str(dev), "runs": runs})
+        dist.all_gather_object(per_rank, mine)
         if rank == 0:
             t0 = time.perf_counter()
             # B7 at this rank's shard of the f32 prefill's first Mamba layer
@@ -5222,6 +5261,35 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
         dist.destroy_process_group()
 
 
+def _b7_held(torch, ss, args) -> dict:
+    """B7 on the operands ``args`` ([xc, dt, bm, cm, a, h0, chunk]) of a
+    data rank's first scan of the long-context prefill, whose ``h0`` is the
+    state the rank before it ended in: held against its plain version
+    within ``SCAN_FWD_TOL`` on y and the final state, and timed (host ms,
+    the profiler's device ms, the bound of ``scan_bounds``)."""
+    *ops_, chunk = args
+    xc, dt, bm, cm, a, h0 = (t.contiguous() for t in ops_)
+    fwd = lambda: ss.selective_scan_fwd_cuda(xc, dt, bm, cm, a, h0,
+                                             chunk=chunk)
+    plain = {}
+    plain_ms = time_cuda(torch, lambda: plain.__setitem__(
+        "fwd", ss.selective_scan_fwd_plain(xc, dt, bm, cm, a, h0,
+                                           chunk=chunk)), reps=1, warmup=0)
+    (y, _, ht), (y_p, _, ht_p) = fwd(), plain["fwd"]
+    B, S_, Di = xc.shape
+    fb, _ = scan_bounds(B, S_, Di, a.shape[1], chunk, max_sm_clock_hz())
+    return {"shape": [B, S_, Di, a.shape[1]], "chunk": chunk,
+            "h0_max_abs": h0.abs().max().item(),
+            "y_err": (y - y_p).abs().max().item(),
+            "ht_err": (ht - ht_p).abs().max().item(),
+            "held": bool(torch.allclose(y, y_p, **SCAN_FWD_TOL) and
+                         torch.allclose(ht, ht_p, **SCAN_FWD_TOL)),
+            "ms": time_cuda(torch, fwd),
+            "device_ms": kernel_device_ms(torch, fwd, "ssm_fwd", 1),
+            "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
+            "plain_ms": plain_ms}
+
+
 def mesh_serving_path(torch, dev, zero_counts, read_counts) -> dict:
     """Phase 26 (``_mesh_serving``)."""
     return _in_scratch_world(_mesh_serving, torch, dev, zero_counts,
@@ -5251,7 +5319,12 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
     in float32 (prefill and every decode step; every greedy token equal),
     bfloat16 reported; B7 launched once per Mamba layer on each rank's
     shard and held against its plain version there, the context-parallel
-    attention taken. Returns the phase's record."""
+    attention taken. The long-context prefills keep the sequence split
+    over "data": rank 0 counts one of hymba's and one of whisper's against
+    their meta counts, and B7 on data rank 1's first block, which starts
+    from data rank 0's final state, is held against its plain version (y
+    and the final state) and timed (``_b7_held``). Returns the phase's
+    record."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.launch.serve import generate
@@ -5263,10 +5336,15 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
     # the dry-run's count of the decode steps rank 0 counts on the card
     # (SERVE_COUNTED) and of the SERVING_RULES prefill of qwen2.5-3b
     # (query heads split)
+    long_counted = [arch for arch, rules_name, _ in SERVE_COUNTED
+                    if rules_name == "long"]
     count_pool, (meta_prefill, *meta_counts) = _start_meta_count(
         _world_mesh(world), "prefill", *(
             "decode" if rules_name == "serving" else f"long:{arch}"
-            for arch, rules_name, _ in SERVE_COUNTED))
+            for arch, rules_name, _ in SERVE_COUNTED), *(
+            f"longprefill:{arch}" for arch in long_counted))
+    meta_counts, meta_long_prefill = (meta_counts[:len(SERVE_COUNTED)],
+                                      meta_counts[len(SERVE_COUNTED):])
     procs.append(_PoolStopper(count_pool))
     rule_sets = _serve_rule_sets()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
@@ -5417,9 +5495,10 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
                 fail(f"phase 26: rank {r}, {name}: the prefill did not take "
                      f"the query-split attention")
             if dtype == "float32" and not (
-                    run["prefill"][1] and run["decode_held"]
-                    and run["greedy_equal"]):
-                fail(f"phase 26: rank {r}, {name}: prefill {run['prefill']}, "
+                    run["prefill"][1] and run["prefill_greedy_equal"] and
+                    run["decode_held"] and run["greedy_equal"]):
+                fail(f"phase 26: rank {r}, {name}: prefill {run['prefill']} "
+                     f"(greedy equal {run['prefill_greedy_equal']}), "
                      f"largest decode difference {run['decode_worst']} "
                      f"(held {run['decode_held']}), greedy tokens equal "
                      f"{run['greedy_equal']}, past {SERVE_MESH_TOL}")
@@ -5443,6 +5522,21 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
         fail(f"phase 26: B7 on the shard {shard['shape']} differs from its "
              f"plain version past {SCAN_FWD_TOL}: max abs err "
              f"{shard['max_abs_err']}")
+    # B7 on data rank 1's block of hymba's long-context prefill, from the
+    # state data rank 0's scan ended in
+    carried = [p["b7_carried"] for p in cards["per_rank"]
+               if "b7_carried" in p]
+    if cards["mesh"][0] > 1:
+        if not carried:
+            fail("phase 26: no data rank 1 scanned hymba's long-context "
+                 "prefill")
+        carried = carried[0]
+        if not carried["held"] or carried["h0_max_abs"] == 0:
+            fail(f"phase 26: B7 on data rank 1's block {carried['shape']} "
+                 f"from a carried state (max |h0| {carried['h0_max_abs']}) "
+                 f"differs from its plain version past {SCAN_FWD_TOL}: y "
+                 f"{carried['y_err']}, final state {carried['ht_err']}")
+        cards["b7_carried"] = carried
     rec["world"] = cards
     runs0 = cards["per_rank"][0]["runs"]
     for (arch, rules_name, dtype), meta in zip(SERVE_COUNTED, meta_counts):
@@ -5454,6 +5548,27 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
     counted["prefill_count"] = _hold_count(
         26, f"a qwen2.5-3b SERVING_RULES prefill on {cards['mesh']}",
         counted["prefill_count"], meta_prefill)
+    for arch, meta in zip(long_counted, meta_long_prefill):
+        counted = runs0[f"{arch}|long|float32"]
+        counted["prefill_count"] = _hold_count(
+            26, f"a {arch} LONG_CONTEXT_RULES prefill of 1 x {PREFILL_SEQ} "
+            f"on {cards['mesh']} (its sequence split over \"data\")",
+            counted["prefill_count"], meta)
+    if cards["mesh"][0] > 1:
+        one = {a: world1[_serve_key(a, "float32", True)]["one_device"][
+            "prefill_s"] for a in ("hymba-1.5b", ENCDEC_ARCH)}
+        log(f"phase 26: B7 on data rank 1's block {carried['shape']} of "
+            f"hymba's long-context prefill, from data rank 0's final state "
+            f"(max |h0| {carried['h0_max_abs']:.3g}): {carried['ms']:.4f} ms "
+            f"(device {carried['device_ms']:.4f}, bound "
+            f"{carried['bound_ms']:.4g} by {carried['bound_by']}, plain "
+            f"{carried['plain_ms']:.1f}), within {carried['y_err']:.3g} (y) "
+            f"and {carried['ht_err']:.3g} (final state) of plain; the "
+            f"long-context prefill of 1 x {PREFILL_SEQ} in " + ", ".join(
+                f"{a} {runs0[f'{a}|long|float32']['prefill_s']:.3f} s"
+                for a in ("hymba-1.5b", ENCDEC_ARCH)) + " on the mesh, " +
+            ", ".join(f"{a} {s:.3f} s" for a, s in one.items()) +
+            " on one device")
     log(f"phase 26: {world} ranks ({backend}, {cards['cards']} cards) "
         f"{cards['mesh']}: " + "; ".join(
             f"{name} prefill diff {run['prefill'][0]:.3g}, decode diff "

@@ -14,7 +14,9 @@ tensor-parallel product over "model". The decode step's self- and
 cross-attention (``decode_attention``, ``cross_decode_attention``) meet
 the three cache layouts of the reference's rule sets there, the embedding
 and the unembedding take a vocabulary split over "model" (``embed_part``,
-``unembed``).
+``unembed``). A prefill whose sequence is split over the data axes
+attends with each rank's block of queries to the keys and values gathered
+over them (``attention``).
 A product the reference asks in float32 of lower-precision operands
 (``preferred_element_type=float32``) is an f32 product of the operands
 rounded to their dtype here: products of bf16 values are exact in f32, so
@@ -30,7 +32,8 @@ import torch.nn.functional as F
 
 from ..sharding.spmd import (combine_softmax_over_model, data_block,
                               data_whole, gather_over_model, model_axis,
-                              model_slice, sum_grads_over_model,
+                              model_slice, seq_block, seq_key_positions,
+                              seq_whole, sum_grads_over_model,
                               sum_over_data, sum_over_model)
 from .config import ModelConfig
 
@@ -680,7 +683,8 @@ def flash_attention(q, k, v, q_positions, kv_positions, *, causal: bool,
 
 
 def _context_parallel_flash(cfg: ModelConfig, q, k, v, q_positions,
-                            kv_positions, *, causal: bool) -> torch.Tensor:
+                            kv_positions, *, causal: bool,
+                            q_start: int = 0) -> torch.Tensor:
     """Context-parallel flash attention (the reference's ``shard_map``):
     each rank of the "model" axis attends with its own run of ``S / tp``
     query positions to every key (K, V and their positions whole on each
@@ -689,18 +693,29 @@ def _context_parallel_flash(cfg: ModelConfig, q, k, v, q_positions,
     gathered along the sequence. Taken under the reference's condition
     (among others, the head count does not divide the model axis: hymba's
     25); where the heads divide it, the attention runs head-parallel
-    instead (``attention(..., split=True)``)."""
+    instead (``attention(..., split=True)``). Where q holds a data rank's
+    block of the sequence from position ``q_start``, the model axis splits
+    that block, its blocks numbered from the block's start."""
     _, rank, tp = model_axis()
     s_local = q.shape[1] // tp
+    block_q = min(cfg.attn_chunk_q, s_local)
     blocks_per_shard = max(s_local // cfg.attn_chunk_q, 1)
     q, k, v = (sum_grads_over_model(t) for t in (q, k, v))
     rows = slice(rank * s_local, (rank + 1) * s_local)
     out = flash_attention(
         q[:, rows], k, v, q_positions[:, rows], kv_positions, causal=causal,
-        window=cfg.window, block_q=min(cfg.attn_chunk_q, s_local),
-        block_kv=cfg.attn_chunk_kv,
-        q_block_start=rank * blocks_per_shard)
+        window=cfg.window, block_q=block_q, block_kv=cfg.attn_chunk_kv,
+        q_block_start=q_start // block_q + rank * blocks_per_shard)
     return gather_over_model(out, 1)
+
+
+def _block_q_of(chunk: int, n: int) -> int:
+    """The query block of a flash attention over a data rank's block of
+    ``n`` query positions: ``min(chunk, n)`` where it divides ``n`` (so the
+    block's start is a whole number of query blocks and a windowed mask's
+    band is the right one), else their greatest common divisor."""
+    bq = min(chunk, n)
+    return bq if n % bq == 0 else math.gcd(n, chunk)
 
 
 def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -723,28 +738,43 @@ def attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     model rank, as the reference's partitioned program does). Either way
     x is whole over "model" and each rank's output is its part of the sum,
     added up over the axis. False: the whole attention on every model
-    rank (the heads do not divide the axis: hymba's 25)."""
+    rank (the heads do not divide the axis: hymba's 25).
+
+    Where x is a data rank's block of the sequence (a prefill under
+    ``sharding.spmd.sequence``, ``positions`` the block's), the block's
+    queries attend to the keys and values gathered over the data axes
+    (``seq_whole``); the reference's condition reads the whole sequence's
+    length, and the context-parallel form splits the block over "model"."""
     if isinstance(split, tuple):
         q, k, v = split_queries(p, cfg, x, positions, split)
     else:
         if split:
             x = sum_grads_over_model(x)
         q, k, v = qkv_project(p, cfg, x, positions)
-    use_flash = cfg.attn_chunk_q > 0 and \
-        k.shape[1] >= cfg.attn_chunk_threshold
+    k, v = seq_whole(k), seq_whole(v)
+    kv_positions = seq_key_positions(positions)
+    blk = seq_block()
+    q_start, flash = 0, {}
+    if blk is not None:
+        q_start = blk[0]
+        bq = _block_q_of(cfg.attn_chunk_q, q.shape[1])
+        flash = {"block_q": bq, "q_block_start": q_start // bq}
+    s = k.shape[1]
+    use_flash = cfg.attn_chunk_q > 0 and s >= cfg.attn_chunk_threshold
     axis = model_axis()
     tp = axis[2] if axis is not None and not split else 1
     if use_flash and tp > 1 and cfg.window > 0 and cfg.n_heads % tp and \
-            q.shape[1] % tp == 0 and q.shape[1] // tp >= 128:
-        out = _context_parallel_flash(cfg, q, k, v, positions, positions,
-                                      causal=causal)
+            s % tp == 0 and s // tp >= 128 and q.shape[1] % tp == 0:
+        out = _context_parallel_flash(cfg, q, k, v, positions, kv_positions,
+                                      causal=causal, q_start=q_start)
     elif use_flash:
-        out = flash_attention(q, k, v, positions, positions, causal=causal,
-                              window=cfg.window, block_q=cfg.attn_chunk_q,
+        out = flash_attention(q, k, v, positions, kv_positions,
+                              causal=causal, window=cfg.window,
+                              **{"block_q": cfg.attn_chunk_q, **flash},
                               block_kv=cfg.attn_chunk_kv)
     else:
-        out = attention_scores(q, k, v, positions, positions, causal=causal,
-                               window=cfg.window)
+        out = attention_scores(q, k, v, positions, kv_positions,
+                               causal=causal, window=cfg.window)
     out = merge_heads(out, p["wo"])
     return sum_over_model(out) if split else out
 

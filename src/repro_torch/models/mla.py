@@ -36,6 +36,7 @@ from .layers import (Params, _dense_init, apply_rope,
                      contract_first, flash_attention, merge_heads,
                      owned_slot, project_heads)
 from ..sharding.spmd import (data_whole, gather_over_model, model_slice,
+                              seq_key_positions, seq_whole,
                               sum_grads_over_model, sum_over_model)
 
 # the tensor dim of each leaf that the heads split over "model"
@@ -107,6 +108,14 @@ def mla_attend(p: Params, cfg: ModelConfig, q_nope, q_rope, c_kv, k_rope,
     """Attention over the compressed cache: keys and values expanded from
     the latent, the rope key shared by every head."""
     q, k, v = _expand(p, cfg, q_nope, q_rope, c_kv, k_rope)
+    return _attend(p, cfg, q, k, v, q_positions, kv_positions,
+                   causal=causal, kv_mask=kv_mask)
+
+
+def _attend(p: Params, cfg: ModelConfig, q, k, v, q_positions,
+            kv_positions, *, causal: bool, kv_mask=None) -> torch.Tensor:
+    """The heads' attention of expanded q, k, v (flash for long key
+    sequences) and the output projection."""
     skv = k.shape[1]
     if cfg.attn_chunk_q > 0 and skv >= cfg.attn_chunk_threshold:
         out = flash_attention(q, k, v, q_positions, kv_positions,
@@ -125,14 +134,20 @@ def mla_attention(p: Params, cfg: ModelConfig, x: torch.Tensor,
     """Training / prefill path (self-attention, no external cache).
     ``split``: ``p`` holds this rank's heads (``MLA_SPLIT``) and x is whole
     over "model"; each rank's output is its part of the sum, added up over
-    the axis."""
+    the axis. Where x is a data rank's block of the sequence (a prefill
+    under ``sharding.spmd.sequence``, ``positions`` the block's), the rank
+    compresses and expands its own positions only, as the reference's
+    program keeps the latent and the expanded keys and values split by
+    "seq", and its queries attend to the expanded keys and values gathered
+    over the data axes."""
     q_nope, q_rope = mla_queries(p, cfg, x, positions, split)
     c_kv, k_rope = mla_compress(p, cfg, x, positions)
     if split:
         c_kv, k_rope = sum_grads_over_model(c_kv), sum_grads_over_model(
             k_rope)
-    out = mla_attend(p, cfg, q_nope, q_rope, c_kv, k_rope,
-                     positions, positions, causal=causal)
+    q, k, v = _expand(p, cfg, q_nope, q_rope, c_kv, k_rope)
+    out = _attend(p, cfg, q, seq_whole(k), seq_whole(v), positions,
+                  seq_key_positions(positions), causal=causal)
     return sum_over_model(out) if split else out
 
 

@@ -158,7 +158,8 @@ def _norm(cfg: ModelConfig):
 
 def _cross_attention(p: Params, cfg: ModelConfig, h: torch.Tensor,
                      positions: torch.Tensor, enc_out: torch.Tensor,
-                     split: bool | tuple = False) -> torch.Tensor:
+                     split: bool | tuple = False,
+                     enc_blocked: bool = False) -> torch.Tensor:
     """The decoder's attention to the encoder: queries from h [B, S, D]
     (projected as ``qkv_project`` projects them), keys and values
     [B, T, H, Dh] projected from the encoder output [B, T, D], no causal
@@ -167,8 +168,10 @@ def _cross_attention(p: Params, cfg: ModelConfig, h: torch.Tensor,
     query heads and whole ``wk`` / ``wv``, whose columns of the KV heads
     they meet give this rank's K and V (``L.split_queries``). Either way h
     and the encoder output are whole over "model"; each rank's output is
-    its part of the sum, added up over the axis."""
-    b, t = enc_out.shape[:2]
+    its part of the sum, added up over the axis. ``enc_blocked``: the
+    encoder output is this data rank's block of the frames; its keys and
+    values are projected there and gathered over the data axes, as the
+    reference's partitioned program projects them."""
     if isinstance(split, tuple):
         q, k, v = L.split_queries(p, cfg, h, positions, split, enc_out)
     else:
@@ -181,6 +184,9 @@ def _cross_attention(p: Params, cfg: ModelConfig, h: torch.Tensor,
         if cfg.qkv_bias:
             q = q + p["bq"].to(h.dtype)
         q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
+    if enc_blocked:
+        k, v = SP.gather_over_data(k, 1), SP.gather_over_data(v, 1)
+    b, t = k.shape[:2]
     enc_pos = torch.arange(t, device=k.device).expand(b, t)
     o = L.attention_scores(q, k, v, positions, enc_pos, causal=False)
     out = L.merge_heads(o, p["wo"])
@@ -222,11 +228,13 @@ def block_params(p: Params, cfg: ModelConfig, moe_layer: bool):
 def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, moe_layer: bool,
                   causal: bool = True, enc_out: torch.Tensor | None = None,
-                  split: dict | None = None):
+                  split: dict | None = None, enc_blocked: bool = False):
     """Pre-norm residual block. Returns (x, aux_loss). ``enc_out`` [B, T, D]
     (encoder-decoder) adds cross-attention between the mixer and the
-    MLP. ``split`` (``block_params``' second value) says which sublayers
-    hold this rank's part of a tensor-parallel product."""
+    MLP (``enc_blocked``: a data rank's block of the frames,
+    ``_cross_attention``'s). ``split`` (``block_params``' second value)
+    says which sublayers hold this rank's part of a tensor-parallel
+    product."""
     split = split or {}
     norm = _norm(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -237,7 +245,8 @@ def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if cfg.family == "encdec" and enc_out is not None:
         x = x + _cross_attention(p["cross"], cfg, norm(p["ln_cross"], x),
                                  positions, enc_out,
-                                 split=split.get("cross", False))
+                                 split=split.get("cross", False),
+                                 enc_blocked=enc_blocked)
     h = norm(p["ln2"], x)
     if moe_layer:
         y, aux = MOE.moe_ffn(p["mlp"], cfg, h,
@@ -362,31 +371,39 @@ class Model(nn.Module):
         table = self.embed.table
         return table.device_mesh if isinstance(table, DTensor) else None
 
-    def _encode(self, frames: torch.Tensor, params: Params | None = None):
+    def _encode(self, frames: torch.Tensor, params: Params | None = None,
+                blocked: bool = False):
         """Whisper's encoder over stub frame embeddings [B, T, D] ->
         (encoder output [B, T, D], positions [B, T]). Positions index
         ``pos_embed`` from row 0, as the decoder's do (the reference's).
         Remat wraps each block's attention half only, as the reference's
-        ``_encode`` does."""
+        ``_encode`` does. ``blocked``: ``frames`` is this rank's block of
+        the frames (``sharding.spmd.seq_blocked``), whose positions, rows of
+        ``pos_embed`` and output are the block's; its attention attends over
+        the keys and values gathered over the data axes."""
         cfg = self.cfg
         params = self.params() if params is None else params
         b, t, _ = frames.shape
-        pos = torch.arange(t, device=frames.device).expand(b, t)
         whole = SP.whole_params
-        x = frames + whole(params["pos_embed"])[None, :t].to(frames.dtype)
+        with SP.sequence(t * SP.data_ways(), blocked):
+            pos = SP.seq_positions(b, t, frames.device)
+            start = SP.seq_block()[0] if blocked else 0
+            x = frames + whole(params["pos_embed"])[None, start:start + t].to(
+                frames.dtype)
 
-        def attn(p_, x_):
-            a, split = SP.split_over_model(p_["attn"], L.ATTN_SPLIT,
-                                           optional=L.ATTN_OPTIONAL)
-            return x_ + L.attention(a, cfg, L.layernorm(whole(p_["ln1"]), x_),
-                                    pos, causal=False, split=split)
+            def attn(p_, x_):
+                a, split = SP.split_over_model(p_["attn"], L.ATTN_SPLIT,
+                                               optional=L.ATTN_OPTIONAL)
+                return x_ + L.attention(a, cfg,
+                                        L.layernorm(whole(p_["ln1"]), x_),
+                                        pos, causal=False, split=split)
 
-        attn_half = _remat(attn, cfg)
-        for p in params["enc_blocks"]:
-            x = attn_half({"attn": p["attn"], "ln1": p["ln1"]}, x)
-            m, split = SP.split_over_model(p["mlp"], L.MLP_SPLIT)
-            x = x + L.mlp(m, cfg, L.layernorm(whole(p["ln2"]), x),
-                          split=split)
+            attn_half = _remat(attn, cfg)
+            for p in params["enc_blocks"]:
+                x = attn_half({"attn": p["attn"], "ln1": p["ln1"]}, x)
+                m, split = SP.split_over_model(p["mlp"], L.MLP_SPLIT)
+                x = x + L.mlp(m, cfg, L.layernorm(whole(p["ln2"]), x),
+                              split=split)
         return L.layernorm(whole(params["enc_ln_f"]), x), pos
 
     def cross_kv(self, enc_out: torch.Tensor,
@@ -421,7 +438,7 @@ class Model(nn.Module):
                            mesh, rules)["cross_k"]
         layout = placements(spec, mesh)
         with torch.no_grad(), SP.spmd(mesh, rows, rules):
-            enc = SP.local_batch(enc_out).to(dt)
+            enc = SP.whole_batch(enc_out).to(dt)
             m = mesh.mesh_dim_names.index("model")
             cache_dim = (layout[m].dim - 1 if isinstance(layout[m], Shard)
                          and mesh.size(m) > 1 else None)
@@ -458,48 +475,101 @@ class Model(nn.Module):
             return self._forward(tokens, params, extra=extra)
         with SP.spmd(mesh, tokens.shape[0]):
             x, aux = self._forward(
-                SP.local_batch(tokens), params,
-                extra={k: SP.local_batch(v) for k, v in (extra or {}).items()})
+                SP.whole_batch(tokens), params,
+                extra={k: SP.whole_batch(v) for k, v in (extra or {}).items()})
             return (SP.as_batch_rows(x),
                     SP.as_batch_partial(aux / SP.batch_shards()))
 
     def _forward(self, tokens: torch.Tensor, params: Params | None = None, *,
-                 extra: dict | None = None):
+                 extra: dict | None = None, blocked: dict | None = None,
+                 last: bool = False):
         """tokens [B, S_text] -> (hidden [B, S_total, D], aux loss).
 
         extra: {"patches": [B, n_img, D]} for the VLM, prepended to the
         text embeddings; {"frames": [B, T, D]} for the encoder-decoder,
         run through the encoder, whose output the decoder blocks attend
-        to."""
+        to.
+
+        ``blocked`` ({leaf: ``sharding.spmd.seq_blocked``}, a prefill
+        under a mesh): the leaves it marks hold this rank's block of their
+        sequence. Where the decoder's sequence is in blocks (the tokens',
+        and the VLM's patches' too), each rank runs the blocks on its own
+        positions, every position-wise product on them only, and exchanges
+        only what crosses blocks (``sharding.spmd.sequence``: the
+        attention's keys and values, the Mamba conv window and scan state);
+        the VLM's patches and tokens are gathered whole first and each rank
+        keeps its block of their concatenation. Frames in blocks run the
+        encoder so, and the cross-attention's keys and values are projected
+        from each rank's block of its output and gathered. ``last``: (the
+        last position's row [B, 1, D], on every rank, aux loss)."""
         cfg = self.cfg
         params = self.params() if params is None else params
+        blocked = blocked or {}
         dt = cfg.compute_dtype
         whole = SP.whole_params
-        # this rank's run of a vocabulary split over "model", summed there
-        x = L.embed_part(*SP.model_part(params["embed"]["table"]), tokens,
-                         dt)
-        enc_out = None
-        if cfg.family == "vlm":
-            x = torch.cat([extra["patches"].to(dt), x], dim=1)
+        enc_out, enc_blocked = None, blocked.get("frames", False)
         if cfg.family == "encdec":
-            enc_out, _ = self._encode(extra["frames"].to(dt), params)
-            x = x + whole(params["pos_embed"])[None, :x.shape[1]].to(dt)
-        b, s, _ = x.shape
-        positions = torch.arange(s, device=x.device).expand(b, s)
-        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-        for moe_layer, stack in ((False, params.get("dense_blocks", [])),
-                                 (cfg.is_moe, params["blocks"])):
-            def run(p, x_, moe=moe_layer):
-                p, split = block_params(p, cfg, moe)
-                return block_forward(p, cfg, x_, positions, moe_layer=moe,
-                                     enc_out=enc_out, split=split)
+            enc_out, _ = self._encode(extra["frames"].to(dt), params,
+                                      blocked=enc_blocked)
+        split = blocked.get("tokens", False)
+        if cfg.family == "vlm":
+            patches = extra["patches"].to(dt)
+            # each leaf in blocks gathered whole
+            if split:
+                tokens = SP.gather_over_data(tokens, 1)
+            if blocked.get("patches", False):
+                patches = SP.gather_over_data(patches, 1)
+            total = patches.shape[1] + tokens.shape[1]
+            split = split and blocked.get("patches", False)
+        else:
+            # this rank's run of a vocabulary split over "model", summed
+            # there
+            x = L.embed_part(*SP.model_part(params["embed"]["table"]),
+                             tokens, dt)
+            total = x.shape[1] * (SP.data_ways() if split else 1)
+        with SP.sequence(total, split):
+            if cfg.family == "vlm":
+                x = self._vlm_embed(params, tokens, patches)
+            b, s, _ = x.shape
+            positions = SP.seq_positions(b, s, x.device)
+            if cfg.family == "encdec":
+                start = SP.seq_block()[0] if split else 0
+                x = x + whole(params["pos_embed"])[None, start:start + s].to(
+                    dt)
+            aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+            for moe_layer, stack in ((False, params.get("dense_blocks", [])),
+                                     (cfg.is_moe, params["blocks"])):
+                def run(p, x_, moe=moe_layer):
+                    p, split_ = block_params(p, cfg, moe)
+                    return block_forward(p, cfg, x_, positions, moe_layer=moe,
+                                         enc_out=enc_out, split=split_,
+                                         enc_blocked=enc_blocked)
 
-            fn = _remat(run, cfg)
-            for p in stack:
-                x, aux = fn(p, x)
-                aux_total = aux_total + aux
-        x = _norm(cfg)(whole(params["ln_f"]), x)
+                fn = _remat(run, cfg)
+                for p in stack:
+                    x, aux = fn(p, x)
+                    aux_total = aux_total + aux
+            x = _norm(cfg)(whole(params["ln_f"]), x)
+            if last:
+                x = SP.seq_last(x[:, -1:].contiguous())
         return x, aux_total
+
+    def _vlm_embed(self, params: Params, tokens, patches) -> torch.Tensor:
+        """The VLM's input rows, patches followed by the text embeddings:
+        this rank's block of them where the sequence is in blocks
+        (``sharding.spmd.seq_block``), only its own tokens embedded; all of
+        them otherwise."""
+        dt = self.cfg.compute_dtype
+        n_img = patches.shape[1]
+        blk = SP.seq_block()
+        lo, hi = (0, n_img + tokens.shape[1]) if blk is None else (
+            blk[0], blk[0] + blk[1])
+        parts = [patches[:, lo:min(hi, n_img)]]
+        text = tokens[:, max(lo - n_img, 0):max(hi - n_img, 0)]
+        if text.shape[1]:
+            parts.append(L.embed_part(
+                *SP.model_part(params["embed"]["table"]), text, dt))
+        return torch.cat(parts, dim=1)
 
     def loss(self, batch: dict, chunk: int = 512,
              params: Params | None = None) -> tuple[torch.Tensor, dict]:
@@ -512,7 +582,7 @@ class Model(nn.Module):
         if mesh is None:
             return self._loss(batch, chunk, params)
         with SP.spmd(mesh, batch["tokens"].shape[0]):
-            total, m = self._loss({k: SP.local_batch(v)
+            total, m = self._loss({k: SP.whole_batch(v)
                                    for k, v in batch.items()}, chunk, params)
             return SP.as_batch_partial(total), {
                 "ce": SP.as_batch_partial(m["ce"]),
@@ -831,14 +901,22 @@ class Model(nn.Module):
         ``cross_kv`` projects. On a meshed model the encoder runs once a
         rank on frames placed by ``batch_specs(rules)``, its attention and
         MLP tensor-parallel over "model", and the output comes back as a
-        DTensor split by rows as the frames are."""
+        DTensor split as the frames are: by rows, or, where they hold a block
+        of the frames a rank (``LONG_CONTEXT_RULES``), by that block, each
+        rank running the encoder on its block (``_encode``'s ``blocked``)."""
         dt = self.cfg.compute_dtype
         mesh = self._mesh()
         if mesh is None:
             return self._encode(frames.to(dt), params)[0]
         with SP.spmd(mesh, self._placed(frames, "frames").shape[0], rules):
-            enc, _ = self._encode(SP.local_batch(frames).to(dt), params)
-            return SP.as_batch_rows(enc)
+            blocked = SP.seq_blocked(frames)
+            enc, _ = self._encode(SP.local_batch(frames).to(dt), params,
+                                  blocked=blocked)
+            if not blocked:
+                return SP.as_batch_rows(enc)
+            return DTensor.from_local(enc, mesh, frames.placements,
+                                      run_check=False, shape=frames.shape,
+                                      stride=frames.stride())
 
     @torch.no_grad()
     def decode_step(self, cache: Params, tokens: torch.Tensor, pos: int,
@@ -884,10 +962,15 @@ class Model(nn.Module):
 
         On a meshed model the forward runs once a rank (``sharding.spmd``)
         on tokens (and ``extra``) placed by ``batch_specs(rules)``: each
-        rank takes its rows (under ``LONG_CONTEXT_RULES`` the whole batch,
-        its sequence gathered where the rules split it), and the logits come
-        back as ``decode_step``'s do, a DTensor split by rows and whole over
-        the vocabulary."""
+        rank takes its rows, and the logits come back as ``decode_step``'s
+        do, a DTensor split by rows and whole over the vocabulary. Under
+        ``LONG_CONTEXT_RULES`` every rank holds the whole batch and, where
+        the sequence divides the data axes, its block of the sequence
+        (``_forward``'s ``blocked``): the blocks run as the reference's
+        partitioned program keeps them, the last position's row, which the
+        last data rank computes, is gathered onto every rank, and each rank
+        unembeds it (the reference's program moves that row by a
+        collective-permute)."""
         mesh = self._mesh()
         params = self.params() if params is None else params
         if mesh is None:
@@ -897,12 +980,14 @@ class Model(nn.Module):
             return L.unembed(params["unembed"], x[:, -1:].contiguous(),
                              self.cfg.logit_softcap)
         with SP.spmd(mesh, self._placed(tokens).shape[0], rules):
+            batch = {"tokens": tokens, **(extra or {})}
             x, _ = self._forward(
                 SP.local_batch(tokens), params,
-                extra={k: SP.local_batch(v) for k, v in (extra or {}).items()})
+                extra={k: SP.local_batch(v) for k, v in (extra or {}).items()},
+                blocked={k: SP.seq_blocked(v) for k, v in batch.items()},
+                last=True)
             w, vdim = SP.model_part(params["unembed"]["w"])
-            logits = L.unembed({"w": w}, x[:, -1:].contiguous(),
-                               self.cfg.logit_softcap)
+            logits = L.unembed({"w": w}, x, self.cfg.logit_softcap)
             if vdim is not None:
                 logits = SP.gather_over_model(logits, -1)
             return SP.as_batch_rows(logits)

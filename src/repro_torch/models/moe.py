@@ -22,9 +22,10 @@ import torch
 
 from ..sharding.spmd import (batch_shards, data_block, data_whole,
                               decode_part, decode_split, gather_rows,
-                              model_slice, split_over_model,
-                              sum_grads_over_model, sum_over_data,
-                              sum_over_model, take_rows, whole_params)
+                              model_slice, seq_block, seq_whole,
+                              split_over_model, sum_grads_over_model,
+                              sum_over_data, sum_over_model, take_rows,
+                              whole_params)
 from .config import ModelConfig
 from .layers import (MLP_SPLIT, Params, _dense_init, activate,
                      contract_first, init_mlp, mlp)
@@ -117,17 +118,33 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ``d_model`` (``moe_parts(..., decode=True)`` with the rows whole on
     the data axes), the router's logits and the experts' hidden units are
     summed over the data axes from x's columns there, and the output
-    columns of the experts and the shared expert are gathered once."""
-    gathered = False
+    columns of the experts and the shared expert are gathered once.
+
+    Where x is a data rank's block of the sequence (a prefill under
+    ``sharding.spmd.sequence``), the groups are one device's,
+    ``min(moe_group_size, B x S)`` consecutive tokens of a row: a block of
+    whole groups routes them where it is, so it drops the tokens one
+    device drops; any other block gathers the sequence over the data axes,
+    routes it whole and keeps its block (ROADMAP Queue C)."""
+    gathered, blk = False, seq_block()
     shards = batch_shards()
     if shards > 1:
         tokens = x.shape[0] * x.shape[1]
         if tokens % min(cfg.moe_group_size, tokens * shards):
             x, gathered = gather_rows(x), True
+    g_size = min(cfg.moe_group_size, x.shape[0] * x.shape[1])
+    if blk is not None:
+        # one device's groups, each of a row's consecutive tokens where
+        # they do not span its rows: a block of whole groups routes them
+        # where it is, another gathers the sequence
+        g_size = min(cfg.moe_group_size, x.shape[0] * blk[2])
+        if x.shape[1] % g_size:
+            x = seq_whole(x)
+        else:
+            blk = None
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     dt = x.dtype
-    g_size = min(cfg.moe_group_size, b * s)
     n_groups = (b * s) // g_size
     if n_groups * g_size != b * s:
         raise ValueError(f"tokens {b * s} not divisible by moe_group_size "
@@ -188,6 +205,8 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     if cfg.n_shared_experts:
         y = y + mlp(p["shared"], cfg, xt, split=shared_split, gather=False)
     y = data_whole(y, d).reshape(b, s, d)
+    if blk is not None:
+        y = y[:, blk[0]:blk[0] + blk[1]]
     return (take_rows(y) if gathered else y), aux.to(torch.float32)
 
 

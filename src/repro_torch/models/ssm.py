@@ -24,7 +24,10 @@ reference's ``shard_map`` runs its kernel: each rank scans its own batch
 rows and channels, with no collective inside. Decode is the O(1)
 recurrence step on a carried (conv window, f32 state) cache:
 ``init_mamba_cache`` and ``mamba_decode_step``, plain PyTorch as in the
-reference (no kernel), on this rank's channels under a mesh.
+reference (no kernel), on this rank's channels under a mesh. A prefill
+whose sequence is split over the data axes (``sharding.spmd.sequence``)
+runs each data rank's block, its conv window and scan state carried from
+the rank before (``mamba_forward``).
 
 ``in_proj`` keeps the reference's layout, one ``[D, 2 Di]`` leaf split on
 its columns, so a rank's columns are not its channels of both x and z (on
@@ -42,10 +45,12 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..kernels import ops
 from ..kernels.ops import selective_scan
 from ..sharding.spmd import (data_whole, gather_over_model,
-                              halves_over_model, model_slice,
-                              sum_grads_over_model, sum_over_model)
+                              halves_over_model, model_slice, seq_before,
+                              seq_block, seq_chain, sum_grads_over_model,
+                              sum_over_model)
 from .config import ModelConfig
 from .layers import Params, _dense_init, contract_first
 
@@ -144,17 +149,23 @@ def _largest_divisor(n: int, cap: int) -> int:
     return 1
 
 
-def _fused_selective_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a):
-    """Kernel route: the fused scan (B7/B8 on CUDA)."""
-    bb, ss, dd = xc32.shape
-    h0 = torch.zeros((bb, dd, cfg.ssm_state), dtype=torch.float32,
-                     device=xc32.device)
-    chunk = _largest_divisor(ss, cfg.ssm_chunk)
-    return selective_scan(xc32, dt, b_mat, c_mat, a, h0, chunk)
+def _fused_selective_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a, h0):
+    """Kernel route: the fused scan (B7/B8 on CUDA) from the state ``h0``
+    [B, Di, N] -> (y, the final state). Where a gradient is recorded it
+    runs the autograd function of both kernels, which gives y only (the
+    final state None); without one (a prefill) the forward kernel itself,
+    whose final state a data rank hands on to the next."""
+    chunk = _largest_divisor(xc32.shape[1], cfg.ssm_chunk)
+    if torch.is_grad_enabled():
+        return selective_scan(xc32, dt, b_mat, c_mat, a, h0, chunk), None
+    y, _, h_t = ops.selective_scan_fwd(xc32, dt, b_mat, c_mat, a, h0,
+                                       chunk=chunk)
+    return y, h_t
 
 
-def _chunked_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a):
-    """The chunked associative scan, each chunk under remat."""
+def _chunked_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a, h0):
+    """The chunked associative scan from the state ``h0`` [B, Di, N], each
+    chunk under remat -> (y, the final state)."""
     b, s, di = xc32.shape
     chunk = min(cfg.ssm_chunk, s)
 
@@ -168,8 +179,7 @@ def _chunked_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a):
         y_c = torch.einsum("btin,btn->bti", h, c_c)
         return h[:, -1], y_c
 
-    h = torch.zeros((b, di, cfg.ssm_state), dtype=torch.float32,
-                    device=xc32.device)
+    h = h0
     ys = []
     for idx in range(s // chunk):
         sl = slice(idx * chunk, (idx + 1) * chunk)
@@ -179,17 +189,19 @@ def _chunked_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a):
         else:
             h, y_c = chunk_step(*args)
         ys.append(y_c)
-    return torch.cat(ys, dim=1)                                   # [B,S,Di]
+    return torch.cat(ys, dim=1), h                                # [B,S,Di]
 
 
-def _selective_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a):
-    """The scan by the config's route, on the channels it is given: under a
-    mesh (``mamba_forward(..., split=True)``) this rank's rows and run of
+def _selective_scan(cfg: ModelConfig, xc32, dt, b_mat, c_mat, a, h0):
+    """The scan by the config's route, on the channels it is given, from
+    the state ``h0`` [B, Di, N] -> (y, the final state; None where the
+    kernel route records a gradient): under a mesh
+    (``mamba_forward(..., split=True)``) this rank's rows and run of
     channels, xc and dt as [B/dp, S, Di/tp], B and C as [B/dp, S, N], A as
     [Di/tp, N], as the reference's ``shard_map`` runs its kernel once a
     shard, with no collective inside."""
     route = _fused_selective_scan if cfg.ssm_kernel else _chunked_scan
-    return route(cfg, xc32, dt, b_mat, c_mat, a)
+    return route(cfg, xc32, dt, b_mat, c_mat, a, h0)
 
 
 def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
@@ -199,7 +211,15 @@ def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     S must be divisible by cfg.ssm_chunk (callers pad). ``split``: ``p``
     holds this rank's channels of every leaf (``SSM_SPLIT``) and x is
     whole over "model"; each rank's output is its part of the sum, added
-    up over the axis."""
+    up over the axis.
+
+    Where x is a data rank's block of the sequence (a prefill under
+    ``sharding.spmd.sequence``), the causal conv takes its ``kc - 1``
+    leading rows from the blocks before it (``seq_before``; zeros on the
+    first), and the scan starts from the state in which the previous data
+    rank's scan ended and hands its own on, in data order
+    (``seq_chain``), as the reference's collective-permutes do; the chunk
+    is ``min(ssm_chunk, S / dp)``."""
     s = x.shape[1]
     kc = cfg.ssm_conv
     dt_ = x.dtype
@@ -210,7 +230,10 @@ def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
     xin, z = torch.split(xz, xz.shape[-1] // 2, dim=-1)
 
     # depthwise causal conv over sequence
-    xpad = F.pad(xin, (0, 0, kc - 1, 0))
+    if seq_block() is None:
+        xpad = F.pad(xin, (0, 0, kc - 1, 0))
+    else:
+        xpad = torch.cat([seq_before(xin, kc - 1), xin], dim=1)
     conv_w = p["conv_w"].to(dt_)
     xc = xpad[:, 0:s, :] * conv_w[0]
     for i in range(1, kc):
@@ -225,7 +248,10 @@ def mamba_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
         raise ValueError(f"seq {s} not divisible by ssm_chunk {chunk}")
 
     xc32 = xc.to(torch.float32)
-    y = _selective_scan(cfg, xc32, dt, b_mat, c_mat, a)
+    h0 = torch.zeros((xc32.shape[0], xc32.shape[2], cfg.ssm_state),
+                     dtype=torch.float32, device=xc32.device)
+    y, _ = seq_chain(lambda h: _selective_scan(cfg, xc32, dt, b_mat, c_mat,
+                                               a, h), h0)
     y = y + xc32 * p["d_skip"]
     y = y.to(dt_) * F.silu(z)
     out = torch.matmul(y, p["out_proj"].to(dt_))

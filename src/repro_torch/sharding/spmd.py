@@ -47,7 +47,7 @@ local tensors, once a rank, as the reference's ``shard_map`` regions do:
 Serving (``Model.prefill``, ``Model.decode_step``) runs the same way,
 under no gradient, with the batch placed by any of the reference's rule
 sets (``spmd(mesh, rows, rules)``: under ``LONG_CONTEXT_RULES`` every rank
-holds the whole batch). A decode step never gathers a leaf that the rules
+holds the whole batch's rows). A decode step never gathers a leaf that the rules
 split over "model": it computes with the leaf's "model" part
 (``model_part``) and gathers, exchanges or sums the small activations
 instead; attention over a cache split on its slots combines each rank's
@@ -64,6 +64,16 @@ is gives this rank's columns, gathered (``data_whole``). The attention
 over the cache, which the rules keep whole over "data", and the leaves
 without a data shard (Mamba's ``x_proj`` / ``dt_proj`` / conv, MLA's
 ``w*_b``, the norms) run whole on every data rank.
+
+A prefill under ``LONG_CONTEXT_RULES`` keeps the sequence split as the
+batch specs place it: ``local_batch`` keeps each data rank's block of a
+leaf whose sequence is split over every data axis (``seq_blocked``), and
+the model runs the blocks under ``sequence``. Its helpers give the
+block's place (``seq_block``, ``seq_positions``) and carry what crosses
+blocks over the data axes: keys and values gathered whole
+(``seq_whole``), a causal window's leading rows (``seq_before``), a scan's
+state from rank to rank in data order (``seq_chain``), and the last
+position's row onto every rank (``seq_last``).
 
 DTensor holds the layouts (placing, ``to_local`` / ``from_local``, the
 optimizer's elementwise formulas), not the model's ops, and the
@@ -196,23 +206,35 @@ def current():
 
 def local_batch(x):
     """This rank's rows of a batch leaf (a DTensor placed by the batch
-    specs); a plain tensor as it is. A leaf split along another dim where
-    the rows are whole (the sequence of ``LONG_CONTEXT_RULES``' tokens) is
-    gathered whole there."""
+    specs); a plain tensor as it is. A leaf whose sequence is split over
+    every data axis where the rows are whole (``LONG_CONTEXT_RULES``'
+    tokens, patches and frames where the sequence divides the axes:
+    ``seq_blocked``) keeps this rank's block of it; a leaf split along
+    another dim, or over some of those axes only, is gathered whole
+    there."""
     ctx = current()
     if ctx is None or not isinstance(x, DTensor):
         return x
     mesh, layout = ctx
+    keep = seq_blocked(x)
     t = x.to_local()
     for m in reversed(range(mesh.ndim)):
         p, want = x.placements[m], layout[m]
-        if p == want:
+        if p == want or (keep and p == Shard(1)):
             continue
         if isinstance(want, Shard) or not isinstance(p, Shard):
             raise ValueError(f"a batch leaf placed {x.placements}, not "
                              f"{layout}: place it with distribute_batch")
         t = _gather_along(t, p.dim, mesh.get_group(m), mesh.size(m))
     return t
+
+
+def whole_batch(x):
+    """``local_batch(x)`` with its sequence whole: a block that
+    ``local_batch`` keeps is gathered over the data axes (a training step,
+    and the cross-attention cache of an encoder output)."""
+    t = local_batch(x)
+    return gather_over_data(t, 1) if seq_blocked(x) else t
 
 
 def _partial_over_rows(layout) -> list:
@@ -714,10 +736,150 @@ def data_whole(y: torch.Tensor, width: int) -> torch.Tensor:
     dim), every rank's block gathered over those axes, inner axis first."""
     if y.shape[-1] == width:
         return y
+    return gather_over_data(y, y.dim() - 1)
+
+
+def gather_over_data(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """Every data rank's ``t`` concatenated along ``dim`` in data order
+    (``_data_index``: the inner axis gathered first); ``t`` itself without
+    data axes."""
+    if not data_axes():
+        return t
     mesh, _ = current()
     for m in reversed(data_axes()):
-        y = _gather_along(y, y.dim() - 1, mesh.get_group(m), mesh.size(m))
-    return y
+        t = _gather_along(t, dim, mesh.get_group(m), mesh.size(m))
+    return t
+
+
+# ---------------------------------------------------------------------------
+# serving: a prefill whose sequence is split over the data axes
+# ---------------------------------------------------------------------------
+
+def seq_blocked(x) -> bool:
+    """Whether the batch leaf ``x`` (a DTensor placed by the batch specs)
+    has its sequence (dim 1) split over every data axis (``data_axes``:
+    the rows are whole there) and over no other mesh dim of two or more
+    ranks: ``LONG_CONTEXT_RULES``' tokens, patches and frames where the
+    sequence divides the axes. Each rank then holds one block of ``S / dp``
+    consecutive positions, the ``_data_index``-th."""
+    axes = data_axes()
+    if not axes or not isinstance(x, DTensor):
+        return False
+    return {m for m, p in enumerate(x.placements)
+            if p == Shard(1) and x.device_mesh.size(m) > 1} == set(axes)
+
+
+def data_ways() -> int:
+    """The number of data ranks (the product of ``data_axes``' sizes)."""
+    ways = 1
+    if data_axes():
+        mesh, _ = current()
+        for m in data_axes():
+            ways *= mesh.size(m)
+    return ways
+
+
+@contextlib.contextmanager
+def sequence(total: int, blocked: bool):
+    """Run a model's sequence of ``total`` positions in blocks over the
+    data axes (``blocked``: each rank holds its ``_data_index``-th block of
+    ``total / dp`` positions, as ``local_batch`` keeps a ``seq_blocked``
+    leaf) or whole; the helpers below read it."""
+    prev = getattr(_state, "seq", None)
+    _state.seq = (total, total // data_ways()) if blocked else None
+    try:
+        yield
+    finally:
+        _state.seq = prev
+
+
+def seq_block():
+    """(start, length, total) of this rank's block of the sequence inside
+    ``sequence(..., blocked=True)``; None where the sequence is whole."""
+    seq = getattr(_state, "seq", None)
+    if seq is None or current() is None:
+        return None
+    total, n = seq
+    return _data_index() * n, n, total
+
+
+def seq_positions(b: int, n: int, device) -> torch.Tensor:
+    """[b, n] positions of this rank's block (from its start), or of the
+    first ``n`` positions where the sequence is whole."""
+    blk = seq_block()
+    start = 0 if blk is None else blk[0]
+    return torch.arange(start, start + n, device=device).expand(b, n)
+
+
+def seq_key_positions(positions: torch.Tensor) -> torch.Tensor:
+    """The positions of the keys a block's queries attend to, [B, S]: the
+    whole sequence's where it is in blocks (``seq_whole``'s keys);
+    ``positions`` itself where it is whole."""
+    blk = seq_block()
+    if blk is None:
+        return positions
+    return torch.arange(blk[2], device=positions.device).expand(
+        positions.shape[0], blk[2])
+
+
+def seq_whole(t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+    """A block of the sequence along ``dim`` gathered whole over the data
+    axes (the keys and values that a block's queries attend to); ``t``
+    itself where the sequence is whole."""
+    return t if seq_block() is None else gather_over_data(t, dim)
+
+
+def _stack_over_data(t: torch.Tensor) -> torch.Tensor:
+    """[dp, *t.shape]: every data rank's ``t``, in data order."""
+    return gather_over_data(t.contiguous()[None], 0)
+
+
+def seq_before(t: torch.Tensor, rows: int) -> torch.Tensor:
+    """[B, rows, ...]: the ``rows`` positions just before this rank's block
+    ``t`` [B, n, ...] of the sequence, taken from the blocks of the data
+    ranks before it (each rank's last ``min(rows, n)`` positions gathered
+    once), zeros before position 0: a causal convolution's window. Zeros
+    where the sequence is whole."""
+    b, n = t.shape[:2]
+    zeros = t.new_zeros((b, rows, *t.shape[2:]))
+    if seq_block() is None or rows == 0:
+        return zeros
+    k = min(rows, n)
+    # zeros, then every rank's tail in data order: the rows before block
+    # idx end where rank idx's tail starts (the same ops on every rank)
+    tails = _stack_over_data(t[:, n - k:]).movedim(0, 1).flatten(1, 2)
+    return torch.cat([zeros, tails], dim=1).narrow(1, _data_index() * k,
+                                                   rows)
+
+
+def seq_chain(fn, h: torch.Tensor):
+    """``fn(h_in) -> (out, h_out)`` run by every data rank on its block in
+    data order, each rank's ``h_in`` the ``h_out`` of the rank before it
+    (``h`` on the first): the carried state of a scan over a sequence split
+    over the data axes. Returns (this rank's out, its h_out). The state
+    passes by one all-gather over the data axes a step (``dp - 1`` steps,
+    the state the same shape on every rank), a collective that gloo runs on
+    CUDA tensors where it runs no send or receive. ``fn(h)`` where the
+    sequence is whole."""
+    if seq_block() is None:
+        return fn(h)
+    idx, out = _data_index(), None
+    for j in range(data_ways()):
+        if j == idx:
+            out, h = fn(h)
+        if j < data_ways() - 1:
+            got = _stack_over_data(h)
+            if idx == j + 1:
+                h = got[j]
+    return out, h
+
+
+def seq_last(t: torch.Tensor) -> torch.Tensor:
+    """The last position's row of the sequence on every rank: ``t`` is this
+    rank's last row [B, 1, ...], the last data rank's is every rank's
+    (gathered over the data axes); ``t`` itself where the sequence is
+    whole."""
+    return t if seq_block() is None else _stack_over_data(t)[-1]
 
 
 def model_slice(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -829,6 +991,9 @@ __all__ = ["place", "replicas", "local_rank", "local_shard", "local_shape",
            "max_over_model", "halves_over_model", "gather_over_model",
            "model_dim", "model_part", "model_parts",
            "data_axes", "decode_part", "decode_split", "data_block",
-           "sum_over_data", "data_whole",
+           "sum_over_data", "data_whole", "gather_over_data",
+           "whole_batch", "seq_blocked", "data_ways", "sequence", "seq_block",
+           "seq_positions", "seq_key_positions", "seq_whole", "seq_before",
+           "seq_chain", "seq_last",
            "model_slice", "combine_softmax_over_model", "argmax_over_model",
            "row_shard_index", "gather_rows", "take_rows"]

@@ -161,8 +161,8 @@ spy(MOE, "moe_ffn", lambda p, cfg, x, shared_split=False,
     experts_split=False: [experts_split, shared_split, list(p["wi"].shape)])
 spy(SSM, "mamba_forward", lambda p, cfg, x, split=False:
     [split, list(p["in_proj"].shape), list(p["x_proj"].shape)])
-spy(MM, "_cross_attention", lambda p, cfg, h, pos, enc, split=False:
-    [split, list(p["wq"].shape)])
+spy(MM, "_cross_attention", lambda p, cfg, h, pos, enc, split=False,
+    enc_blocked=False: [split, list(p["wq"].shape)])
 spy(L, "attention", lambda p, cfg, x, pos, causal=True, split=False:
     [split, causal, list(p["wq"].shape)])
 spy(MM, "_vocab_parallel_ce", lambda p, cfg, x, labels:
