@@ -219,7 +219,10 @@ Phases, each fatal on error (exit code 1, no result line):
     cell; a long_500k decode step (``LONG_CONTEXT_ARCHS`` on both meshes)
     gathers no parameter (its all-gathers average at most one token's
     largest activation) and falcon-mamba-7b's on 16 x 16 is under
-    ``LONG_FALCON_MAX_RATIO`` x the ideal split.
+    ``LONG_FALCON_MAX_RATIO`` x the ideal split; olmoe-1b-7b's decode_32k
+    on 16 x 16, whose MoE layer keeps each expert leaf's data shard, is
+    under ``MOE_DECODE_MAX_RATIO`` x the ideal split and all-gathers fewer
+    than ``MOE_DECODE_MAX_GATHER_BYTES``.
 24. population sharding: engines over ``["cuda:0"] * k`` for k in {2, 4}
     (and over every visible card where there are several), each shard its
     own dispatch, adaptive loops and kernel launches: ``evaluate_genomes``
@@ -293,12 +296,16 @@ Phases, each fatal on error (exit code 1, no result line):
     tokens/s, prefill tokens/s, each rank's bytes of parameters and cache,
     a decode step's collectives by kind, and B7 held against its plain
     version and timed at the shard's shape beside its bound; rank 0 counts
-    one more ``SERVING_RULES`` decode step of deepseek, one more
-    ``LONG_CONTEXT_RULES`` decode step of hymba and of whisper and one
-    more ``SERVING_RULES`` prefill of qwen2.5-3b, each held exactly to the
-    dry-run's meta count as in phase 25; a ``LONG_CONTEXT_RULES`` decode
-    step, whose weights keep their data shards, all-gathers over "data"
-    only one token's activation ([1, 1, d_model]); under
+    one more ``SERVING_RULES`` and one more ``DEFAULT_RULES`` decode step
+    of deepseek, one more ``LONG_CONTEXT_RULES`` decode step of hymba and
+    of whisper and one more ``SERVING_RULES`` prefill of qwen2.5-3b, each
+    held exactly to the dry-run's meta count as in phase 25; a
+    ``LONG_CONTEXT_RULES`` decode step, whose weights keep their data
+    shards, all-gathers over "data" only one token's activation ([1, 1,
+    d_model]); a ``DEFAULT_RULES`` decode step of deepseek, whose MoE
+    layer gathers its tokens over "data" and keeps each leaf's data
+    shard, gathers there only the tokens' activation and the output
+    columns, no router, expert or shared-expert leaf; under
     ``SERVING_RULES`` qwen's and whisper's prefills take the query-split
     attention (``wk`` / ``wv`` whole over "model": K and V projected whole
     on each rank, whisper's cross-attention K and V for the rank's own
@@ -471,6 +478,14 @@ FLOP_ARCH, FLOP_LAYERS = "qwen2.5-3b", 2
 # gathered the weights and ran the whole step)
 LONG_CONTEXT_ARCHS = ("falcon-mamba-7b", "hymba-1.5b")
 LONG_FALCON_MAX_RATIO = 2.0
+# olmoe-1b-7b's decode_32k on 16 x 16 under DEFAULT_RULES: its MoE layer
+# gathers the tokens over "data" and keeps each expert leaf's data shard
+# (5.6783 x the ideal split and 1.748e9 bytes of all-gathers where every
+# data rank gathered the experts whole; 1.0101 x and 1.370e8 bytes in the
+# dry-run on the host)
+MOE_DECODE_ARCH = "olmoe-1b-7b"
+MOE_DECODE_MAX_RATIO = 1.5
+MOE_DECODE_MAX_GATHER_BYTES = 1.748e9
 # population sharding: shard lists ["cuda:0"] * k, the genome spaces
 # (name, n_chiplets or None for the parametric space, population), the
 # NSGA-II run and the service round, and the timed calls per shard count
@@ -507,7 +522,9 @@ MESH_WORLD_TIMEOUT = 600
 # other two (DEFAULT_RULES gathers the weights over "data" every step;
 # LONG_CONTEXT_RULES, whose steps move no weight, takes as many so that
 # the phase does not grow); rank 0 counts one more decode step of each of
-# SERVE_COUNTED (arch, rule set, dtype)
+# SERVE_COUNTED (arch, rule set, dtype); every all-gather over "data" of
+# MOE_ARCH's DEFAULT_RULES decode steps in its MoE layer is at most the
+# tokens' activation (SERVE_BATCH x d_model)
 # phases 25 and 26's MLA and MoE model: deepseek-v2-lite-16b at its
 # published widths cut to MOE_LAYERS (its dense first layer and one layer
 # of 64 routed experts top-6 and 2 shared experts), in float32 (bf16
@@ -530,6 +547,7 @@ SERVE_MESH_NEW = 16
 SERVE_MESH_TOL = dict(rtol=1e-4, atol=1e-4)
 SERVE_FSDP_STEPS = 2
 SERVE_COUNTED = ((MOE_ARCH, "serving", "float32"),
+                 (MOE_ARCH, "default", "float32"),
                  ("hymba-1.5b", "long", "float32"),
                  (ENCDEC_ARCH, "long", "float32"))
 SERVE_REFERENCES = (("hymba-1.5b", "float32", False),
@@ -3435,6 +3453,21 @@ def _long_context_held(r: dict, cell: dict) -> None:
              f"{LONG_FALCON_MAX_RATIO}")
 
 
+def _moe_decode_held(cell: dict) -> None:
+    """Phase 23(e)'s gate on ``MOE_DECODE_ARCH``'s decode_32k record on 16
+    x 16 (its ``cell``): its MoE layer keeps each expert leaf's data shard,
+    so rank 0 is under ``MOE_DECODE_MAX_RATIO`` x the ideal split and
+    all-gathers fewer than ``MOE_DECODE_MAX_GATHER_BYTES``."""
+    nbytes = cell["collective_breakdown"]["all-gather"]
+    if cell["ideal_ratio"] >= MOE_DECODE_MAX_RATIO or \
+            nbytes >= MOE_DECODE_MAX_GATHER_BYTES:
+        fail(f"phase 23: {MOE_DECODE_ARCH} decode_32k on 16x16 is "
+             f"{cell['ideal_ratio']:.4f} x the ideal split (gate "
+             f"{MOE_DECODE_MAX_RATIO}) and all-gathers {nbytes:.6g} bytes "
+             f"(gate {MOE_DECODE_MAX_GATHER_BYTES:.6g}): its experts are "
+             f"gathered over \"data\"")
+
+
 def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
                          kernel_record) -> dict:
     """Phase 23: the dry-run and sharding stack. The host work of
@@ -3703,6 +3736,9 @@ def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
             "collective_breakdown": r["collective_breakdown"]}
         if r["shape"] == "long_500k":
             _long_context_held(r, cells[name])
+        if (r["arch"], r["shape"], r["mesh"], r["variant"]) == (
+                MOE_DECODE_ARCH, "decode_32k", "16x16", "baseline"):
+            _moe_decode_held(cells[name])
     for name, c in sorted(cells.items()):
         if c is None:
             continue
@@ -4278,11 +4314,12 @@ def meta_rank_count(sizes, kind: str) -> dict:
     """The dry-run's meta count of rank 0 of a ``sizes`` ("data", "model")
     mesh (``launch.mesh.counting_world``) running a step as phases 25 and
     26 run it on the card: ``MOE_ARCH``'s train step of ``TRAIN_BATCH`` x
-    ``TRAIN_SEQ`` under ``DEFAULT_RULES`` (``_moe_cfg``) or its
-    ``SERVING_RULES`` decode step of ``SERVE_BATCH`` rows at the last
-    position of a cache of ``SERVE_PROMPT + SERVE_MESH_NEW`` slots
-    (``_serve_cfg``), ("long:<arch>") that of ``arch`` (float32) under
-    ``LONG_CONTEXT_RULES`` at batch 1, ("longprefill:<arch>") its prefill
+    ``TRAIN_SEQ`` under ``DEFAULT_RULES`` (``_moe_cfg``), ("<rule
+    set>:<arch>") the decode step of ``arch`` (float32, ``_serve_cfg``)
+    under that rule set of ``SERVE_BATCH`` rows (1 under
+    ``LONG_CONTEXT_RULES``) at the last position of a cache of
+    ``SERVE_PROMPT + SERVE_MESH_NEW`` slots, ("longprefill:<arch>") the
+    prefill
     of 1 x ``PREFILL_SEQ`` there (the sequence split over "data"), or
     ("prefill") qwen2.5-3b's ``SERVING_RULES`` prefill of
     ``PREFILL_BATCH`` x ``PREFILL_SEQ`` (``_serve_cfg``, float32; its
@@ -4305,20 +4342,17 @@ def meta_rank_count(sizes, kind: str) -> dict:
         cfg = _serve_cfg("qwen2.5-3b", "float32")
         rules = _serve_rule_sets()["serving"]
         spec = ShapeSpec("card_count", PREFILL_SEQ, PREFILL_BATCH, "prefill")
-    elif kind.startswith("long:"):
-        cfg = _serve_cfg(kind[len("long:"):], "float32")
-        rules = _serve_rule_sets()["long"]
-        spec = ShapeSpec("card_count", SERVE_PROMPT + SERVE_MESH_NEW, 1,
-                         "decode")
     elif kind.startswith("longprefill:"):
         cfg = _serve_cfg(kind[len("longprefill:"):], "float32")
         rules = _serve_rule_sets()["long"]
         spec = ShapeSpec("card_count", PREFILL_SEQ, 1, "prefill")
     else:
-        cfg = _serve_cfg(MOE_ARCH, "float32")
-        rules = _serve_rule_sets()["serving"]
+        rules_name, arch = kind.split(":")
+        cfg = _serve_cfg(arch, "float32")
+        rules = _serve_rule_sets()[rules_name]
         spec = ShapeSpec("card_count", SERVE_PROMPT + SERVE_MESH_NEW,
-                         SERVE_BATCH, "decode")
+                         1 if rules_name == "long" else SERVE_BATCH,
+                         "decode")
     with counting_world(MeshShape(("data", "model"), tuple(sizes))) as mesh:
         counts = D.trace_counts(*D.step_program(cfg, spec, mesh=mesh,
                                                 rules=rules))
@@ -5040,8 +5074,8 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
     against world 1's logits; B7's launches and the context-parallel calls
     counted, B7 held against its plain version and timed at the shard's
     shape (and on data rank 1, from a carried state, at its block of the
-    long-context prefill); rank 0 writes ``result.json`` under
-    ``workdir``."""
+    long-context prefill), and the all-gathers of every decode step's MoE
+    layer recorded; rank 0 writes ``result.json`` under ``workdir``."""
     import faulthandler
 
     import torch
@@ -5049,6 +5083,7 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
     faulthandler.enable()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch.models.layers as L
+    import repro_torch.models.moe as MOE
     from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.launch.dryrun import trace_counts
@@ -5093,6 +5128,31 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
 
         L._context_parallel_flash, ops.selective_scan_fwd = cp, scan
         L.split_queries = queries
+        # every all-gather of a decode step's MoE layer (the group's ranks,
+        # the output's elements): its parameters for the step
+        # (moe_parts(..., decode=True)) and the layer itself
+        seen["moe_gathers"] = []
+        real_parts, real_ffn = MOE.moe_parts, MOE.moe_ffn
+
+        def in_moe(fn):
+            def run(*a, **k):
+                if fn is real_parts and not k.get("decode"):
+                    return fn(*a, **k)
+                outer = dist.all_gather_into_tensor
+
+                def spy(out_t, t_in, group=None, **kw):
+                    seen["moe_gathers"].append(
+                        (dist.get_process_group_ranks(group), out_t.numel()))
+                    return outer(out_t, t_in, group=group, **kw)
+
+                dist.all_gather_into_tensor = spy
+                try:
+                    return fn(*a, **k)
+                finally:
+                    dist.all_gather_into_tensor = outer
+            return run
+
+        MOE.moe_parts, MOE.moe_ffn = in_moe(real_parts), in_moe(real_ffn)
         t0 = time.perf_counter()
         # MOE_ARCH's weights come from the parent's file, named once world
         # 1's results are in
@@ -5123,6 +5183,7 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
             cp_before, queries_before = seen["cp"], seen["queries"]
             gathers = [] if long_context else None
             seen["long"] = long_context and dtype == "float32"
+            seen["moe_gathers"].clear()
             t0 = time.perf_counter()
             got = _serve_calls(torch, model, dev, r["pre"], r["teacher"],
                                steps, mesh, rule_sets[rules_name],
@@ -5159,13 +5220,18 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                 "experts_a_rank": (model.blocks[-1].mlp.wi.to_local()
                                    .shape[0] if cfg.is_moe else None),
                 "place_s": place_s, "run_s": run_s}
+            data = dist.get_process_group_ranks(mesh.get_group("data"))
             if long_context:
                 # the output sizes of the decode steps' all-gathers over
                 # this rank's data group: one token's activation only
-                data = dist.get_process_group_ranks(mesh.get_group("data"))
                 runs["|".join((arch, rules_name, dtype))][
                     "data_gathers"] = sorted({n for g, n in gathers
                                               if g == data})
+            if cfg.is_moe:
+                # those of the MoE layers' all-gathers over it
+                runs["|".join((arch, rules_name, dtype))][
+                    "moe_data_gathers"] = sorted({
+                        n for g, n in seen["moe_gathers"] if g == data})
             if (arch, rules_name, dtype) in SERVE_COUNTED:
                 # one more decode step, at the cache's last slot, which
                 # rank 0 counts as the dry-run does (the parent holds its
@@ -5340,8 +5406,8 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
                     if rules_name == "long"]
     count_pool, (meta_prefill, *meta_counts) = _start_meta_count(
         _world_mesh(world), "prefill", *(
-            "decode" if rules_name == "serving" else f"long:{arch}"
-            for arch, rules_name, _ in SERVE_COUNTED), *(
+            f"{rules_name}:{arch}" for arch, rules_name, _ in SERVE_COUNTED),
+        *(
             f"longprefill:{arch}" for arch in long_counted))
     meta_counts, meta_long_prefill = (meta_counts[:len(SERVE_COUNTED)],
                                       meta_counts[len(SERVE_COUNTED):])
@@ -5514,6 +5580,19 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
                 fail(f"phase 26: rank {r}, {name}: {run['experts_a_rank']} "
                      f"routed experts a rank; {cfg.n_experts} over "
                      f"{cards['mesh'][1]} model ranks")
+            # a decode step's MoE layer gathers its tokens over "data" and
+            # keeps each leaf's data shard: the tokens' activation and the
+            # output columns are all it gathers there
+            rows = 1 if rules_name == "long" else SERVE_BATCH
+            if cfg.is_moe and cards["mesh"][0] > 1 and (
+                    not run["moe_data_gathers"] or
+                    max(run["moe_data_gathers"]) > rows * cfg.d_model):
+                fail(f"phase 26: rank {r}, {name}: the MoE layers' "
+                     f"all-gathers over \"data\" in the decode steps have "
+                     f"{run['moe_data_gathers']} elements, not at most the "
+                     f"tokens' activation ({rows} x {cfg.d_model}): a "
+                     f"router, expert or shared-expert leaf is gathered, or "
+                     f"the tokens are not")
             whole = world1[_serve_key(arch, "float32", rules_name == "long")][
                 "one_device"]["param_bytes"]
             run["param_share"] = run["param_bytes"] / whole
@@ -5544,6 +5623,12 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
         counted["card_count"] = _hold_count(
             26, f"a {arch} {rules_name} decode step on {cards['mesh']}",
             counted["card_count"], meta)
+    counted = runs0[f"{MOE_ARCH}|default|float32"]
+    log(f"phase 26: a {MOE_ARCH} DEFAULT_RULES decode step on "
+        f"{cards['mesh']}, its MoE layer on each leaf's data shard: "
+        f"{counted['decode_ms']:.1f} ms a step ({counted['steps']} steps); "
+        f"every MoE all-gather over \"data\" at most "
+        f"{max(counted['moe_data_gathers'], default=0)} elements")
     counted = runs0["qwen2.5-3b|serving|float32"]
     counted["prefill_count"] = _hold_count(
         26, f"a qwen2.5-3b SERVING_RULES prefill on {cards['mesh']}",

@@ -57,9 +57,13 @@ step whose rows are whole on the data axes (long_500k's batch of 1 under
 ``LONG_CONTEXT_RULES``) gathers no parameter: each product runs on the
 rank's data shard of ``d_model`` and sums or gathers the one token's
 activations over "data", where XLA also gathers a few weights there (the
-MLP's ``wo`` among them: ``tests/test_torch_mesh_longctx.py``). FLOPs count
-matrix products only. Argument and output bytes come exactly from the
-sharding specs (a test holds them equal to the traced rank's entry bytes).
+MLP's ``wo`` among them: ``tests/test_torch_mesh_longctx.py``). Nor does
+a decode step's MoE layer under ``DEFAULT_RULES`` gather its leaves over
+"data": its tokens are gathered there, and the router and the experts
+run on their data shards (``tests/test_torch_mesh_moe_decode.py``).
+FLOPs count matrix products only. Argument and output bytes come exactly
+from the sharding specs (a test holds them equal to the traced rank's
+entry bytes).
 
 The record keeps the reference's keys except those with no torch meaning
 (``xla_raw``, ``n_while_loops``, ``memory.code_bytes``, ``compile_s``);

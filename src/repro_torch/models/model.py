@@ -779,17 +779,19 @@ class Model(nn.Module):
             y = ys if y is None else y + ys
         return y
 
-    def _decode_params(self, p: Params, moe_layer: bool):
-        """A block's parameters for one decode step: as they are on one
-        device; under a mesh the "model" parts (``SP.model_parts``) of the
-        attention's, MLA's, the cross-attention's and the Mamba mixer's
-        leaves, the dense MLP's tensor-parallel split
-        (``SP.decode_split``), a MoE layer's routed experts and shared
-        expert (``MOE.moe_parts``), the norms whole: no leaf the rules split
-        over "model" is gathered there. Where the rows are whole on the data
-        axes (``LONG_CONTEXT_RULES``) each leaf also keeps its data shard of
-        ``d_model`` (``SP.decode_part``), which the products contract or
-        give their output columns from: no leaf is gathered at all. Returns
+    def _decode_params(self, p: Params, moe_layer: bool, tokens: int):
+        """A block's parameters for one decode step of a rank's ``tokens``
+        tokens: as they are on one device; under a mesh the "model" parts
+        (``SP.model_parts``) of the attention's, MLA's, the
+        cross-attention's and the Mamba mixer's leaves, the dense MLP's
+        tensor-parallel split (``SP.decode_split``), a MoE layer's routed
+        experts and shared expert (``MOE.moe_parts``), the norms whole: no
+        leaf the rules split over "model" is gathered there. Where the rows
+        are whole on the data axes (``LONG_CONTEXT_RULES``) each leaf also
+        keeps its data shard of ``d_model`` (``SP.decode_part``), which the
+        products contract or give their output columns from: no leaf is
+        gathered at all. So do a MoE layer's leaves where the layer gathers
+        its rows over the data axes (``MOE.gathers_rows``). Returns
         (params, "model" dims of the parts, {"mlp", "experts", "shared":
         split})."""
         out, dims, split = {}, {}, {}
@@ -799,7 +801,9 @@ class Model(nn.Module):
             elif k == "mlp" and not moe_layer:
                 out[k], split["mlp"] = SP.decode_split(v, L.MLP_SPLIT)
             elif k == "mlp":
-                out[k], flags = MOE.moe_parts(v, decode=True)
+                out[k], flags = MOE.moe_parts(
+                    v, decode=True,
+                    gathered=MOE.gathers_rows(self.cfg, tokens))
                 split.update(flags)
             else:
                 out[k] = SP.whole_params(v)
@@ -844,7 +848,8 @@ class Model(nn.Module):
                 pos][None, None], cfg.d_model).to(dt)
 
         def one_layer(p, x, lc, kv_len, cache_dims, moe_layer, cross=None):
-            p, dims, split = self._decode_params(p, moe_layer)
+            p, dims, split = self._decode_params(p, moe_layer,
+                                                 x.shape[0] * x.shape[1])
             x = x + self._decode_mixer(p, norm(p["ln1"], x), pos, lc,
                                        kv_len=kv_len, dims=dims,
                                        cache_dims=cache_dims)

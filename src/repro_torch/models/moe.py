@@ -22,10 +22,10 @@ import torch
 
 from ..sharding.spmd import (batch_shards, data_block, data_whole,
                               decode_part, decode_split, gather_rows,
-                              model_slice, seq_block, seq_whole,
-                              split_over_model, sum_grads_over_model,
-                              sum_over_data, sum_over_model, take_rows,
-                              whole_params)
+                              model_slice, rows_gathered, seq_block,
+                              seq_whole, split_over_model,
+                              sum_grads_over_model, sum_over_data,
+                              sum_over_model, take_rows, whole_params)
 from .config import ModelConfig
 from .layers import (MLP_SPLIT, Params, _dense_init, activate,
                      contract_first, init_mlp, mlp)
@@ -68,7 +68,18 @@ def _top_k(probs: torch.Tensor, k: int):
     return torch.gather(probs, -1, order), order
 
 
-def moe_parts(p: Params, decode: bool = False) -> tuple[Params, dict]:
+def gathers_rows(cfg: ModelConfig, tokens: int) -> bool:
+    """Whether ``moe_ffn`` gathers a rank's ``tokens`` tokens over the data
+    axes under a mesh (``sharding.spmd``): where the batch's rows are split
+    and the rank's tokens are no multiple of one device's group (a decode
+    step's ``[B/dp, 1, D]``); never without a mesh."""
+    shards = batch_shards()
+    return shards > 1 and tokens % min(cfg.moe_group_size,
+                                       tokens * shards) != 0
+
+
+def moe_parts(p: Params, decode: bool = False, gathered: bool = False
+              ) -> tuple[Params, dict]:
     """A MoE layer's parameters for this rank under a mesh
     (``sharding.spmd``; as they are without one): the router gathered
     whole (its spec keeps it whole over "model"), the routed experts this
@@ -76,17 +87,20 @@ def moe_parts(p: Params, decode: bool = False) -> tuple[Params, dict]:
     (``EXPERT_SPLIT``), the shared expert its hidden units of a
     tensor-parallel MLP (``MLP_SPLIT``). ``decode``: a decode step's, each
     leaf keeping its data shard where the rows are whole on the data axes
-    (``decode_part``, ``decode_split``). Returns (params, {"experts":
-    split, "shared": split}), ``moe_ffn``'s flags."""
+    (``decode_part``, ``decode_split``); ``gathered``: where ``moe_ffn``
+    will gather the step's rows over the data axes (``gathers_rows``), so
+    that they are whole there (``rows_gathered``). Returns (params,
+    {"experts": split, "shared": split}), ``moe_ffn``'s flags."""
     split = decode_split if decode else split_over_model
-    experts, ep = split(
-        {k: v for k, v in p.items() if k in EXPERT_SPLIT}, EXPERT_SPLIT)
-    router = (decode_part(p["router"])[0] if decode
-              else whole_params(p["router"]))
-    out = {"router": router, **experts}
-    shared = False
-    if "shared" in p:
-        out["shared"], shared = split(p["shared"], MLP_SPLIT)
+    with rows_gathered(decode and gathered):
+        experts, ep = split(
+            {k: v for k, v in p.items() if k in EXPERT_SPLIT}, EXPERT_SPLIT)
+        router = (decode_part(p["router"])[0] if decode
+                  else whole_params(p["router"]))
+        out = {"router": router, **experts}
+        shared = False
+        if "shared" in p:
+            out["shared"], shared = split(p["shared"], MLP_SPLIT)
     return out, {"experts": ep, "shared": shared}
 
 
@@ -102,23 +116,26 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     Under a mesh (``sharding.spmd``) a rank holds its rows of the batch. Its
     tokens form the groups one device forms of them where they are a
     multiple of one device's group size; otherwise (a decode step's
-    ``[B/dp, 1, D]``, fewer tokens than a group) the rows are gathered over
-    the data axes, the whole batch is routed as on one device, so the same
-    tokens are dropped, and each rank keeps its rows. Routing, the aux loss
-    and the capacity assignment run whole on every model rank, so every
-    model rank of a data group drops the same tokens. ``experts_split``
-    (expert parallelism, the dense form of the reference's dispatch with
-    the expert axis on "model"): ``p`` holds this rank's ``E / tp``
-    experts, which take this rank's slice of the dispatch and the combine;
-    the tokens and the gate values enter the region (their gradients
-    summed over "model") and each rank's output, its experts' part of the
-    sum, is summed over "model". ``shared_split``: the shared expert holds
+    ``[B/dp, 1, D]``, fewer tokens than a group: ``gathers_rows``) the
+    rows are gathered over the data axes, the whole batch is routed as on
+    one device, so the same tokens are dropped, and each rank keeps its
+    rows; the layer runs in ``sharding.spmd.rows_gathered`` there.
+    Routing, the aux loss and the capacity assignment run whole on every
+    model rank, so every model rank of a data group drops the same
+    tokens. ``experts_split`` (expert parallelism, the dense form of the
+    reference's dispatch with the expert axis on "model"): ``p`` holds
+    this rank's ``E / tp`` experts, which take this rank's slice of the
+    dispatch and the combine; the tokens and the gate values enter the
+    region (their gradients summed over "model") and each rank's output,
+    its experts' part of the sum, is summed over "model".
+    ``shared_split``: the shared expert holds
     this rank's hidden units of a tensor-parallel MLP over "model"
     (``layers.mlp``). Where the leaves hold a decode step's data shard of
     ``d_model`` (``moe_parts(..., decode=True)`` with the rows whole on
-    the data axes), the router's logits and the experts' hidden units are
-    summed over the data axes from x's columns there, and the output
-    columns of the experts and the shared expert are gathered once.
+    the data axes, or gathered there), the router's logits and the
+    experts' hidden units are summed over the data axes from x's columns
+    there, the combine gives the rank's output columns, and those of the
+    experts and the shared expert are gathered once.
 
     Where x is a data rank's block of the sequence (a prefill under
     ``sharding.spmd.sequence``), the groups are one device's,
@@ -126,12 +143,19 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     whole groups routes them where it is, so it drops the tokens one
     device drops; any other block gathers the sequence over the data axes,
     routes it whole and keeps its block (ROADMAP Queue C)."""
-    gathered, blk = False, seq_block()
-    shards = batch_shards()
-    if shards > 1:
-        tokens = x.shape[0] * x.shape[1]
-        if tokens % min(cfg.moe_group_size, tokens * shards):
-            x, gathered = gather_rows(x), True
+    blk = seq_block()
+    gathered = gathers_rows(cfg, x.shape[0] * x.shape[1])
+    if gathered:
+        x = gather_rows(x)
+    with rows_gathered(gathered):
+        y, aux = _routed(p, cfg, x, blk, shared_split, experts_split)
+    return (take_rows(y) if gathered else y), aux
+
+
+def _routed(p: Params, cfg: ModelConfig, x: torch.Tensor, blk,
+            shared_split: bool, experts_split: bool):
+    """``moe_ffn`` on the tokens ``x`` as they are routed (the rank's own,
+    the gathered batch, or a data rank's block of the sequence, ``blk``)."""
     g_size = min(cfg.moe_group_size, x.shape[0] * x.shape[1])
     if blk is not None:
         # one device's groups, each of a row's consecutive tokens where
@@ -207,8 +231,8 @@ def moe_ffn(p: Params, cfg: ModelConfig, x: torch.Tensor,
     y = data_whole(y, d).reshape(b, s, d)
     if blk is not None:
         y = y[:, blk[0]:blk[0] + blk[1]]
-    return (take_rows(y) if gathered else y), aux.to(torch.float32)
+    return y, aux.to(torch.float32)
 
 
-__all__ = ["EXPERT_SPLIT", "init_moe", "moe_parts", "moe_ffn", "_capacity",
-           "_one_hot", "_top_k"]
+__all__ = ["EXPERT_SPLIT", "init_moe", "gathers_rows", "moe_parts",
+           "moe_ffn", "_capacity", "_one_hot", "_top_k"]

@@ -63,7 +63,11 @@ products over the data axes (``sum_over_data``), one whose output dim it
 is gives this rank's columns, gathered (``data_whole``). The attention
 over the cache, which the rules keep whole over "data", and the leaves
 without a data shard (Mamba's ``x_proj`` / ``dt_proj`` / conv, MLA's
-``w*_b``, the norms) run whole on every data rank.
+``w*_b``, the norms) run whole on every data rank. A MoE layer whose
+decode tokens are gathered over the data axes (``gather_rows``: fewer
+than one device's group) runs in ``rows_gathered``, where its rows are
+whole on every data axis: its router, routed experts and shared expert
+keep their data shards the same way.
 
 A prefill under ``LONG_CONTEXT_RULES`` keeps the sequence split as the
 batch specs place it: ``local_batch`` keeps each data rank's block of a
@@ -631,18 +635,39 @@ def model_parts(tree: dict) -> tuple[dict, dict]:
 # serving: a decode step whose rows are whole on the data axes
 # ---------------------------------------------------------------------------
 
+@contextlib.contextmanager
+def rows_gathered(on: bool = True):
+    """Inside (``on``), the batch's rows count as whole on every data axis,
+    as they are once ``gather_rows`` has gathered them: a decode step's MoE
+    layer, whose tokens are fewer than one device's group
+    (``models.moe.gathers_rows``). ``data_axes`` then names every mesh dim
+    but "model" of two or more ranks, so ``decode_part`` / ``decode_split``
+    keep each leaf's data shard of ``d_model`` and ``data_block``,
+    ``sum_over_data`` and ``data_whole`` work over those dims, as the
+    reference's partitioned program keeps the expert weights' ``fsdp``
+    shards. ``on`` False: as outside."""
+    prev = getattr(_state, "gathered", False)
+    _state.gathered = on
+    try:
+        yield
+    finally:
+        _state.gathered = prev
+
+
 def data_axes() -> tuple:
     """The mesh dims, "model" aside, of two or more ranks on which the
     batch's rows are whole inside ``spmd`` (every data axis under
-    ``LONG_CONTEXT_RULES``, whose "batch" maps to none); () where the rows
-    are split on every such dim, and without a context."""
+    ``LONG_CONTEXT_RULES``, whose "batch" maps to none, and inside
+    ``rows_gathered``); () where the rows are split on every such dim, and
+    without a context."""
     ctx = current()
     if ctx is None:
         return ()
     mesh, layout = ctx
+    gathered = getattr(_state, "gathered", False)
     return tuple(m for m in range(mesh.ndim)
                  if mesh.mesh_dim_names[m] != "model" and mesh.size(m) > 1
-                 and not isinstance(layout[m], Shard))
+                 and (gathered or not isinstance(layout[m], Shard)))
 
 
 def _data_dim(x) -> int | None:
@@ -990,7 +1015,8 @@ __all__ = ["place", "replicas", "local_rank", "local_shard", "local_shape",
            "model_axis", "sum_grads_over_model", "sum_over_model",
            "max_over_model", "halves_over_model", "gather_over_model",
            "model_dim", "model_part", "model_parts",
-           "data_axes", "decode_part", "decode_split", "data_block",
+           "rows_gathered", "data_axes", "decode_part", "decode_split",
+           "data_block",
            "sum_over_data", "data_whole", "gather_over_data",
            "whole_batch", "seq_blocked", "data_ways", "sequence", "seq_block",
            "seq_positions", "seq_key_positions", "seq_whole", "seq_before",

@@ -52,7 +52,10 @@ CASES = tuple(
     (f"hymba5-{rules}", "hymba-1.5b", (2, 2), rules, HYMBA5, STEPS)
     for rules in ("default", "serving", "long")) + tuple(
     (f"hymba-ring-{rules}", "hymba-1.5b", (2, 2), rules, RING, RING_STEPS)
-    for rules in ("default", "serving"))
+    for rules in ("default", "serving")) + tuple(
+    (f"olmoe-1b-7b-default-{'x'.join(map(str, mesh))}", "olmoe-1b-7b", mesh,
+     "default", {}, STEPS) for mesh in ((4, 1), (2, 2, 1)))
+MOE_ARCHS = ("olmoe-1b-7b", "deepseek-v2-lite-16b")
 # which layout each attention's decode takes on (2, 2) (the cache's dim
 # split over "model": 2 heads, 3 head dim, 1 slots, None whole)
 CACHE_DIMS = {"qwen2.5-3b-default-2x2": [2], "qwen2.5-3b-serving-2x2": [1],
@@ -134,6 +137,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 import repro_torch.models.layers as L
+import repro_torch.models.moe as MOE
 import repro_torch.sharding.spmd as SP
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from repro_torch.configs import get_config
@@ -153,13 +157,21 @@ torch.set_num_threads(1)
 RULES = {"default": DEFAULT_RULES, "serving": SERVING_RULES,
          "long": LONG_CONTEXT_RULES}
 meshes = {(2, 2): make_device_mesh((2, 2), device_type="cpu"),
-          (4, 1): make_device_mesh((4, 1), device_type="cpu")}
+          (4, 1): make_device_mesh((4, 1), device_type="cpu"),
+          (2, 2, 1): make_device_mesh((2, 2, 1), ("pod", "data", "model"),
+                                      device_type="cpu")}
 out = {}
 
-# every decode attention's cache layout, and every parameter a decode step
-# gathers over "model" (recorded by the data pointer of its local shard)
-seen = {"cache_dims": [], "gathered": [], "on": False}
+# every decode attention's cache layout, every parameter a decode step
+# gathers over "model" (recorded by the data pointer of its local shard),
+# the experts each top-k of a decode step picks (one device's and the
+# mesh's), and every all-gather of a meshed decode step's MoE layer (its
+# group's ranks, its output's elements)
+seen = {"cache_dims": [], "gathered": [], "on": False, "mode": None,
+        "one": [], "mesh": [], "moe": False, "moe_gathers": []}
 real_attn, real_whole = L.decode_attention, SP._WholeParam.forward
+real_top_k, real_gather = MOE._top_k, dist.all_gather_into_tensor
+real_parts, real_ffn = MOE.moe_parts, MOE.moe_ffn
 
 
 def attn_spy(*a, cache_dim=None, **k):
@@ -176,8 +188,35 @@ def whole_spy(ctx, local, mesh, layout, rows, keep=None):
     return real_whole(ctx, local, mesh, layout, rows, keep)
 
 
+def top_k_spy(probs, k):
+    vals, idx = real_top_k(probs, k)
+    if seen["mode"]:
+        seen[seen["mode"]].append(idx.tolist())
+    return vals, idx
+
+
+def gather_spy(out_t, t, group=None, **kw):
+    if seen["on"] and seen["moe"]:
+        seen["moe_gathers"].append([dist.get_process_group_ranks(group),
+                                    out_t.numel()])
+    return real_gather(out_t, t, group=group, **kw)
+
+
+def in_moe(fn):
+    def run(*a, **k):
+        seen["moe"] = True
+        try:
+            return fn(*a, **k)
+        finally:
+            seen["moe"] = False
+    return run
+
+
 L.decode_attention = attn_spy
 SP._WholeParam.forward = staticmethod(whole_spy)
+MOE._top_k = top_k_spy
+dist.all_gather_into_tensor = gather_spy
+MOE.moe_parts, MOE.moe_ffn = in_moe(real_parts), in_moe(real_ffn)
 
 
 def close(a, b):
@@ -220,16 +259,17 @@ def run_case(arch, sizes, rules_name, over, steps):
             c1[g][k].shape, mesh, placements(specs[g][k], mesh))
         for g in ("scan",) for k in c1["scan"])
     errs, same, t1, t2 = [], True, None, None
-    seen["cache_dims"].clear()
-    seen["gathered"].clear()
+    for k in ("cache_dims", "gathered", "one", "mesh", "moe_gathers"):
+        seen[k].clear()
     for t in range(PROMPT + steps):
         col = torch.as_tensor(prompts[:, t:t + 1]) if t < PROMPT else None
+        seen["mode"] = "one"
         l1, _ = one.decode_step(c1, col if t1 is None else t1[:, None], t)
         tok2 = col if t2 is None else t2[:, None]
-        seen["on"] = True
+        seen.update(on=True, mode="mesh")
         l2, _ = model.decode_step(c2, distribute_batch(
             {"tokens": tok2}, mesh, rules)["tokens"], t, rules=rules)
-        seen["on"] = False
+        seen.update(on=False, mode=None)
         l2 = full_value(l2)
         if t >= PROMPT - 1:
             errs.append([err(l2, l1), close(l2, l1)])
@@ -241,6 +281,17 @@ def run_case(arch, sizes, rules_name, over, steps):
                                key=lambda d: -1 if d is None else d)
     rec["gathered_over_model"] = sorted({names.get(p, "?")
                                          for p in seen["gathered"]})
+    # the top-k choices, and the elements of each all-gather over a data
+    # axis in the MoE layer against those of the tokens' activation
+    # [b, 1, d_model] and its output columns (over "data" inside "pod",
+    # the pod's half of them)
+    rec["experts"] = [seen["one"] == seen["mesh"], len(seen["mesh"])]
+    data = [dist.get_process_group_ranks(mesh.get_group(n))
+            for n in mesh.mesh_dim_names if n != "model"]
+    rec["moe_data_gathers"] = sorted({n for g, n in seen["moe_gathers"]
+                                      if g in data})
+    rec["want_moe_gathers"] = sorted({b * cfg.d_model, b * cfg.d_model //
+                                      mesh.size(0) ** (len(data) - 1)})
     a1, a2 = cache_arrays(c1), cache_arrays(c2)
     rec["cache"] = [max(float(np.abs(a2[k] - a1[k]).max()) for k in a1),
                     all(np.allclose(a2[k], a1[k], **TOL) for k in a1)]
@@ -264,7 +315,6 @@ for case_id, arch, sizes, rules_name, over, steps in CASES:
 
 
 # -- a MoE decode step under a data split routes one device's group --
-import repro_torch.models.moe as MOE
 cfg = reduced(get_config("olmoe-1b-7b"), dtype="float32", capacity_factor=0.5)
 p = Model(cfg, seed=0, device="cpu").blocks[0].mlp.tree()
 x = torch.randn(16, 1, cfg.d_model, generator=torch.Generator().manual_seed(4))
@@ -280,6 +330,34 @@ dist.all_gather_object(flags, [bool(torch.equal(got, want_rows)),
 # the second data rank's tokens queue behind the first's in one group
 out["moe_rows"] = {"equal": all(f[0] for f in flags),
                    "alone_differs": any(f[1] for f in flags)}
+
+# the same tokens with the parameters placed by DEFAULT_RULES and taken
+# through the meshed moe_parts of a decode step: each leaf keeps its data
+# shard of d_model, and the router's logits and the experts' hidden units
+# are summed over "data"
+placed = distribute_params(Model(cfg, seed=0, device="cpu"), meshes[(2, 2)],
+                           DEFAULT_RULES).blocks[0].mlp.tree()
+for k in ("one", "mesh"):
+    seen[k].clear()
+with torch.no_grad():
+    seen["mode"] = "one"
+    MOE.moe_ffn(p, cfg, x)
+    with SP.spmd(meshes[(2, 2)], 16, DEFAULT_RULES):
+        parts, split = MOE.moe_parts(placed, decode=True,
+                                     gathered=MOE.gathers_rows(cfg, 8))
+        seen["mode"] = "mesh"
+        got, _ = MOE.moe_ffn(parts, cfg, rows, split["shared"],
+                             split["experts"])
+    seen["mode"] = None
+flags = [None] * dist.get_world_size()
+dist.all_gather_object(flags, [
+    bool(torch.allclose(got, want_rows, **TOL)),
+    seen["one"] == seen["mesh"] and len(seen["mesh"]) > 0,
+    list(parts["wi"].shape) == [cfg.n_experts // 2, cfg.d_model // 2,
+                                cfg.moe_d_ff]])
+out["moe_parts_rows"] = {"close": all(f[0] for f in flags),
+                         "experts_equal": all(f[1] for f in flags),
+                         "data_shards": all(f[2] for f in flags)}
 
 
 # -- the reference's sharded decode, carried across (its subprocess runs
@@ -374,13 +452,16 @@ def world(reference_and_world):
 IDS = [c[0] for c in CASES]
 
 
+MESHES = {c[0]: c[2] for c in CASES}
+
+
 @pytest.mark.parametrize("case", IDS)
 def test_meshed_prefill_matches_one_device(world, case):
     got = world[case]
     assert got["prefill"][1], got["prefill"]
     # split by rows where the rules split the batch, whole over "model"
-    assert got["prefill_layout"] == ["R" if "-long" in case else "S(0)",
-                                     "R"]
+    assert got["prefill_layout"] == ["R" if "-long" in case else "S(0)"] * (
+        len(MESHES[case]) - 1) + ["R"]
 
 
 @pytest.mark.parametrize("case", IDS)
@@ -444,6 +525,40 @@ def test_moe_decode_under_a_data_split_drops_what_one_device_drops(world):
     (the outputs differ); gathered over "data" every rank gets one
     device's rows bit for bit."""
     assert world["moe_rows"] == {"equal": True, "alone_differs": True}
+
+
+def test_moe_decode_on_the_meshed_parts_drops_what_one_device_drops(world):
+    """The same 8 of 16 tokens a rank, with the layer's parameters taken
+    through ``moe_parts(..., decode=True)`` under ``DEFAULT_RULES``: each
+    leaf keeps its data shard of ``d_model`` (the router's logits and the
+    experts' hidden units summed over "data" in another order), every
+    top-k choice is one device's and the output is one device's rows
+    within 1e-5, the tokens that overflow one device's capacity dropped
+    as there."""
+    assert world["moe_parts_rows"] == {"close": True, "experts_equal": True,
+                                       "data_shards": True}
+
+
+MOE_IDS = [c[0] for c in CASES if c[1] in MOE_ARCHS]
+
+
+@pytest.mark.parametrize("case", MOE_IDS)
+def test_meshed_moe_decode_picks_one_devices_experts(world, case):
+    """Every top-k choice of every decode step equals one device's: the
+    gathered tokens are routed whole, from the router's data shards
+    summed over "data" under ``DEFAULT_RULES``."""
+    equal, calls = world[case]["experts"]
+    assert equal and calls > 0
+
+
+@pytest.mark.parametrize("case", MOE_IDS)
+def test_meshed_moe_decode_gathers_no_moe_leaf_over_data(world, case):
+    """In a decode step's MoE layer every all-gather over a data axis is
+    the tokens' activation ([b, 1, d_model]) or the output columns (over
+    "data" inside "pod", the pod's half of either): no router, routed
+    expert or shared expert leaf is gathered there."""
+    assert world[case]["moe_data_gathers"] == \
+        world[case]["want_moe_gathers"]
 
 
 def test_main_serves_on_the_host_mesh_under_a_process_group(world):
