@@ -162,7 +162,8 @@ Phases, each fatal on error (exit code 1, no result line):
 21. serving: ``repro_torch.launch.serve.generate`` and ``Model.prefill`` for
     every decoder-only config at its published widths, one model at a time
     (qwen2.5-3b and hymba-1.5b at full depth, the others cut to 2 layers,
-    DeepSeek's dense first layer kept): 4 prompts of 16 tokens and 32 new
+    DeepSeek's dense first layer kept; the weights drawn on the card from a
+    seeded CUDA generator, ``card_model``, as in phases 13 and 22): 4 prompts of 16 tokens and 32 new
     greedy tokens (every logit finite, two runs equal), a prefill at 2 x
     2048 (flash attention, banded for hymba), the decode step's logits at
     the first 64 positions within rtol/atol 0.05 of the forward pass's in
@@ -211,9 +212,9 @@ Phases, each fatal on error (exit code 1, no result line):
     ``FlopCounterMode``: exactly the FLOPs of ``launch.dryrun``'s meta
     trace, its step ms and TFLOP/s, and its peak memory beside the
     dry-run's argument and temp bytes on one device; (e) the dry-run cells
-    of ``dryrun_tasks`` on host worker processes during (a)-(d), each
-    record rank 0 of its production mesh (``launch.mesh.counting_world``)
-    and sane, with the rank's FLOPs over an ideal split of one device's
+    of ``dryrun_tasks`` on host worker processes (started with phase 22)
+    during (a)-(d), each record rank 0 of its production mesh
+    (``launch.mesh.counting_world``) and sane, with the rank's FLOPs over an ideal split of one device's
     (not a gate: the port repeats on every model rank what the rules keep
     whole), its temp bytes and its collectives by kind, seconds per
     cell; a long_500k decode step (``LONG_CONTEXT_ARCHS`` on both meshes)
@@ -287,9 +288,9 @@ Phases, each fatal on error (exit code 1, no result line):
     logits and hymba's ``generate`` tokens bit-equal, B7 launched once per
     Mamba layer of each prefill. (b) A (2, 2) world (four gloo ranks on
     the card; NCCL ranks a card each on several) teacher-forced on one
-    device's tokens: hymba and whisper under all three rule sets,
-    qwen2.5-3b and deepseek (32 experts a model rank) under the default
-    and serving ones, float32
+    device's tokens: hymba, whisper and deepseek (32 experts a model rank)
+    under all three rule sets, qwen2.5-3b under the default and serving
+    ones, float32
     logits of the prefill (the context-parallel attention, B7 once a
     shard at [1, 2048, 1600]) and of every decode step within rtol / atol
     1e-4 and every greedy token equal, bfloat16 reported; decode ms a step,
@@ -302,7 +303,14 @@ Phases, each fatal on error (exit code 1, no result line):
     held exactly to the dry-run's meta count as in phase 25; a
     ``LONG_CONTEXT_RULES`` decode step, whose weights keep their data
     shards, all-gathers over "data" only one token's activation ([1, 1,
-    d_model]); a ``DEFAULT_RULES`` decode step of deepseek, whose MoE
+    d_model]) and, for deepseek's MLA, the softmax statistics of its data
+    rank's block of the cache's slots, the only slots it expands;
+    deepseek's ``LONG_CONTEXT_RULES`` prefill of 1 x 1024 (half a routing
+    group a data rank) routes each rank's own tokens: every top-k choice
+    and kept pair, joined in data order, equals one device's, its MoE
+    layers gather no more than the tokens' activation over "data", and
+    rank 0's count of it and of a long-context decode step equals the meta
+    count; a ``DEFAULT_RULES`` decode step of deepseek, whose MoE
     layer gathers its tokens over "data" and keeps each leaf's data
     shard, gathers there only the tokens' activation and the output
     columns, no router, expert or shared-expert leaf; under
@@ -423,9 +431,6 @@ TRACE_CHIPLETS, TRACE_EVENTS, ORACLE_RTOL = 64, 20000, 1e-6
 # Model.prefill at 2 x 2048; qwen2.5-3b and hymba-1.5b at full depth, the
 # others cut to SERVE_LAYERS (falcon-mamba-7b to phase 13's TRAIN_LAYERS)
 SERVE_FULL_DEPTH = ("qwen2.5-3b", "hymba-1.5b")
-# models phase 21 draws on the host at once, ahead of the card: at most
-# three of its configs' float32 weights on the host (36 GB at the largest)
-DRAW_AHEAD = 3
 SERVE_LAYERS = 2
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 16, 32
 PREFILL_BATCH, PREFILL_SEQ = 2, 2048
@@ -455,12 +460,13 @@ REMAT_ARCH = "hymba-1.5b"
 # 16 x 16 (B2, n = 256) and 4 x 4 (B1), every estimate held against the CPU
 # at ICI_RTOL and the torus ring all-gather's proxy against its analytic
 # time at RING_ALLGATHER_REL (tests/test_ici_model.py); the dry-run cells
-# below run on DRYRUN_WORKERS host processes while the card works; the FLOP
-# check trains FLOP_ARCH at published widths cut to FLOP_LAYERS
+# below run on DRYRUN_WORKERS host processes, started with phase 22 (whose
+# steps leave the host's other cores idle) and collected in phase 23; the
+# FLOP check trains FLOP_ARCH at published widths cut to FLOP_LAYERS
 ICI_BYTES, ICI_RTOL, RING_ALLGATHER_REL = 4e9, 1e-5, 1e-6
 ICI_KINDS = ("all_gather", "reduce_scatter", "all_reduce", "all_to_all")
 RANK_SHAPE = {"data": 16, "model": 16}
-DRYRUN_WORKERS = 7
+DRYRUN_WORKERS = 6
 # the cells (dryrun_tasks): every arch at decode_32k on 16x16 (and at
 # long_500k where it runs, LONG_CONTEXT_ARCHS, on both meshes); train_4k
 # on 16x16 for the archs whose trace fits the phase (falcon-mamba-7b,
@@ -531,6 +537,11 @@ MESH_WORLD_TIMEOUT = 600
 # rounding that differs between worlds would flip top-6 choices); drawn
 # once a run on the host and shared with the ranks through a mapped file
 MOE_ARCH, MOE_LAYERS = "deepseek-v2-lite-16b", 2
+# phase 26's long-context prefill of MOE_ARCH: 1 x MOE_LONG_SEQ, whose
+# blocks on a (2, 2) mesh (512 positions a data rank) hold half of one
+# routing group of its published moe_group_size (1024), so each data rank
+# routes its own tokens and exchanges only the group's expert counts
+MOE_LONG_SEQ = 1024
 # phase 25's query-split attention: GQA_ARCH at its published widths cut to
 # GQA_LAYERS (bf16, remat "full"), GQA_STEPS AdamW steps on a (1, W) mesh of
 # the W-rank world against world 1, held by the (2, 2) world's bf16 gates;
@@ -548,6 +559,7 @@ SERVE_MESH_TOL = dict(rtol=1e-4, atol=1e-4)
 SERVE_FSDP_STEPS = 2
 SERVE_COUNTED = ((MOE_ARCH, "serving", "float32"),
                  (MOE_ARCH, "default", "float32"),
+                 (MOE_ARCH, "long", "float32"),
                  ("hymba-1.5b", "long", "float32"),
                  (ENCDEC_ARCH, "long", "float32"))
 SERVE_REFERENCES = (("hymba-1.5b", "float32", False),
@@ -556,7 +568,8 @@ SERVE_REFERENCES = (("hymba-1.5b", "float32", False),
                     ("qwen2.5-3b", "float32", False),
                     (ENCDEC_ARCH, "float32", False),
                     (ENCDEC_ARCH, "float32", True),
-                    (MOE_ARCH, "float32", False))
+                    (MOE_ARCH, "float32", False),
+                    (MOE_ARCH, "float32", True))
 SERVE_WORLD_RUNS = (("hymba-1.5b", "serving", "float32"),
                     ("hymba-1.5b", "default", "float32"),
                     ("hymba-1.5b", "long", "float32"),
@@ -567,7 +580,8 @@ SERVE_WORLD_RUNS = (("hymba-1.5b", "serving", "float32"),
                     (ENCDEC_ARCH, "default", "float32"),
                     (ENCDEC_ARCH, "long", "float32"),
                     (MOE_ARCH, "serving", "float32"),
-                    (MOE_ARCH, "default", "float32"))
+                    (MOE_ARCH, "default", "float32"),
+                    (MOE_ARCH, "long", "float32"))
 # the (1, 1) mesh's archs, each under every rule set against one device
 SERVE_WORLD1_ARCHS = ("hymba-1.5b", ENCDEC_ARCH)
 SWEEP_TOPOLOGIES = ("mesh", "torus", "folded_torus", "flattened_butterfly",
@@ -1452,8 +1466,8 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
                                       seed=1).batch_at(0), dev)
     f32_out = {}
     for kern in (True, False):
-        model = Model(cfg.replace(dtype="float32", ssm_kernel=kern), seed=0,
-                      device=dev)
+        model = card_model(torch, cfg.replace(dtype="float32",
+                                              ssm_kernel=kern), dev)
         loss, _ = model.loss(batch)
         grads = torch.autograd.grad(loss, list(model.parameters()))
         f32_out[kern] = (loss.item(), global_norm(dict(enumerate(grads))
@@ -1469,7 +1483,7 @@ def scan_and_training_paths(torch, dev, zero_counts, read_counts,
         f"within 1e-3)")
 
     # step time, device idle share and the layers of one step (bf16)
-    model = Model(cfg, seed=0, device=dev)
+    model = card_model(torch, cfg, dev)
     ocfg = OptConfig(learning_rate=TRAIN_LR, warmup_steps=0,
                      decay_steps=TRAIN_STEPS)
     state = build_state(model, "adamw")
@@ -2650,28 +2664,24 @@ def analysis_path(torch, dev, zero_counts, read_counts) -> dict:
     return rec
 
 
-def _drawn_ahead(cfgs: list):
-    """Each of ``cfgs``' models drawn on the host from seed 0 (the weights
-    ``Model(cfg, seed=0, device=...)`` draws on any device), in order, the
-    next ``DRAW_AHEAD`` drawn at once in threads while the caller works
-    with the current one on the card: each draw is one CPU generator's,
-    single-threaded and releasing the GIL, so phase 21's host drawing runs
-    on several cores and overlaps its card work. Yields (the model on the
-    host, the seconds the caller waited for it)."""
-    from concurrent.futures import ThreadPoolExecutor
+def card_model(torch, cfg, dev, seed: int = 0):
+    """A ``Model`` of ``cfg`` whose weights are drawn on the card ``dev``
+    by the model's own initialisers from a CUDA generator seeded with
+    ``seed``: the same numbers on every card of a kind, other numbers than
+    ``Model(cfg, seed)``'s host draw. The published-width checks hold a
+    model against itself (decode against forward, two runs, a kernel
+    against its plain version on the layer's own inputs, one scan route
+    against the other from the same weights), so the host need not draw
+    billions of numbers first; where the card is held against the CPU,
+    both draw on the host (``Model``'s contract, one seed the same weights
+    on every device)."""
     from repro_torch.models import Model
-    with ThreadPoolExecutor(DRAW_AHEAD) as pool:
-        ahead = [pool.submit(Model, cfg, 0, "cpu")
-                 for cfg in cfgs[:DRAW_AHEAD]]
-        for i in range(len(cfgs)):
-            t0 = time.perf_counter()
-            model = ahead[i].result()
-            ahead[i] = None
-            waited_s = time.perf_counter() - t0
-            if i + DRAW_AHEAD < len(cfgs):
-                ahead.append(pool.submit(Model, cfgs[i + DRAW_AHEAD], 0,
-                                         "cpu"))
-            yield model, waited_s
+    model = Model(cfg, seed, "meta")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    with torch.device(dev):
+        model._build(cfg, gen, dev)
+    return model
 
 
 def serve_models_path(torch, dev, zero_counts, read_counts,
@@ -2689,11 +2699,10 @@ def serve_models_path(torch, dev, zero_counts, read_counts,
     ``DECODE_TOL`` in float32 and measured in the config's dtype; hymba's
     ring buffer at ``RING_WINDOW`` (float32); then every
     config at ``reduced(cfg, dtype="float32")`` on the card against the
-    CPU. The models are drawn on the host ahead of the card,
-    ``DRAW_AHEAD`` at a time (``_drawn_ahead``); a model's ``build_s`` is
-    the wait for it and its move to the card. The models of the configs that phase 22 trains at the
-    same cut (``FAMILY_ARCHS``) stay on the card in ``kept``. Returns the
-    phase's record."""
+    CPU. The published-width models are drawn on the card
+    (``card_model``); a model's ``build_s`` is its draw. The models of the
+    configs that phase 22 trains at the same cut (``FAMILY_ARCHS``) stay
+    on the card in ``kept``. Returns the phase's record."""
     from repro_torch.configs import ARCH_IDS, get_config
     from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ss
@@ -2732,18 +2741,16 @@ def serve_models_path(torch, dev, zero_counts, read_counts,
             cfg = cfg.replace(ssm_kernel=True)
         cuts[arch] = (cfg, cut)
     per: dict[str, dict] = {}
-    drawn = _drawn_ahead([cfg for cfg, _ in cuts.values()])
-    for arch, (host_model, waited_s) in zip(archs, drawn):
+    for arch in archs:
         cfg, cut = cuts[arch]
         vlm = cfg.family == "vlm"
         n_img = cfg.n_image_tokens if vlm else 0
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        model = host_model.to(dev)
-        del host_model
+        model = card_model(torch, cfg, dev)
         torch.cuda.synchronize()
-        build_s = waited_s + time.perf_counter() - t0
+        build_s = time.perf_counter() - t0
         params = model.params()
         rec = {"layers": len(model.dense_blocks) + len(model.blocks),
                "first_dense_layers": len(model.dense_blocks),
@@ -3117,7 +3124,7 @@ def train_families_path(torch, dev, zero_counts, read_counts, clock_hz,
     cfg = get_config(ENCDEC_ARCH)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    model = Model(cfg, seed=0, device=dev)
+    model = card_model(torch, cfg, dev)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     params = model.params()
@@ -3231,7 +3238,7 @@ def train_families_path(torch, dev, zero_counts, read_counts, clock_hz,
             model = None
             torch.cuda.empty_cache()
             t0 = time.perf_counter()
-            model = Model(cfg, seed=0, device=dev)
+            model = card_model(torch, cfg, dev)
             torch.cuda.synchronize()
             build_s = time.perf_counter() - t0
         rec = {"layers": len(model.dense_blocks) + len(model.blocks),
@@ -3468,11 +3475,22 @@ def _moe_decode_held(cell: dict) -> None:
              f"gathered over \"data\"")
 
 
+def start_dryrun_host_work():
+    """(pool, pending results, the tasks): ``dryrun_tasks`` on
+    ``DRYRUN_WORKERS`` spawned host processes, started before phase 22 so
+    that they run while the card trains, and collected by phase 23."""
+    import multiprocessing
+    tasks = dryrun_tasks()
+    pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
+    return pool, pool.map_async(host_task, tasks, chunksize=1), tasks
+
+
 def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
-                         kernel_record) -> dict:
+                         kernel_record, host_work) -> dict:
     """Phase 23: the dry-run and sharding stack. The host work of
-    ``dryrun_tasks`` runs on ``DRYRUN_WORKERS`` spawned processes while the
-    card (a) prices every collective kind over both axes of the 16 x 16
+    ``dryrun_tasks`` runs on ``DRYRUN_WORKERS`` spawned processes
+    (``host_work``, ``start_dryrun_host_work``'s, started with phase 22)
+    while the card (a) prices every collective kind over both axes of the 16 x 16
     pod, torus and mesh (B2), and the 4 x 4 ones (B1), (b) ranks every
     arch's layouts at train_4k, (c) quantizes and all-reduces over an NCCL
     world of 1 and runs a 1-stage pipeline, and (d) trains ``FLOP_ARCH``
@@ -3480,7 +3498,6 @@ def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
     must equal the meta trace's. Then every estimate and ranking is held
     against the CPU's, and the dry-run records are checked. Returns the
     phase's record."""
-    import multiprocessing
 
     import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
@@ -3505,11 +3522,8 @@ def dryrun_sharding_path(torch, dev, zero_counts, read_counts,
 
     card = card_line()
     rec: dict = {"card": card}
-    tasks = dryrun_tasks()
-    pool = multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS)
+    pool, pending, _ = host_work
     try:
-        pending = pool.map_async(host_task, tasks, chunksize=1)
-
         # (a) the pod's interconnect on the card
         estimates, calls = {}, {}
         for rows, path in ((16, "ici_model_16x16"), (4, "ici_model_4x4")):
@@ -4319,8 +4333,8 @@ def meta_rank_count(sizes, kind: str) -> dict:
     under that rule set of ``SERVE_BATCH`` rows (1 under
     ``LONG_CONTEXT_RULES``) at the last position of a cache of
     ``SERVE_PROMPT + SERVE_MESH_NEW`` slots, ("longprefill:<arch>") the
-    prefill
-    of 1 x ``PREFILL_SEQ`` there (the sequence split over "data"), or
+    prefill of 1 x ``PREFILL_SEQ`` there (``MOE_LONG_SEQ`` for
+    ``MOE_ARCH``; the sequence split over "data"), or
     ("prefill") qwen2.5-3b's ``SERVING_RULES`` prefill of
     ``PREFILL_BATCH`` x ``PREFILL_SEQ`` (``_serve_cfg``, float32; its
     query heads split, K and V whole). Runs
@@ -4345,7 +4359,7 @@ def meta_rank_count(sizes, kind: str) -> dict:
     elif kind.startswith("longprefill:"):
         cfg = _serve_cfg(kind[len("longprefill:"):], "float32")
         rules = _serve_rule_sets()["long"]
-        spec = ShapeSpec("card_count", PREFILL_SEQ, 1, "prefill")
+        spec = ShapeSpec("card_count", _long_prefill_seq(cfg), 1, "prefill")
     else:
         rules_name, arch = kind.split(":")
         cfg = _serve_cfg(arch, "float32")
@@ -4935,12 +4949,19 @@ def _serve_model(torch, host, cfg, dev, mesh, rules):
     return distribute_params(model, mesh, rules)
 
 
+def _long_prefill_seq(cfg) -> int:
+    """The long-context prefill's length: ``MOE_LONG_SEQ`` for the MoE
+    arch, ``PREFILL_SEQ`` for the others."""
+    return MOE_LONG_SEQ if cfg.is_moe else PREFILL_SEQ
+
+
 def _serve_inputs(cfg, long_context: bool):
     """(prefill tokens [PREFILL_BATCH, PREFILL_SEQ], prompts [SERVE_BATCH,
     SERVE_PROMPT], whisper's stub frames or None) as host arrays from one
     seed (int64 tokens; float32 frames [PREFILL_BATCH + SERVE_BATCH, T,
     D]: the prefill's rows, then the decode's); row 0 of each under
-    ``LONG_CONTEXT_RULES`` (batch 1)."""
+    ``LONG_CONTEXT_RULES`` (batch 1), the prefill's first
+    ``_long_prefill_seq`` tokens."""
     rng = np.random.default_rng(26)
     pre = rng.integers(0, cfg.vocab_size, (PREFILL_BATCH, PREFILL_SEQ))
     prompts = rng.integers(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))
@@ -4952,8 +4973,39 @@ def _serve_inputs(cfg, long_context: bool):
         if long_context:
             frames = frames[[0, PREFILL_BATCH]]
     if long_context:
-        return pre[:1], prompts[:1], frames
+        return pre[:1, :_long_prefill_seq(cfg)], prompts[:1], frames
     return pre, prompts, frames
+
+
+def _moe_choices(MOE, store: dict):
+    """Spies on ``MOE._top_k`` and ``MOE._in_capacity`` that add, while
+    ``store["on"]``, each call's experts and kept (token, choice) pairs of
+    more than one token (a prefill's, not a decode step's) as lists of one
+    entry a token to ``store["topk"]`` and ``store["kept"]``; returns a
+    function that puts the real ones back."""
+    real_top_k, real_in_cap = MOE._top_k, MOE._in_capacity
+
+    def tokens(t):
+        return t.reshape(-1, t.shape[-1]).tolist() if t.numel() > \
+            t.shape[-1] else None
+
+    def top_k(probs, k):
+        vals, idx = real_top_k(probs, k)
+        if store.get("on") and tokens(idx) is not None:
+            store.setdefault("topk", []).append(tokens(idx))
+        return vals, idx
+
+    def in_capacity(pos, cap):
+        kept = real_in_cap(pos, cap)
+        if store.get("on") and tokens(kept.amax(dim=-1)) is not None:
+            store.setdefault("kept", []).append(tokens(kept.amax(dim=-1)))
+        return kept
+
+    MOE._top_k, MOE._in_capacity = top_k, in_capacity
+
+    def restore():
+        MOE._top_k, MOE._in_capacity = real_top_k, real_in_cap
+    return restore
 
 
 def _encdec_greedy(torch, model, dev, prompts, frames, new: int):
@@ -5083,6 +5135,7 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
     faulthandler.enable()
     sys.path.insert(0, os.path.join(ROOT, "src"))
     import repro_torch.models.layers as L
+    import repro_torch.models.mla as MLA
     import repro_torch.models.moe as MOE
     from repro_torch.kernels import ops
     from repro_torch.kernels import selective_scan as ss
@@ -5153,6 +5206,26 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
             return run
 
         MOE.moe_parts, MOE.moe_ffn = in_moe(real_parts), in_moe(real_ffn)
+        # the slots of the cache each MLA expansion of a decode step covers
+        seen["expanded"], seen["in_decode"] = [], False
+        real_decode, real_expand = MLA.mla_decode, MLA._expand
+
+        def mla_decode(*a, **k):
+            seen["in_decode"] = True
+            try:
+                return real_decode(*a, **k)
+            finally:
+                seen["in_decode"] = False
+
+        def expand(p, cfg, q_nope, q_rope, c_kv, k_rope):
+            if seen["in_decode"]:
+                seen["expanded"].append(c_kv.shape[1])
+            return real_expand(p, cfg, q_nope, q_rope, c_kv, k_rope)
+
+        MLA.mla_decode, MLA._expand = mla_decode, expand
+        # the experts and kept pairs of MOE_ARCH's long-context prefill
+        choices: dict = {}
+        _moe_choices(MOE, choices)
         t0 = time.perf_counter()
         # MOE_ARCH's weights come from the parent's file, named once world
         # 1's results are in
@@ -5184,13 +5257,15 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
             gathers = [] if long_context else None
             seen["long"] = long_context and dtype == "float32"
             seen["moe_gathers"].clear()
+            seen["expanded"].clear()
+            choices.update(on=long_context and cfg.is_moe, topk=[], kept=[])
             t0 = time.perf_counter()
             got = _serve_calls(torch, model, dev, r["pre"], r["teacher"],
                                steps, mesh, rule_sets[rules_name],
                                count_comms=True, frames=r["frames"],
                                gathers=gathers)
             run_s = time.perf_counter() - t0
-            seen["long"] = False
+            seen["long"], choices["on"] = False, False
             pre_err = _held(torch, got["prefill"], r["prefill"])
             step_errs = [_held(torch, g, w) for g, w in
                          zip(got["steps"], r["steps"][:steps])]
@@ -5219,7 +5294,12 @@ def serve_rank_main(rank: int, world: int, port: int, workdir: str,
                 "encode_s": got.get("encode_s"),
                 "experts_a_rank": (model.blocks[-1].mlp.wi.to_local()
                                    .shape[0] if cfg.is_moe else None),
+                "expanded_slots": max(seen["expanded"], default=None),
                 "place_s": place_s, "run_s": run_s}
+            if long_context and cfg.is_moe:
+                runs["|".join((arch, rules_name, dtype))]["choices"] = {
+                    "coord": mesh.get_coordinate(), "topk": choices["topk"],
+                    "kept": choices["kept"]}
             data = dist.get_process_group_ranks(mesh.get_group("data"))
             if long_context:
                 # the output sizes of the decode steps' all-gathers over
@@ -5392,6 +5472,7 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
     and the final state) and timed (``_b7_held``). Returns the phase's
     record."""
     import torch.distributed as dist
+    import repro_torch.models.moe as MOE
     from repro_torch.launch.mesh import make_device_mesh
     from repro_torch.launch.serve import generate
 
@@ -5415,6 +5496,10 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
     rule_sets = _serve_rule_sets()
     dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
                             world_size=1, device_id=dev)
+    # one device's experts and kept pairs of MOE_ARCH's long-context
+    # prefill, which the data ranks' joined must equal
+    one_choices: dict = {}
+    restore = _moe_choices(MOE, one_choices)
     try:
         mesh = make_device_mesh((1, 1))
         t0 = time.perf_counter()
@@ -5439,8 +5524,10 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
                                      frames[pre.shape[0]:], SERVE_MESH_NEW)
             generate_s = time.perf_counter() - t0
             teacher = np.concatenate([prompts, new], axis=1)
+            one_choices.update(on=long_context and cfg.is_moe)
             got = _serve_calls(torch, model, dev, pre, teacher,
                                teacher.shape[1], frames=frames)
+            one_choices["on"] = False
             key = _serve_key(arch, dtype, long_context)
             counts = read_counts(f"mesh_serve_one_{key}", (
                 "selective_scan_fwd",) if cfg.uses_ssm else ())
@@ -5530,6 +5617,7 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
                       world1.items() for n in v))
         del host
     finally:
+        restore()
         dist.destroy_process_group()
 
     # (b) the meshed world's results
@@ -5569,12 +5657,27 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
                      f"(held {run['decode_held']}), greedy tokens equal "
                      f"{run['greedy_equal']}, past {SERVE_MESH_TOL}")
             cfg = _serve_cfg(arch, dtype)
-            if rules_name == "long" and cards["mesh"][0] > 1 and \
-                    run["data_gathers"] != [cfg.d_model]:
+            dp, tp = cards["mesh"]
+            # one token's activation, and MLA's softmax statistics over
+            # each data rank's block of the slots ([1, H/tp, 1, dv + 2])
+            allowed = {cfg.d_model}
+            if cfg.attention == "mla":
+                allowed.add(dp * cfg.n_heads // tp * (cfg.v_head_dim + 2))
+            if rules_name == "long" and dp > 1 and not (
+                    cfg.d_model in run["data_gathers"] and
+                    set(run["data_gathers"]) <= allowed):
                 fail(f"phase 26: rank {r}, {name}: the decode steps' "
                      f"all-gathers over \"data\" have {run['data_gathers']} "
-                     f"elements, not one token's {cfg.d_model}: a "
-                     f"parameter is gathered")
+                     f"elements, not one token's {cfg.d_model} (and MLA's "
+                     f"softmax statistics): a parameter is gathered")
+            slots = SERVE_PROMPT + SERVE_MESH_NEW
+            if rules_name == "long" and dp > 1 and \
+                    cfg.attention == "mla" and (
+                        run["expanded_slots"] is None or
+                        run["expanded_slots"] > -(-slots // dp)):
+                fail(f"phase 26: rank {r}, {name}: a decode step expanded "
+                     f"{run['expanded_slots']} of the cache's {slots} "
+                     f"slots, more than its data rank's {-(-slots // dp)}")
             if cfg.is_moe and run["experts_a_rank"] != \
                     cfg.n_experts // cards["mesh"][1]:
                 fail(f"phase 26: rank {r}, {name}: {run['experts_a_rank']} "
@@ -5596,6 +5699,31 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
             whole = world1[_serve_key(arch, "float32", rules_name == "long")][
                 "one_device"]["param_bytes"]
             run["param_share"] = run["param_bytes"] / whole
+    # MOE_ARCH's long-context prefill: the data ranks' experts and kept
+    # pairs, joined in data order, equal one device's
+    for name in [n for n in cards["per_rank"][0]["runs"]
+                 if "choices" in cards["per_rank"][0]["runs"][n]]:
+        ranks_ = sorted((p["runs"][name]["choices"] for p in
+                         cards["per_rank"]), key=lambda c: c["coord"])
+        data_ranks = [c for c in ranks_ if c["coord"][1] == 0]
+        for what in ("topk", "kept"):
+            joined = [sum((c[what][i] for c in data_ranks), [])
+                      for i in range(len(data_ranks[0][what]))]
+            if not joined or joined != one_choices.get(what):
+                fail(f"phase 26: {name}: the data ranks' {what} of the "
+                     f"long-context prefill, joined in data order, differ "
+                     f"from one device's ({len(joined)} calls)")
+        drops = sum(1 - v for call in one_choices["kept"] for t in call
+                    for v in t)
+        log(f"phase 26: {name}: the long-context prefill of 1 x "
+            f"{MOE_LONG_SEQ} routes each data rank's tokens (half a group "
+            f"of {_serve_cfg(MOE_ARCH, 'float32').moe_group_size}): every "
+            f"top-k choice and kept pair of the data ranks equals one "
+            f"device's ({int(drops)} of "
+            f"{sum(len(c) * len(c[0]) for c in one_choices['kept'])} pairs "
+            f"dropped)")
+        for p in cards["per_rank"]:
+            del p["runs"][name]["choices"]
     shard = cards["b7_shard"]
     if not shard["held"]:
         fail(f"phase 26: B7 on the shard {shard['shape']} differs from its "
@@ -5636,8 +5764,9 @@ def _mesh_serving(torch, dev, zero_counts, read_counts, work: str,
     for arch, meta in zip(long_counted, meta_long_prefill):
         counted = runs0[f"{arch}|long|float32"]
         counted["prefill_count"] = _hold_count(
-            26, f"a {arch} LONG_CONTEXT_RULES prefill of 1 x {PREFILL_SEQ} "
-            f"on {cards['mesh']} (its sequence split over \"data\")",
+            26, f"a {arch} LONG_CONTEXT_RULES prefill of 1 x "
+            f"{_long_prefill_seq(_serve_cfg(arch, 'float32'))} on "
+            f"{cards['mesh']} (its sequence split over \"data\")",
             counted["prefill_count"], meta)
     if cards["mesh"][0] > 1:
         one = {a: world1[_serve_key(a, "float32", True)]["one_device"][
@@ -6068,6 +6197,8 @@ def run_phases() -> None:
         f"{phases_1_20_s:.1f} s)")
 
     # -- 22. training every family -------------------------------------------
+    # (phase 23's host work runs meanwhile)
+    host_work = start_dryrun_host_work()
     t0 = time.perf_counter()
     train_rec = train_families_path(torch, dev, zero_counts, read_counts,
                                     max_sm_clock_hz(), kept)
@@ -6082,7 +6213,7 @@ def run_phases() -> None:
     # -- 23. the dry-run and sharding stack ------------------------------------
     t0 = time.perf_counter()
     dryrun_rec = dryrun_sharding_path(torch, dev, zero_counts, read_counts,
-                                      kernel_record)
+                                      kernel_record, host_work)
     dryrun_rec["phase_s"] = time.perf_counter() - t0
     print(json.dumps({"dryrun_sharding": dryrun_rec}), flush=True)
     log(f"phase 23: {dryrun_rec['phase_s']:.1f} s ({dryrun_rec['card']})")

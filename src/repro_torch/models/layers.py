@@ -403,13 +403,15 @@ def attention_scores(q, k, v, q_positions, kv_positions, *, causal: bool,
     return out.reshape(b, sq, h, dv)
 
 
-def attention_over_split_keys(q, k, v, kv_mask,
-                              scale_dim: int = 0) -> torch.Tensor:
+def attention_over_split_keys(q, k, v, kv_mask, scale_dim: int = 0,
+                              combine=combine_softmax_over_model
+                              ) -> torch.Tensor:
     """One query position's attention (no causal or window mask: decode)
     over keys split over "model" (a cache's slots, "seq_kv"): each rank's
     softmax statistics over its keys k, v [B, Skv/tp, Hkv, D] with their
     validity ``kv_mask`` [B, Skv/tp], combined over "model"
-    (``sharding.spmd.combine_softmax_over_model``). Scores in f32, the
+    (``sharding.spmd.combine_softmax_over_model``; ``combine``: over the
+    axes it names instead, ``combine_softmax_over_data``). Scores in f32, the
     probabilities cast to q's dtype before the PV product; the output
     [B, Sq, H, Dv] in q's dtype. ``scale_dim``: the head dim the scores
     are scaled by, where it is not q's (MLA's queries absorbed into its
@@ -425,7 +427,7 @@ def attention_over_split_keys(q, k, v, kv_mask,
     m = s.amax(dim=-1)
     p = torch.exp(s - m[..., None])
     acc = torch.einsum("bhgqk,bkhd->bhgqd", _f32(p.to(q.dtype)), _f32(v))
-    out = combine_softmax_over_model(m, p.sum(dim=-1), acc)
+    out = combine(m, p.sum(dim=-1), acc)
     return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).to(q.dtype)
 
 

@@ -24,7 +24,13 @@ absorbs ``wk_b`` into its heads' queries, gathers every head's absorbed
 queries (``[B, 1, H, r + dr]``, small), scores them against its slots in
 the latent space, combines the softmax statistics over "model" and
 expands its own heads' latent outputs with ``wv_b`` (``mla_decode``); no
-cache entry and no weight moves.
+cache entry and no weight moves. A decode step whose rows are whole on the
+data axes (``LONG_CONTEXT_RULES``' batch of 1), where every data rank
+holds the whole cache, expands only its data rank's block of the slots
+into keys and values and attends over them, the softmax statistics
+combined over the data axes in data order (``_attend_data_slots``), as the
+reference's partitioned program splits the expansion over "data" by
+slots.
 """
 from __future__ import annotations
 
@@ -35,8 +41,9 @@ from .layers import (Params, _dense_init, apply_rope,
                      attention_over_split_keys, attention_scores,
                      contract_first, flash_attention, merge_heads,
                      owned_slot, project_heads)
-from ..sharding.spmd import (data_whole, gather_over_model, model_slice,
-                              seq_key_positions, seq_whole,
+from ..sharding.spmd import (combine_softmax_over_data, data_slice,
+                              data_slices, data_whole, gather_over_model,
+                              model_slice, seq_key_positions, seq_whole,
                               sum_grads_over_model, sum_over_model)
 
 # the tensor dim of each leaf that the heads split over "model"
@@ -192,7 +199,8 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
     axes, ``wq`` (or ``wq_a``) and ``wkv_a`` contract x's columns of their
     data shard of ``d_model`` (summed over the data axes) and ``wo`` gives
     this rank's output columns (gathered); ``wq_b``, ``wk_b`` and ``wv_b``
-    have no data shard."""
+    have no data shard; each data rank expands and attends over its block
+    of the slots (``_attend_data_slots``)."""
     split = (dims or {}).get("wo") is not None
     q_nope, q_rope = mla_queries(p, cfg, x, positions)
     c_kv, k_rope = mla_compress(p, cfg, x, positions)
@@ -210,9 +218,28 @@ def mla_decode(p: Params, cfg: ModelConfig, x: torch.Tensor,
         return merge_heads(attention_over_split_keys(q, k, v, mask), p["wo"])
     c_kv_cache[:, slot] = c_kv[:, 0]
     k_rope_cache[:, slot] = k_rope[:, 0]
-    out = mla_attend(p, cfg, q_nope, q_rope, c_kv_cache, k_rope_cache,
-                     positions, kv_positions, causal=False, kv_mask=kv_mask)
+    if data_slices(c_kv_cache.shape[1]):
+        out = _attend_data_slots(p, cfg, q_nope, q_rope, c_kv_cache,
+                                 k_rope_cache, kv_mask)
+    else:
+        out = mla_attend(p, cfg, q_nope, q_rope, c_kv_cache, k_rope_cache,
+                         positions, kv_positions, causal=False,
+                         kv_mask=kv_mask)
     return data_whole(sum_over_model(out) if split else out, x.shape[-1])
+
+
+def _attend_data_slots(p: Params, cfg: ModelConfig, q_nope, q_rope, c_kv,
+                       k_rope, kv_mask) -> torch.Tensor:
+    """The heads' attention over a cache that every data rank holds whole
+    (the rows whole on the data axes): this data rank expands its block of
+    about ``S / dp`` slots only (``data_slice``) and scores the
+    token against them, the softmax statistics combined over the data axes
+    in data order; then the output projection."""
+    q, k, v = _expand(p, cfg, q_nope, q_rope, data_slice(c_kv, 1),
+                      data_slice(k_rope, 1))
+    return merge_heads(attention_over_split_keys(
+        q, k, v, data_slice(kv_mask, 1), combine=combine_softmax_over_data),
+        p["wo"])
 
 
 __all__ = ["MLA_SPLIT", "MLA_WHOLE", "init_mla", "mla_compress",

@@ -159,7 +159,7 @@ def _norm(cfg: ModelConfig):
 def _cross_attention(p: Params, cfg: ModelConfig, h: torch.Tensor,
                      positions: torch.Tensor, enc_out: torch.Tensor,
                      split: bool | tuple = False,
-                     enc_blocked: bool = False) -> torch.Tensor:
+                     enc_blocked: tuple = ()) -> torch.Tensor:
     """The decoder's attention to the encoder: queries from h [B, S, D]
     (projected as ``qkv_project`` projects them), keys and values
     [B, T, H, Dh] projected from the encoder output [B, T, D], no causal
@@ -169,9 +169,10 @@ def _cross_attention(p: Params, cfg: ModelConfig, h: torch.Tensor,
     they meet give this rank's K and V (``L.split_queries``). Either way h
     and the encoder output are whole over "model"; each rank's output is
     its part of the sum, added up over the axis. ``enc_blocked``: the
-    encoder output is this data rank's block of the frames; its keys and
-    values are projected there and gathered over the data axes, as the
-    reference's partitioned program projects them."""
+    mesh dims the frames are in blocks over (``SP.seq_axes``): the encoder
+    output is this rank's block of them; its keys and values are projected
+    there and gathered over those dims, as the reference's partitioned
+    program projects them."""
     if isinstance(split, tuple):
         q, k, v = L.split_queries(p, cfg, h, positions, split, enc_out)
     else:
@@ -185,7 +186,7 @@ def _cross_attention(p: Params, cfg: ModelConfig, h: torch.Tensor,
             q = q + p["bq"].to(h.dtype)
         q = L.apply_rope(q, positions, cfg.rope_theta, cfg.rotary_pct)
     if enc_blocked:
-        k, v = SP.gather_over_data(k, 1), SP.gather_over_data(v, 1)
+        k, v = (SP.gather_over_axes(t, 1, enc_blocked) for t in (k, v))
     b, t = k.shape[:2]
     enc_pos = torch.arange(t, device=k.device).expand(b, t)
     o = L.attention_scores(q, k, v, positions, enc_pos, causal=False)
@@ -228,10 +229,10 @@ def block_params(p: Params, cfg: ModelConfig, moe_layer: bool):
 def block_forward(p: Params, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *, moe_layer: bool,
                   causal: bool = True, enc_out: torch.Tensor | None = None,
-                  split: dict | None = None, enc_blocked: bool = False):
+                  split: dict | None = None, enc_blocked: tuple = ()):
     """Pre-norm residual block. Returns (x, aux_loss). ``enc_out`` [B, T, D]
     (encoder-decoder) adds cross-attention between the mixer and the
-    MLP (``enc_blocked``: a data rank's block of the frames,
+    MLP (``enc_blocked``: the mesh dims of the frames' blocks,
     ``_cross_attention``'s). ``split`` (``block_params``' second value)
     says which sublayers hold this rank's part of a tensor-parallel
     product."""
@@ -372,20 +373,21 @@ class Model(nn.Module):
         return table.device_mesh if isinstance(table, DTensor) else None
 
     def _encode(self, frames: torch.Tensor, params: Params | None = None,
-                blocked: bool = False):
+                blocked: tuple = ()):
         """Whisper's encoder over stub frame embeddings [B, T, D] ->
         (encoder output [B, T, D], positions [B, T]). Positions index
         ``pos_embed`` from row 0, as the decoder's do (the reference's).
         Remat wraps each block's attention half only, as the reference's
-        ``_encode`` does. ``blocked``: ``frames`` is this rank's block of
-        the frames (``sharding.spmd.seq_blocked``), whose positions, rows of
-        ``pos_embed`` and output are the block's; its attention attends over
-        the keys and values gathered over the data axes."""
+        ``_encode`` does. ``blocked``: the mesh dims ``frames`` is in
+        blocks over (``sharding.spmd.seq_axes``): it is this rank's block of
+        the frames, whose positions, rows of ``pos_embed`` and output are
+        the block's; its attention attends over the keys and values
+        gathered over those dims."""
         cfg = self.cfg
         params = self.params() if params is None else params
         b, t, _ = frames.shape
         whole = SP.whole_params
-        with SP.sequence(t * SP.data_ways(), blocked):
+        with SP.sequence(t * SP.ways(blocked), blocked):
             pos = SP.seq_positions(b, t, frames.device)
             start = SP.seq_block()[0] if blocked else 0
             x = frames + whole(params["pos_embed"])[None, start:start + t].to(
@@ -490,46 +492,47 @@ class Model(nn.Module):
         run through the encoder, whose output the decoder blocks attend
         to.
 
-        ``blocked`` ({leaf: ``sharding.spmd.seq_blocked``}, a prefill
-        under a mesh): the leaves it marks hold this rank's block of their
-        sequence. Where the decoder's sequence is in blocks (the tokens',
-        and the VLM's patches' too), each rank runs the blocks on its own
-        positions, every position-wise product on them only, and exchanges
-        only what crosses blocks (``sharding.spmd.sequence``: the
-        attention's keys and values, the Mamba conv window and scan state);
-        the VLM's patches and tokens are gathered whole first and each rank
-        keeps its block of their concatenation. Frames in blocks run the
-        encoder so, and the cross-attention's keys and values are projected
-        from each rank's block of its output and gathered. ``last``: (the
-        last position's row [B, 1, D], on every rank, aux loss)."""
+        ``blocked`` ({leaf: ``sharding.spmd.seq_axes``}, a prefill under a
+        mesh): the leaves it marks hold this rank's block of their sequence
+        over those mesh dims. Where the decoder's sequence is in blocks (the
+        tokens'), each rank runs its block on its own positions, every
+        position-wise product on it only, and exchanges only what crosses
+        blocks (``sharding.spmd.sequence``: the attention's keys and values,
+        the Mamba conv window and scan state, a MoE group's counts). The
+        VLM's sequence, patches followed by the text, is in blocks over the
+        tokens' dims where they divide it: each rank receives the patch
+        rows and the token ids of its block from the ranks that hold them
+        (``SP.seq_exchange``, an all-to-all) and embeds its own tokens only.
+        Frames in blocks run the encoder so, and the cross-attention's keys
+        and values are projected from each rank's block of its output and
+        gathered. ``last``: (the last position's row [B, 1, D], on every
+        rank, aux loss)."""
         cfg = self.cfg
         params = self.params() if params is None else params
         blocked = blocked or {}
         dt = cfg.compute_dtype
         whole = SP.whole_params
-        enc_out, enc_blocked = None, blocked.get("frames", False)
+        enc_out, enc_blocked = None, blocked.get("frames", ())
         if cfg.family == "encdec":
             enc_out, _ = self._encode(extra["frames"].to(dt), params,
                                       blocked=enc_blocked)
-        split = blocked.get("tokens", False)
+        split = blocked.get("tokens", ())
         if cfg.family == "vlm":
             patches = extra["patches"].to(dt)
-            # each leaf in blocks gathered whole
-            if split:
-                tokens = SP.gather_over_data(tokens, 1)
-            if blocked.get("patches", False):
-                patches = SP.gather_over_data(patches, 1)
-            total = patches.shape[1] + tokens.shape[1]
-            split = split and blocked.get("patches", False)
+            n_img = patches.shape[1] * SP.ways(blocked.get("patches", ()))
+            total = n_img + tokens.shape[1] * SP.ways(split)
+            if total % SP.ways(split):
+                # no block of the concatenation: every rank takes it whole
+                split = ()
         else:
             # this rank's run of a vocabulary split over "model", summed
             # there
             x = L.embed_part(*SP.model_part(params["embed"]["table"]),
                              tokens, dt)
-            total = x.shape[1] * (SP.data_ways() if split else 1)
+            total = x.shape[1] * SP.ways(split)
         with SP.sequence(total, split):
             if cfg.family == "vlm":
-                x = self._vlm_embed(params, tokens, patches)
+                x = self._vlm_embed(params, tokens, patches, n_img, blocked)
             b, s, _ = x.shape
             positions = SP.seq_positions(b, s, x.device)
             if cfg.family == "encdec":
@@ -554,21 +557,29 @@ class Model(nn.Module):
                 x = SP.seq_last(x[:, -1:].contiguous())
         return x, aux_total
 
-    def _vlm_embed(self, params: Params, tokens, patches) -> torch.Tensor:
-        """The VLM's input rows, patches followed by the text embeddings:
-        this rank's block of them where the sequence is in blocks
-        (``sharding.spmd.seq_block``), only its own tokens embedded; all of
-        them otherwise."""
+    def _vlm_embed(self, params: Params, tokens, patches, n_img: int,
+                   blocked: dict) -> torch.Tensor:
+        """The VLM's input rows, the ``n_img`` patches followed by the text
+        embeddings: this rank's block of them where the sequence is in
+        blocks (``sharding.spmd.seq_block``), its patch rows and token ids
+        received from the ranks that hold them (``SP.seq_exchange``: each
+        leaf in blocks over the mesh dims ``blocked`` names, or whole) and
+        only its own tokens embedded; all of them otherwise (each leaf
+        gathered whole)."""
         dt = self.cfg.compute_dtype
-        n_img = patches.shape[1]
-        blk = SP.seq_block()
-        lo, hi = (0, n_img + tokens.shape[1]) if blk is None else (
-            blk[0], blk[0] + blk[1])
-        parts = [patches[:, lo:min(hi, n_img)]]
-        text = tokens[:, max(lo - n_img, 0):max(hi - n_img, 0)]
-        if text.shape[1]:
+        if SP.seq_block() is None:
+            patches = SP.gather_over_axes(patches, 1,
+                                          blocked.get("patches", ()))
+            tokens = SP.gather_over_axes(tokens, 1,
+                                         blocked.get("tokens", ()))
+        else:
+            patches = SP.seq_exchange(patches, blocked.get("patches", ()), 0)
+            tokens = SP.seq_exchange(tokens, blocked.get("tokens", ()),
+                                     n_img)
+        parts = [patches]
+        if tokens.shape[1]:
             parts.append(L.embed_part(
-                *SP.model_part(params["embed"]["table"]), text, dt))
+                *SP.model_part(params["embed"]["table"]), tokens, dt))
         return torch.cat(parts, dim=1)
 
     def loss(self, batch: dict, chunk: int = 512,
@@ -914,7 +925,7 @@ class Model(nn.Module):
         if mesh is None:
             return self._encode(frames.to(dt), params)[0]
         with SP.spmd(mesh, self._placed(frames, "frames").shape[0], rules):
-            blocked = SP.seq_blocked(frames)
+            blocked = SP.seq_axes(frames)
             enc, _ = self._encode(SP.local_batch(frames).to(dt), params,
                                   blocked=blocked)
             if not blocked:
@@ -989,7 +1000,7 @@ class Model(nn.Module):
             x, _ = self._forward(
                 SP.local_batch(tokens), params,
                 extra={k: SP.local_batch(v) for k, v in (extra or {}).items()},
-                blocked={k: SP.seq_blocked(v) for k, v in batch.items()},
+                blocked={k: SP.seq_axes(v) for k, v in batch.items()},
                 last=True)
             w, vdim = SP.model_part(params["unembed"]["w"])
             logits = L.unembed({"w": w}, x, self.cfg.logit_softcap)

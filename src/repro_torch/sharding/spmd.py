@@ -67,17 +67,23 @@ without a data shard (Mamba's ``x_proj`` / ``dt_proj`` / conv, MLA's
 decode tokens are gathered over the data axes (``gather_rows``: fewer
 than one device's group) runs in ``rows_gathered``, where its rows are
 whole on every data axis: its router, routed experts and shared expert
-keep their data shards the same way.
+keep their data shards the same way. MLA's attention over a cache that
+every data rank holds whole runs on each data rank's block of the slots
+(``data_slice``), its softmax statistics combined over the data axes
+(``combine_softmax_over_data``).
 
 A prefill under ``LONG_CONTEXT_RULES`` keeps the sequence split as the
-batch specs place it: ``local_batch`` keeps each data rank's block of a
-leaf whose sequence is split over every data axis (``seq_blocked``), and
-the model runs the blocks under ``sequence``. Its helpers give the
-block's place (``seq_block``, ``seq_positions``) and carry what crosses
-blocks over the data axes: keys and values gathered whole
-(``seq_whole``), a causal window's leading rows (``seq_before``), a scan's
-state from rank to rank in data order (``seq_chain``), and the last
-position's row onto every rank (``seq_last``).
+batch specs place it: ``local_batch`` keeps each rank's block of a leaf
+whose sequence is split over data axes (``seq_axes``: every one it
+divides, or the outer ones only), and the model runs the blocks under
+``sequence``. Its helpers give the block's place (``seq_block``,
+``seq_positions``) and carry what crosses blocks over the sequence's
+axes: keys and values gathered whole (``seq_whole``), a causal window's
+leading rows (``seq_before``), a scan's state from block to block in
+order (``seq_chain``), a routing group's expert counts
+(``seq_counts_before``), the rows another leaf's blocks hold by
+all-to-alls (``seq_exchange``: the VLM's patches and tokens), and the
+last position's row onto every rank (``seq_last``).
 
 DTensor holds the layouts (placing, ``to_local`` / ``from_local``, the
 optimizer's elementwise formulas), not the model's ops, and the
@@ -211,16 +217,15 @@ def current():
 def local_batch(x):
     """This rank's rows of a batch leaf (a DTensor placed by the batch
     specs); a plain tensor as it is. A leaf whose sequence is split over
-    every data axis where the rows are whole (``LONG_CONTEXT_RULES``'
-    tokens, patches and frames where the sequence divides the axes:
-    ``seq_blocked``) keeps this rank's block of it; a leaf split along
-    another dim, or over some of those axes only, is gathered whole
-    there."""
+    data axes where the rows are whole (``LONG_CONTEXT_RULES``' tokens,
+    patches and frames where the sequence divides the axes: ``seq_axes``)
+    keeps this rank's block of it; a leaf split along another dim is
+    gathered whole there."""
     ctx = current()
     if ctx is None or not isinstance(x, DTensor):
         return x
     mesh, layout = ctx
-    keep = seq_blocked(x)
+    keep = bool(seq_axes(x))
     t = x.to_local()
     for m in reversed(range(mesh.ndim)):
         p, want = x.placements[m], layout[m]
@@ -237,8 +242,7 @@ def whole_batch(x):
     """``local_batch(x)`` with its sequence whole: a block that
     ``local_batch`` keeps is gathered over the data axes (a training step,
     and the cross-attention cache of an encoder output)."""
-    t = local_batch(x)
-    return gather_over_data(t, 1) if seq_blocked(x) else t
+    return gather_over_axes(local_batch(x), 1, seq_axes(x))
 
 
 def _partial_over_rows(layout) -> list:
@@ -725,11 +729,7 @@ def decode_split(tree: dict, dims: dict):
 
 def _data_index() -> int:
     """This rank's place among the data axes' blocks (outer axis first)."""
-    mesh, _ = current()
-    index = 0
-    for m in data_axes():
-        index = index * mesh.size(m) + local_rank(mesh, m)
-    return index
+    return axes_index(data_axes())
 
 
 def data_block(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -739,6 +739,26 @@ def data_block(x: torch.Tensor, n: int) -> torch.Tensor:
     if x.shape[-1] == n:
         return x
     return x.narrow(-1, _data_index() * n, n)
+
+
+def data_slice(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """This data rank's block of ``t`` along ``dim``, which is whole on the
+    data axes (a cache's slots every data rank holds): blocks of
+    ``ceil(n / dp)``, the last ones shorter (``data_slices``); ``t`` itself
+    without data axes."""
+    ways, n = data_ways(), t.shape[dim]
+    if ways == 1:
+        return t
+    size = -(-n // ways)
+    start = min(_data_index() * size, n)
+    return t.narrow(dim, start, min(size, n - start))
+
+
+def data_slices(n: int) -> bool:
+    """Whether ``data_slice`` gives every data rank at least one of ``n``
+    entries (and there are data axes to split them over)."""
+    ways = data_ways()
+    return ways > 1 and (ways - 1) * -(-n // ways) < n
 
 
 def sum_over_data(*ts) -> list:
@@ -768,64 +788,99 @@ def gather_over_data(t: torch.Tensor, dim: int) -> torch.Tensor:
     """Every data rank's ``t`` concatenated along ``dim`` in data order
     (``_data_index``: the inner axis gathered first); ``t`` itself without
     data axes."""
-    if not data_axes():
-        return t
-    mesh, _ = current()
-    for m in reversed(data_axes()):
-        t = _gather_along(t, dim, mesh.get_group(m), mesh.size(m))
-    return t
+    return gather_over_axes(t, dim, data_axes())
 
 
 # ---------------------------------------------------------------------------
 # serving: a prefill whose sequence is split over the data axes
 # ---------------------------------------------------------------------------
 
-def seq_blocked(x) -> bool:
-    """Whether the batch leaf ``x`` (a DTensor placed by the batch specs)
-    has its sequence (dim 1) split over every data axis (``data_axes``:
-    the rows are whole there) and over no other mesh dim of two or more
-    ranks: ``LONG_CONTEXT_RULES``' tokens, patches and frames where the
-    sequence divides the axes. Each rank then holds one block of ``S / dp``
-    consecutive positions, the ``_data_index``-th."""
+def seq_axes(x) -> tuple:
+    """The data axes (``data_axes``: the rows are whole there) that the
+    batch leaf ``x`` (a DTensor placed by the batch specs) has its sequence
+    (dim 1) split over, where no other mesh dim of two or more ranks splits
+    it: ``LONG_CONTEXT_RULES``' tokens, patches and frames, over every data
+    axis where the sequence divides them all, over those the resolver kept
+    otherwise (a prompt that "pod" divides and "pod" x "data" does not:
+    "pod" alone, the ranks of "data" holding the same block). Each rank
+    then holds one block of ``S / ways`` consecutive positions, the
+    ``axes_index``-th. () for any other leaf."""
     axes = data_axes()
     if not axes or not isinstance(x, DTensor):
-        return False
-    return {m for m, p in enumerate(x.placements)
-            if p == Shard(1) and x.device_mesh.size(m) > 1} == set(axes)
+        return ()
+    split = tuple(m for m, p in enumerate(x.placements)
+                  if p == Shard(1) and x.device_mesh.size(m) > 1)
+    return split if split and set(split) <= set(axes) else ()
+
+
+def ways(axes: tuple) -> int:
+    """The number of blocks over the mesh dims ``axes`` (1 for none)."""
+    n = 1
+    if axes:
+        mesh, _ = current()
+        for m in axes:
+            n *= mesh.size(m)
+    return n
+
+
+def axes_index(axes: tuple) -> int:
+    """This rank's place among the blocks over the mesh dims ``axes``
+    (outer axis first, DTensor's nesting)."""
+    mesh, _ = current()
+    index = 0
+    for m in axes:
+        index = index * mesh.size(m) + local_rank(mesh, m)
+    return index
 
 
 def data_ways() -> int:
     """The number of data ranks (the product of ``data_axes``' sizes)."""
-    ways = 1
-    if data_axes():
-        mesh, _ = current()
-        for m in data_axes():
-            ways *= mesh.size(m)
-    return ways
+    return ways(data_axes())
+
+
+def gather_over_axes(t: torch.Tensor, dim: int, axes: tuple) -> torch.Tensor:
+    """Every block's ``t`` over the mesh dims ``axes`` concatenated along
+    ``dim`` in their order (the inner axis gathered first); ``t`` itself
+    for no axes."""
+    if not axes:
+        return t
+    mesh, _ = current()
+    for m in reversed(axes):
+        t = _gather_along(t, dim, mesh.get_group(m), mesh.size(m))
+    return t
 
 
 @contextlib.contextmanager
-def sequence(total: int, blocked: bool):
+def sequence(total: int, axes):
     """Run a model's sequence of ``total`` positions in blocks over the
-    data axes (``blocked``: each rank holds its ``_data_index``-th block of
-    ``total / dp`` positions, as ``local_batch`` keeps a ``seq_blocked``
-    leaf) or whole; the helpers below read it."""
+    mesh dims ``axes`` (a leaf's ``seq_axes``; True: every data axis): each
+    rank holds its ``axes_index``-th block of ``total / ways(axes)``
+    positions, as ``local_batch`` keeps such a leaf; () or False: whole.
+    The helpers below read it."""
+    axes = data_axes() if axes is True else tuple(axes or ())
     prev = getattr(_state, "seq", None)
-    _state.seq = (total, total // data_ways()) if blocked else None
+    _state.seq = (total, total // ways(axes), axes) if axes else None
     try:
         yield
     finally:
         _state.seq = prev
 
 
+def seq_split() -> tuple:
+    """The mesh dims the sequence is in blocks over inside ``sequence``;
+    () where it is whole."""
+    seq = getattr(_state, "seq", None)
+    return () if seq is None or current() is None else seq[2]
+
+
 def seq_block():
     """(start, length, total) of this rank's block of the sequence inside
-    ``sequence(..., blocked=True)``; None where the sequence is whole."""
-    seq = getattr(_state, "seq", None)
-    if seq is None or current() is None:
+    ``sequence(..., axes)``; None where the sequence is whole."""
+    axes = seq_split()
+    if not axes:
         return None
-    total, n = seq
-    return _data_index() * n, n, total
+    total, n, _ = _state.seq
+    return axes_index(axes) * n, n, total
 
 
 def seq_positions(b: int, n: int, device) -> torch.Tensor:
@@ -848,52 +903,54 @@ def seq_key_positions(positions: torch.Tensor) -> torch.Tensor:
 
 
 def seq_whole(t: torch.Tensor, dim: int = 1) -> torch.Tensor:
-    """A block of the sequence along ``dim`` gathered whole over the data
-    axes (the keys and values that a block's queries attend to); ``t``
-    itself where the sequence is whole."""
-    return t if seq_block() is None else gather_over_data(t, dim)
+    """A block of the sequence along ``dim`` gathered whole over the axes
+    it is split on (the keys and values that a block's queries attend to);
+    ``t`` itself where the sequence is whole."""
+    return gather_over_axes(t, dim, seq_split())
 
 
-def _stack_over_data(t: torch.Tensor) -> torch.Tensor:
-    """[dp, *t.shape]: every data rank's ``t``, in data order."""
-    return gather_over_data(t.contiguous()[None], 0)
+def seq_stack(t: torch.Tensor) -> torch.Tensor:
+    """[blocks, *t.shape]: every block's ``t``, in block order (the
+    sequence's axes; ``t[None]`` where it is whole)."""
+    return gather_over_axes(t.contiguous()[None], 0, seq_split())
 
 
 def seq_before(t: torch.Tensor, rows: int) -> torch.Tensor:
     """[B, rows, ...]: the ``rows`` positions just before this rank's block
-    ``t`` [B, n, ...] of the sequence, taken from the blocks of the data
-    ranks before it (each rank's last ``min(rows, n)`` positions gathered
-    once), zeros before position 0: a causal convolution's window. Zeros
-    where the sequence is whole."""
+    ``t`` [B, n, ...] of the sequence, taken from the blocks before it
+    (each block's last ``min(rows, n)`` positions gathered once), zeros
+    before position 0: a causal convolution's window. Zeros where the
+    sequence is whole."""
     b, n = t.shape[:2]
     zeros = t.new_zeros((b, rows, *t.shape[2:]))
     if seq_block() is None or rows == 0:
         return zeros
     k = min(rows, n)
-    # zeros, then every rank's tail in data order: the rows before block
-    # idx end where rank idx's tail starts (the same ops on every rank)
-    tails = _stack_over_data(t[:, n - k:]).movedim(0, 1).flatten(1, 2)
-    return torch.cat([zeros, tails], dim=1).narrow(1, _data_index() * k,
-                                                   rows)
+    # zeros, then every block's tail in order: the rows before block idx
+    # end where block idx's tail starts (the same ops on every rank)
+    tails = seq_stack(t[:, n - k:]).movedim(0, 1).flatten(1, 2)
+    return torch.cat([zeros, tails], dim=1).narrow(
+        1, axes_index(seq_split()) * k, rows)
 
 
 def seq_chain(fn, h: torch.Tensor):
-    """``fn(h_in) -> (out, h_out)`` run by every data rank on its block in
-    data order, each rank's ``h_in`` the ``h_out`` of the rank before it
-    (``h`` on the first): the carried state of a scan over a sequence split
-    over the data axes. Returns (this rank's out, its h_out). The state
-    passes by one all-gather over the data axes a step (``dp - 1`` steps,
-    the state the same shape on every rank), a collective that gloo runs on
+    """``fn(h_in) -> (out, h_out)`` run by every rank on its block in block
+    order, each block's ``h_in`` the ``h_out`` of the block before it
+    (``h`` on the first): the carried state of a scan over a sequence in
+    blocks. Returns (this rank's out, its h_out). The state passes by one
+    all-gather over the sequence's axes a step (``blocks - 1`` steps, the
+    state the same shape on every rank), a collective that gloo runs on
     CUDA tensors where it runs no send or receive. ``fn(h)`` where the
     sequence is whole."""
-    if seq_block() is None:
+    axes = seq_split()
+    if not axes:
         return fn(h)
-    idx, out = _data_index(), None
-    for j in range(data_ways()):
+    idx, out = axes_index(axes), None
+    for j in range(ways(axes)):
         if j == idx:
             out, h = fn(h)
-        if j < data_ways() - 1:
-            got = _stack_over_data(h)
+        if j < ways(axes) - 1:
+            got = seq_stack(h)
             if idx == j + 1:
                 h = got[j]
     return out, h
@@ -901,10 +958,140 @@ def seq_chain(fn, h: torch.Tensor):
 
 def seq_last(t: torch.Tensor) -> torch.Tensor:
     """The last position's row of the sequence on every rank: ``t`` is this
-    rank's last row [B, 1, ...], the last data rank's is every rank's
-    (gathered over the data axes); ``t`` itself where the sequence is
-    whole."""
-    return t if seq_block() is None else _stack_over_data(t)[-1]
+    rank's last row [B, 1, ...], the last block's is every rank's
+    (gathered over the sequence's axes); ``t`` itself where the sequence
+    is whole."""
+    return t if seq_block() is None else seq_stack(t)[-1]
+
+
+def seq_counts_before(counts: torch.Tensor) -> tuple:
+    """A sum that runs along the sequence across its blocks: ``counts``
+    [B, ...] is this block's part of each row's sums (say a routing
+    group's counts of each expert). Returns (the parts of the blocks that
+    come before this one in the flattened order of rows and positions,
+    summed: [B, ...], row b's from rows before b and from row b's earlier
+    blocks; every block's parts of every row summed: [...]), by one
+    all-gather over the sequence's axes. ``(zeros, counts.sum(0))`` where
+    the sequence is whole."""
+    axes = seq_split()
+    if not axes:
+        return torch.zeros_like(counts), counts.sum(dim=0)
+    return counts_before(seq_stack(counts), axes_index(axes))
+
+
+def counts_before(every: torch.Tensor, index: int) -> tuple:
+    """``seq_counts_before`` of the ``index``-th block, given every block's
+    parts stacked in block order ([blocks, B, ...])."""
+    n, b = every.shape[:2]
+    # the blocks in flattened order: rows outer, blocks inner
+    flat = every.movedim(0, 1).reshape(n * b, *every.shape[2:])
+    before = torch.cumsum(flat, dim=0) - flat
+    return (before[torch.arange(b, device=every.device) * n + index],
+            flat.sum(dim=0))
+
+
+def seq_exchange(t: torch.Tensor, axes: tuple, offset: int) -> torch.Tensor:
+    """This rank's rows of its block of the sequence (``seq_block``) that
+    the batch leaf ``t`` [B, m, ...] holds, ``t`` placed at ``offset`` of
+    that sequence and split over the mesh dims ``axes`` (its ``seq_axes``;
+    () whole, every rank holding all of it): the rows of [start, start +
+    length) that fall in [offset, offset + m ways(axes)), in order. Each
+    rank sends each other rank only the rows that one wants, by an
+    all-to-all over each data axis in turn (``_route_rows``); no rank
+    gathers the leaf. ``t`` itself where the sequence is whole."""
+    blk = seq_block()
+    if blk is None:
+        return t
+    data, split = data_axes(), seq_split()
+    mesh, _ = current()
+    sizes = [mesh.size(a) for a in data]
+    m = t.shape[1]
+
+    def block(i, over):
+        """data rank i's place among the blocks over the mesh dims ``over``"""
+        j = 0
+        for a, c in zip(data, _coords(i, sizes)):
+            if a in over:
+                j = j * mesh.size(a) + c
+        return j
+
+    def plan(src, dst):
+        """[lo, hi) of src's rows of ``t`` that dst's block wants, between
+        ranks alike on every data axis the leaf is not split over"""
+        cs, cd = _coords(src, sizes), _coords(dst, sizes)
+        if any(a not in axes and x != y for a, x, y in zip(data, cs, cd)):
+            return 0, 0
+        h0 = offset + block(src, axes) * m
+        w0 = block(dst, split) * blk[1]
+        lo, hi = max(h0, w0), min(h0 + m, w0 + blk[1])
+        return (lo - h0, hi - h0) if lo < hi else (0, 0)
+
+    return _route_rows(t, plan, data, sizes)
+
+
+def _coords(i: int, sizes: list) -> list:
+    """The coordinates of the ``i``-th rank of a grid of ``sizes`` (outer
+    axis first)."""
+    c = []
+    for size in reversed(sizes):
+        c.append(i % size)
+        i //= size
+    return c[::-1]
+
+
+def _route_rows(t: torch.Tensor, plan, data: tuple, sizes: list
+                ) -> torch.Tensor:
+    """The rows of ``t`` (dim 1) that ``plan(src, dst)`` ([lo, hi) of the
+    source's rows, the same function on every rank) says each data rank
+    sends each, delivered: this rank's received rows in source order. The
+    pieces travel by one ``all_to_all_single`` over each data axis in
+    turn, inner first, each piece to the rank that matches its destination
+    on that axis (dimension-ordered routing); an axis over which nothing
+    moves is skipped, and a rank keeps its own rows without a collective."""
+    mesh, _ = current()
+    n, total = len(sizes), 1
+    for s in sizes:
+        total *= s
+
+    def index(c):
+        i = 0
+        for size, ci in zip(sizes, c):
+            i = i * size + ci
+        return i
+
+    def where(item, done):
+        """the rank an item sits on once the axes in ``done`` are routed"""
+        cs, cd = _coords(item[0], sizes), _coords(item[1], sizes)
+        return index([cd[k] if k in done else cs[k] for k in range(n)])
+
+    me = _data_index()
+    spans = {(s, d): plan(s, d) for s in range(total) for d in range(total)}
+    items = [it for it, (lo, hi) in spans.items() if hi > lo]
+    rows = {it: spans[it][1] - spans[it][0] for it in items}
+    held = {it: t.narrow(1, spans[it][0], rows[it])
+            for it in items if it[0] == me}
+    done: set = set()
+    for k in reversed(range(n)):
+        if any(where(it, done) != where(it, done | {k}) for it in items):
+            size = sizes[k]
+            send = [[it for it in sorted(held)
+                     if _coords(it[1], sizes)[k] == q] for q in range(size)]
+            recv = [[it for it in items if where(it, done | {k}) == me
+                     and _coords(where(it, done), sizes)[k] == q]
+                    for q in range(size)]
+            pieces = [held[it] for q in send for it in q]
+            inp = (torch.cat(pieces, dim=1) if pieces
+                   else t.narrow(1, 0, 0)).movedim(1, 0).contiguous()
+            out_rows = [sum(rows[it] for it in q) for q in recv]
+            out = inp.new_empty((sum(out_rows), *inp.shape[1:]))
+            dist.all_to_all_single(
+                out, inp, out_rows, [sum(rows[it] for it in q) for q in send],
+                group=mesh.get_group(data[k]))
+            got = iter(out.split([rows[it] for q in recv for it in q]))
+            held = {it: next(got).movedim(0, 1) for q in recv for it in q}
+        done.add(k)
+    got = [held[it] for it in sorted(held)]
+    return torch.cat(got, dim=1) if got else t.narrow(1, 0, 0)
 
 
 def model_slice(t: torch.Tensor, dim: int) -> torch.Tensor:
@@ -933,10 +1120,26 @@ def combine_softmax_over_model(m: torch.Tensor, l: torch.Tensor,
     values ``acc`` (``[..., dv]``) gathered and combined, rank after rank in
     rank order on every rank, so the result does not depend on the
     collective's own order; returns acc / l over every key."""
-    ms, ls, accs = (_stack_over_model(t) for t in (m, l, acc))
+    return _combine_softmax(*(_stack_over_model(t) for t in (m, l, acc)))
+
+
+def combine_softmax_over_data(m: torch.Tensor, l: torch.Tensor,
+                              acc: torch.Tensor) -> torch.Tensor:
+    """``combine_softmax_over_model`` over the data axes (keys split over
+    them by slots where the rows are whole there: MLA's long-context
+    decode), the three statistics packed into one all-gather and combined
+    in data order."""
+    packed = torch.cat([m[..., None], l[..., None], acc], dim=-1)
+    every = gather_over_data(packed.contiguous()[None], 0)
+    return _combine_softmax(every[..., 0], every[..., 1], every[..., 2:])
+
+
+def _combine_softmax(ms, ls, accs) -> torch.Tensor:
+    """acc / l over every key from each part's statistics stacked on dim 0,
+    combined part after part in order."""
     top = ms.amax(dim=0)
-    total_l = torch.zeros_like(l)
-    total_acc = torch.zeros_like(acc)
+    total_l = torch.zeros_like(ls[0])
+    total_acc = torch.zeros_like(accs[0])
     for r in range(ms.shape[0]):
         w = torch.exp(ms[r] - top)
         total_l = total_l + ls[r] * w
@@ -1016,10 +1219,14 @@ __all__ = ["place", "replicas", "local_rank", "local_shard", "local_shape",
            "max_over_model", "halves_over_model", "gather_over_model",
            "model_dim", "model_part", "model_parts",
            "rows_gathered", "data_axes", "decode_part", "decode_split",
-           "data_block",
+           "data_block", "data_slice",
+           "data_slices",
            "sum_over_data", "data_whole", "gather_over_data",
-           "whole_batch", "seq_blocked", "data_ways", "sequence", "seq_block",
-           "seq_positions", "seq_key_positions", "seq_whole", "seq_before",
-           "seq_chain", "seq_last",
-           "model_slice", "combine_softmax_over_model", "argmax_over_model",
+           "whole_batch", "seq_axes", "ways", "axes_index",
+           "data_ways", "gather_over_axes", "sequence", "seq_split",
+           "seq_block", "seq_positions", "seq_key_positions", "seq_whole",
+           "seq_stack", "seq_before", "seq_chain", "seq_last",
+           "seq_counts_before", "counts_before", "seq_exchange",
+           "model_slice", "combine_softmax_over_model",
+           "combine_softmax_over_data", "argmax_over_model",
            "row_shard_index", "gather_rows", "take_rows"]

@@ -77,8 +77,20 @@ CASES = tuple(
          MESHES),
         ("hymba-kernel", "hymba-1.5b", {"ssm_kernel": True}, ((2, 2),)),
         ("hymba5", "hymba-1.5b", HYMBA5, ((2, 2),)),
-        ("llava", "llava-next-34b", {}, ((4, 1), (2, 2))))
+        ("llava", "llava-next-34b", {}, ((4, 1), (2, 2))),
+        ("olmoe-short", "olmoe-1b-7b", {}, ((4, 1),)),
+        ("deepseek-short", "deepseek-v2-lite-16b", {}, ((4, 1),)),
+        ("qwen-pod", "qwen2.5-3b", {}, ((2, 2, 1),)),
+        ("hymba-pod", "hymba-1.5b", {"ssm_chunk": 13}, ((2, 2, 1),)))
     for mesh in meshes)
+# the prompts of other lengths than SEQ: 1 x 128 on (4, 1), 32 positions a
+# rank against routing groups of 64 (a MoE block of part of a group); 1 x
+# 130 on ("pod", "data", "model") (2, 2, 1), which "pod" divides and "pod"
+# x "data" does not (the sequence in blocks over "pod" only; hymba's scan in
+# chunks of 13, which divide a block of 65)
+SHORT, POD_ONLY = 128, 130
+SEQS = {"olmoe-short-4x1": SHORT, "deepseek-short-4x1": SHORT,
+        "qwen-pod-2x2x1": POD_ONLY, "hymba-pod-2x2x1": POD_ONLY}
 # the prefills whose counts ranks 0 and 3 take, on (2, 2)
 COUNT_ARCHS = ("hymba-1.5b", "whisper-medium")
 COUNT_RANKS = (0, 3)
@@ -111,8 +123,10 @@ out = {}
 
 # every all-gather of a meshed prefill (its group's ranks, its input's
 # shape), and the experts each top-k picks, one device's and the mesh's
-seen = {"on": False, "mode": None, "gathers": [], "one": [], "mesh": []}
+seen = {"on": False, "mode": None, "gathers": [], "one": [], "mesh": [],
+        "kept_one": [], "kept_mesh": []}
 real_gather, real_top_k = dist.all_gather_into_tensor, MOE._top_k
+real_in_capacity = MOE._in_capacity
 
 
 def gather_spy(out_t, t, group=None, **kw):
@@ -122,15 +136,28 @@ def gather_spy(out_t, t, group=None, **kw):
     return real_gather(out_t, t, group=group, **kw)
 
 
+def tokens_of(t):
+    """a [..., k] tensor as one list of k entries a token"""
+    return t.reshape(-1, t.shape[-1]).tolist()
+
+
 def top_k_spy(probs, k):
     vals, idx = real_top_k(probs, k)
     if seen["mode"]:
-        seen[seen["mode"]].append(idx.tolist())
+        seen[seen["mode"]].append(tokens_of(idx))
     return vals, idx
+
+
+def in_capacity_spy(pos, cap):
+    kept = real_in_capacity(pos, cap)
+    if seen["mode"]:
+        seen["kept_" + seen["mode"]].append(tokens_of(kept.amax(dim=-1)))
+    return kept
 
 
 dist.all_gather_into_tensor = gather_spy
 MOE._top_k = top_k_spy
+MOE._in_capacity = in_capacity_spy
 
 
 def model_of(cfg):
@@ -144,10 +171,10 @@ def model_of(cfg):
     return model
 
 
-def inputs_of(cfg):
+def inputs_of(cfg, seq):
     rng = np.random.default_rng(2)
     batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                                    (1, SEQ)))}
+                                                    (1, seq)))}
     if cfg.family == "encdec":
         batch["frames"] = torch.as_tensor(rng.normal(0, 1, (
             1, cfg.n_audio_frames, cfg.d_model)).astype(np.float32))
@@ -171,6 +198,8 @@ def data_index(mesh):
 def kind(shape, blocks, cfg):
     """what an all-gather over a data group carries, by its input's shape
     (the gathered dim moved first)"""
+    if len(shape) == 5 and shape[3] == 3 and shape[4] == cfg.n_experts:
+        return "routing counts"
     if len(shape) == 4 and shape[0] == 1:
         if shape[2] == 1 and shape[3] == cfg.d_model:
             return "last row"
@@ -185,52 +214,66 @@ def kind(shape, blocks, cfg):
     return "weight"               # a parameter's FSDP gather, as before
 
 
-def run_case(arch, sizes, over):
+def every_rank(obj):
+    got = [None] * world
+    dist.all_gather_object(got, obj)
+    return got
+
+
+def joined(mesh, calls):
+    """every data rank's token lists of each call, joined in data order"""
+    idx, mrank = data_index(mesh)
+    ranks = [c for _, m, c in sorted(every_rank([idx, mrank, calls]),
+                                     key=lambda e: e[0]) if m == 0]
+    return [sum((c[i] for c in ranks), []) for i in range(len(ranks[0]))]
+
+
+def run_case(arch, sizes, over, seq):
     mesh = meshes[tuple(sizes)]
     cfg = reduced(get_config(arch), dtype="float32", **over)
     one = model_of(cfg)
     model = distribute_params(model_of(cfg), mesh, RULES)
-    batch = inputs_of(cfg)
+    batch = inputs_of(cfg, seq)
     extra = {k: v for k, v in batch.items() if k != "tokens"}
-    seen.update(gathers=[], one=[], mesh=[], mode="one")
+    seen.update(gathers=[], one=[], mesh=[], kept_one=[], kept_mesh=[],
+                mode="one")
     l1 = one.prefill(batch["tokens"], extra=extra)
     placed = distribute_batch(batch, mesh, RULES)
     seen.update(on=True, mode="mesh")
     l2 = model.prefill(placed["tokens"], extra={
         k: v for k, v in placed.items() if k != "tokens"}, rules=RULES)
     seen.update(on=False, mode=None)
-    ranks_logits = [None] * world
-    dist.all_gather_object(ranks_logits, l2.to_local())
+    ranks_logits = every_rank(l2.to_local())
     l2 = full_value(l2)
     data = [dist.get_process_group_ranks(mesh.get_group(n))
             for n in mesh.mesh_dim_names if n != "model"]
-    dp = np.prod([mesh.size(i) for i, n in enumerate(mesh.mesh_dim_names)
-                  if n != "model"])
-    # a data rank's positions: of the tokens, the frames, the VLM's patches
-    # and its whole sequence
-    blocks = {SEQ // dp, cfg.n_audio_frames // dp}
+    # a data rank's positions: of each leaf it holds, and of the VLM's
+    # whole sequence in blocks as the tokens are
+    with SP.spmd(mesh, 1, RULES):
+        kept = {k: SP.local_batch(v).shape[1] for k, v in placed.items()}
+    blocks = set(kept.values())
     if cfg.family == "vlm":
-        blocks |= {cfg.n_image_tokens // dp,
-                   (cfg.n_image_tokens + SEQ) // dp}
+        blocks.add((cfg.n_image_tokens + seq) // (seq // kept["tokens"]))
     kinds = sorted({kind(s, blocks, cfg) for g, s in seen["gathers"]
                     if g in data})
-    # every data rank's expert choices, joined in data order
-    idx, mrank = data_index(mesh)
-    every = [None] * world
-    dist.all_gather_object(every, [idx, mrank, seen["mesh"]])
-    calls = [c for _, m, c in sorted(every, key=lambda e: e[0]) if m == 0]
-    joined = [sum((c[i] for c in calls), []) for i in range(len(calls[0]))]
+    # every data rank's expert choices and kept (token, choice) pairs,
+    # joined in data order (a data group's model ranks route alike)
+    drops = [1 - v for call in seen["kept_one"] for t in call for v in t]
     return {"err": float((l2 - l1).abs().max()),
             "close": bool(torch.allclose(l2, l1, **TOL)),
             "greedy_equal": bool(torch.equal(l2.argmax(-1), l1.argmax(-1))),
             "same_on_every_rank": all(torch.equal(t, l2)
                                       for t in ranks_logits),
-            "experts": [joined == seen["one"], len(seen["one"])],
+            "experts": [joined(mesh, seen["mesh"]) == seen["one"],
+                        len(seen["one"])],
+            "kept": [joined(mesh, seen["kept_mesh"]) == seen["kept_one"],
+                     int(sum(drops))],
+            "block": kept["tokens"],
             "data_gathers": kinds}
 
 
 for case_id, arch, sizes, over in CASES:
-    out[case_id] = run_case(arch, sizes, over)
+    out[case_id] = run_case(arch, sizes, over, SEQS.get(case_id, SEQ))
 
 # the carried state: a Mamba layer on each data rank's block of a (2, 2)
 # mesh, its output rows against one device's, the state it started from
@@ -296,7 +339,8 @@ def world():
     """The world's findings, and each counted prefill's meta counts, taken
     in this process while the world runs."""
     with ThreadPoolExecutor(1) as pool:
-        running = pool.submit(run_world, WORLD, CASES=CASES, SEQ=SEQ, TOL=TOL,
+        running = pool.submit(run_world, WORLD, CASES=CASES, SEQ=SEQ,
+                              SEQS=SEQS, TOL=TOL,
                               COUNT_ARCHS=COUNT_ARCHS,
                               COUNT_RANKS=COUNT_RANKS, COUNT_MESH=COUNT_MESH,
                               PREFILL=("prefill", SEQ, 1, "prefill"))
@@ -320,31 +364,56 @@ def test_long_context_prefill_matches_one_device(world, case):
 @pytest.mark.parametrize("case", [c[0] for c in CASES
                                   if c[1] in MOE_ARCHS])
 def test_long_context_prefill_picks_one_devices_experts(world, case):
-    """Each data rank routes its block's whole groups where they are: every
-    top-k choice, the data ranks' joined in data order, equals one
-    device's."""
+    """Each data rank routes its own tokens: every top-k choice and every
+    kept or dropped (token, choice) pair, the data ranks' joined in data
+    order, equals one device's. A block of whole groups routes them where
+    it is; a block of part of a group (the short prompts) takes its
+    capacity positions from the counts of the blocks before it, and one
+    device drops some of those pairs."""
     equal, calls = world[case]["experts"]
     assert equal and calls > 0
+    kept_equal, drops = world[case]["kept"]
+    assert kept_equal
+    if case in SEQS:
+        assert drops > 0
+
+
+def _not_whole_groups(cfg, case: str, sizes: tuple) -> bool:
+    """Whether a MoE case's blocks hold part of a routing group."""
+    seq = SEQS.get(case, SEQ)
+    block = seq // int(np.prod(sizes[:-1]))
+    return cfg.is_moe and block % min(cfg.moe_group_size, seq) != 0
 
 
 @pytest.mark.parametrize("case", [c[0] for c in CASES])
 def test_long_context_prefill_gathers_no_whole_sequence(world, case):
     """No all-gather over a data group carries the tokens or an activation
     of the whole sequence: only the keys and values (MLA's expanded ones,
-    the cross-attention's), the conv window, the scan state and the last
-    row cross the blocks (and the weights' FSDP gathers, as before)."""
-    arch = dict((c[0], c[1]) for c in CASES)[case]
+    the cross-attention's), the conv window, the scan state, the last row
+    and, where a block holds part of a routing group, the groups' expert
+    counts cross the blocks (and the weights' FSDP gathers, as before).
+    The VLM's blocks take their patch rows and token ids by an all-to-all,
+    no gather."""
+    arch, sizes = dict((c[0], (c[1], c[2])) for c in CASES)[case]
     cfg = reduced(get_config(arch))
     want = {"last row", "weight"}
     if cfg.uses_attention:
         want.add("keys and values")
     if cfg.uses_ssm:
         want |= {"conv window", "scan state"}
-    if cfg.family == "vlm":
-        # the VLM's tokens and patches are gathered whole before each rank
-        # keeps its block of their concatenation (ROADMAP Queue C)
-        want.add("sequence")
+    if _not_whole_groups(cfg, case, sizes):
+        want.add("routing counts")
     assert set(world[case]["data_gathers"]) == want
+
+
+@pytest.mark.parametrize("case", [c for c in SEQS if c.endswith("2x2x1")])
+def test_a_prompt_split_over_pod_only_keeps_its_block(world, case):
+    """A prompt that "pod" divides and "pod" x "data" does not stays in
+    blocks over "pod" (half the sequence a rank, the two ranks of "data"
+    holding the same block), within 1e-5 of one device."""
+    rec = world[case]
+    assert rec["block"] == SEQS[case] // 2
+    assert rec["close"], rec["err"]
 
 
 @pytest.mark.parametrize("route", ("chunked", "kernel"))
@@ -413,13 +482,13 @@ REFERENCE = textwrap.dedent("""
     from repro.utils.jaxcompat import make_auto_mesh
 
     out = {{}}
-    for arch, sizes in {cells!r}:
+    for arch, sizes, seq in {cells!r}:
         mesh = make_auto_mesh(tuple(sizes), ("data", "model"),
                               devices=jax.devices()[:sizes[0] * sizes[1]])
         nm = lambda t: jax.tree.map(
             lambda s: jax.sharding.NamedSharding(mesh, s), t)
         model = Model(reduced(get_config(arch)))
-        spec = ShapeSpec("prefill", {seq}, 1, "prefill")
+        spec = ShapeSpec("prefill", seq, 1, "prefill")
         with mesh, logical_axis_rules(mesh, rules):
             batch = token_spec(model.cfg, spec)
             params = jax.eval_shape(model.init_params, jax.random.PRNGKey(0))
@@ -429,7 +498,8 @@ REFERENCE = textwrap.dedent("""
                 in_shardings=(nm(param_specs(params, mesh, rules)),
                               nm(batch_specs(batch, mesh, rules)))).lower(
                 params, batch)
-            out[f"{{arch}}|{{sizes[0]}}x{{sizes[1]}}"] = analyze(
+            key = f"{{arch}}|{{sizes[0]}}x{{sizes[1]}}"
+            out[key if seq == {seq} else f"{{key}}|{{seq}}"] = analyze(
                 low.compile().as_text()).flops
     print("RESULT " + json.dumps(out))
 """)
@@ -440,6 +510,9 @@ REF_CELLS = tuple(
     (a, m) for a in ("falcon-mamba-7b", "hymba-1.5b", "qwen2.5-3b",
                      "olmoe-1b-7b", "deepseek-v2-lite-16b", "whisper-medium")
     for m in ((4, 1), (2, 2))) + (("falcon-mamba-7b", (1, 1)),)
+# and the MoE archs' short prompts on (4, 1), whose blocks hold half a
+# routing group
+SHORT_REF_CELLS = tuple((a, (4, 1), SHORT) for a in MOE_ARCHS)
 # rank 0's FLOPs of the reference's partitioned prefill in the production
 # archs' cells (falcon-mamba-7b, hymba-1.5b) and qwen2.5-3b's, digit for
 # digit
@@ -451,18 +524,20 @@ REF_FLOPS = {"falcon-mamba-7b|4x1": 8_421_376,
 
 @pytest.fixture(scope="module")
 def reference_flops():
+    cells = tuple((a, m, SEQ) for a, m in REF_CELLS) + SHORT_REF_CELLS
     res = subprocess.run([sys.executable, "-c", REFERENCE.format(
-        root=ROOT, cells=REF_CELLS, seq=SEQ)], capture_output=True,
+        root=ROOT, cells=cells, seq=SEQ)], capture_output=True,
         text=True, timeout=900)
     assert res.returncode == 0, res.stderr[-3000:]
     return json.loads([ln for ln in res.stdout.splitlines()
                        if ln.startswith("RESULT ")][-1][len("RESULT "):])
 
 
-def _port_count(arch: str, sizes: tuple) -> dict:
+def _port_count(arch: str, sizes: tuple, seq: int = SEQ) -> dict:
     cfg = reduced(get_config(arch))
     with counting_world(MeshShape(("data", "model"), sizes)) as m:
-        return D.count_step(cfg, PREFILL, mesh=m, rules=LONG_CONTEXT_RULES)
+        return D.count_step(cfg, ShapeSpec("prefill", seq, 1, "prefill"),
+                            mesh=m, rules=LONG_CONTEXT_RULES)
 
 
 def _local(n: int, tp: int) -> int:
@@ -538,6 +613,46 @@ def test_rank_zero_long_prefill_flops_are_the_reference_less_named_products(
         assert reference_flops[key] == REF_FLOPS[key]
     if sizes == (1, 1):
         assert not extra
+
+
+def short_prefill_reference_extra(cfg, dp: int, tp: int, s: int) -> dict:
+    """``prefill_reference_extra`` where a data rank's block of ``s / dp``
+    positions holds part of a routing group (each rank routes its own
+    tokens, ``models.moe._routed_in_blocks``): the same named products but
+    the experts'. There the reference splits ``wi``, ``wg`` and ``wo``
+    over "data" by ``d_model`` (1 / dp of one device's), while the port
+    runs the experts of the groups its block touches over the whole
+    ``d_model`` (touched / all groups of one device's): a negative term,
+    work the port does beyond the reference's share."""
+    out = prefill_reference_extra(cfg, dp, tp, s)
+    del out["experts wi/wg"]
+    g = min(cfg.moe_group_size, s)
+    touched = 1                 # a block of part of one group
+    per_group = 2 * _local(cfg.n_experts, tp) * _capacity(cfg, g) * \
+        cfg.d_model * cfg.moe_d_ff
+    products = 3 if cfg.mlp == "swiglu" else 2
+    out["experts"] = (cfg.n_layers - cfg.first_dense_layers) * products * \
+        per_group * (s // g / dp - touched)
+    return out
+
+
+@pytest.mark.parametrize("cell", SHORT_REF_CELLS,
+                         ids=[f"{a}-{m[0]}x{m[1]}-{s}"
+                              for a, m, s in SHORT_REF_CELLS])
+def test_rank_zero_short_moe_prefill_flops_less_named_products(
+        reference_flops, cell):
+    """A block of half a routing group routes its own tokens: rank 0's
+    FLOPs are at most the reference's partitioned prefill's and equal to
+    them less the named products of ``short_prefill_reference_extra``,
+    digit for digit; the one negative term is the experts'."""
+    arch, sizes, seq = cell
+    cfg = reduced(get_config(arch))
+    extra = short_prefill_reference_extra(cfg, *sizes, seq)
+    want = reference_flops[f"{arch}|{sizes[0]}x{sizes[1]}|{seq}"]
+    got = _port_count(arch, sizes, seq)["flops"]
+    assert got == want - sum(extra.values())
+    assert got <= want
+    assert [k for k, v in extra.items() if v < 0] == ["experts"]
 
 
 @pytest.mark.parametrize("arch,bound", (("falcon-mamba-7b", 8_421_376),

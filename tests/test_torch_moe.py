@@ -173,3 +173,42 @@ def test_moe_permutation_equivariance():
     y2, _ = MOE.moe_ffn(p, cfg_big, x[:, perm])
     np.testing.assert_allclose(y2.numpy(), y1[:, perm].numpy(), rtol=2e-2,
                                atol=2e-3)
+
+
+@pytest.mark.parametrize("ways", (2, 4))
+@pytest.mark.parametrize("rows,total,g", ((1, 64, 64), (2, 64, 128),
+                                          (2, 96, 64)))
+def test_block_capacity_positions_equal_one_devices(ways, rows, total, g):
+    """A prompt in ``ways`` blocks of each row (a long-context prefill's
+    data ranks) whose routing groups of ``g`` tokens of the flattened batch
+    span blocks (and, at 2 x 64 in one group of 128 or 2 x 96 in groups of
+    64, rows): each block's capacity positions, from its own pairs and the
+    counts of the blocks before it in the flattened order
+    (``sharding.spmd.counts_before``), equal one device's cumulative sum
+    over the whole group; the blocks' counts add up to each group's."""
+    from repro_torch.sharding.spmd import counts_before
+    rng = np.random.default_rng(ways * 7 + rows + total)
+    e, k = 8, 2
+    idx = torch.as_tensor(np.argsort(rng.random((rows, total, e)),
+                                     axis=-1)[..., :k])
+    probs = torch.softmax(torch.as_tensor(
+        rng.normal(0, 1, (rows, total, e)), dtype=torch.float32), -1)
+    onehot = MOE._one_hot(idx, e)                       # [B,S,k,E]
+    # one device: the pairs' running count over each group, in order
+    groups = onehot.reshape(rows * total // g, g * k, e)
+    one = (torch.cumsum(groups, dim=1).reshape(rows, total, k, e) *
+           onehot - 1.0)
+    n = total // ways
+    blocks = [(j * n, n, total) for j in range(ways)]
+    every = torch.stack([MOE.block_counts(
+        onehot[:, s:s + n].reshape(rows * n, k, e),
+        probs[:, s:s + n].reshape(rows * n, e),
+        idx[:, s:s + n].reshape(rows * n, k), rows, blk, g)
+        for blk in blocks for s in (blk[0],)])
+    for j, (s, _, _) in enumerate(blocks):
+        before, totals = counts_before(every, j)
+        got = MOE.block_positions(onehot[:, s:s + n].reshape(rows * n, k, e),
+                                  rows, blocks[j], g, before[:, :, 0])
+        assert torch.equal(got, one[:, s:s + n].reshape(rows * n, k, e)), j
+    assert torch.equal(totals[:, 0], groups.sum(dim=1))
+    assert torch.allclose(totals[:, 1], probs.reshape(-1, g, e).sum(1))
